@@ -1,0 +1,77 @@
+"""Read the reference's npz checkpoints into torch params.
+
+Schema (``repro/checkpoint/io.py``): one npz, keys are "/"-joined tree
+paths, ``__meta__`` a JSON string with ``step``; bf16 leaves are stored as
+uint16 views under ``<key>@bf16``.  Params-only files hold ``embed/...``;
+train-state files hold them under ``params/``.  Writing checkpoints is not
+ported yet.
+"""
+from __future__ import annotations
+
+import json
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.convert import tensor_from_numpy
+
+
+class CheckpointMismatch(ValueError):
+    """The checkpoint's keys/shapes do not cover the requested tree."""
+
+
+def load_flat(path: str, device) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """All arrays of an npz checkpoint as tensors, by key, and its meta."""
+    with np.load(path if path.endswith(".npz") else path + ".npz",
+                 allow_pickle=False) as data:
+        meta = json.loads(str(data["__meta__"]))
+        flat = {}
+        for k in data.files:
+            if k == "__meta__":
+                continue
+            if k.endswith("@bf16"):
+                flat[k[:-5]] = tensor_from_numpy(data[k], device, bf16=True)
+            else:
+                flat[k] = tensor_from_numpy(data[k], device)
+    return flat, meta
+
+
+def _flatten(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _unflatten_like(like, flat, prefix=""):
+    if isinstance(like, dict):
+        return {k: _unflatten_like(v, flat, f"{prefix}{k}/")
+                for k, v in like.items()}
+    return flat[prefix[:-1]]
+
+
+def restore_params(path: str, params_like) -> Tuple[dict, int]:
+    """Params from either format, in the structure, shapes and dtypes of
+    ``params_like`` and on its devices.  Returns ``(params, step)``;
+    raises :class:`CheckpointMismatch` listing every missing or
+    mismatched key."""
+    leaves = _flatten(params_like)
+    dev = next(iter(leaves.values())).device
+    flat, meta = load_flat(path, dev)
+    if any(k.startswith("params/") for k in flat):
+        flat = {k[len("params/"):]: v for k, v in flat.items()
+                if k.startswith("params/")}
+    missing = sorted(k for k in leaves if k not in flat)
+    bad = sorted(f"{k}: saved {tuple(flat[k].shape)} {flat[k].dtype} != "
+                 f"{tuple(v.shape)} {v.dtype}"
+                 for k, v in leaves.items() if k in flat
+                 and (flat[k].shape != v.shape or flat[k].dtype != v.dtype))
+    if missing or bad:
+        raise CheckpointMismatch(
+            f"checkpoint {path!r} does not match the params: missing "
+            f"{missing or 'none'}; mismatched {bad or 'none'}")
+    out = {k: flat[k].to(v.device) for k, v in leaves.items()}
+    return _unflatten_like(params_like, out), meta["step"]

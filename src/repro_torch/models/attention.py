@@ -1,0 +1,99 @@
+"""GQA attention for serving: prefill and one-token decode over a KV cache.
+
+Port of ``repro/models/attention.py`` (full attention).  The reference has
+no Pallas attention, so this is plain torch ops following ``_sdpa_block``'s
+arithmetic: bf16 einsums, fp32 logits / sqrt(hd), -1e30 mask, fp32 softmax
+cast back to bf16.  Sliding windows, softcaps, decode spans, paging and TP
+are not ported yet.
+
+Cache layout: ``{"k": (B, C, KV, hd), "v": (B, C, KV, hd)}``, RoPE applied
+at write time.  :func:`attn_decode` writes the new K/V row IN PLACE (the
+reference returns a new cache; its engine donates the old one).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.common import DTYPE, apply_rope
+
+_MASKED = -1e30
+
+
+def _project_qkv(params, x, num_heads, num_kv_heads, head_dim):
+    b, s, _ = x.shape
+    q = (x @ params["wq"]).reshape(b, s, num_heads, head_dim)
+    k = (x @ params["wk"]).reshape(b, s, num_kv_heads, head_dim)
+    v = (x @ params["wv"]).reshape(b, s, num_kv_heads, head_dim)
+    return q, k, v
+
+
+def _sdpa_block(q, k, v, mask):
+    """q: (B,S,H,hd); k,v: (B,T,KV,hd); mask (B|1, S, T) or broadcastable
+    to the (B, KV, G, S, T) logits."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, s, kv, h // kv, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).to(torch.float32)
+    logits = logits / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    if mask.ndim == 3:
+        mask = mask[:, None, None, :, :]
+    logits = torch.where(mask, logits, _MASKED)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h, hd)
+
+
+def init_cache(batch: int, cache_len: int, num_kv_heads: int, head_dim: int,
+               dtype=DTYPE, device=None):
+    shape = (batch, cache_len, num_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_prefill(params, x, *, cache_len, num_heads, num_kv_heads, head_dim,
+                 pos_embed="rope", rope_theta=10_000.0, pad_mask=None):
+    """Full-sequence causal attention that also fills a new cache.
+    ``pad_mask``: optional (B, S) bool, True = real token (left-padded
+    serving batches: pad keys are masked out of every query)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(params, x, num_heads, num_kv_heads, head_dim)
+    if pos_embed == "rope":
+        q = apply_rope(q, positions[None], rope_theta)
+        k = apply_rope(k, positions[None], rope_theta)
+    mask = (positions[None, :] <= positions[:, None])[None]      # (1, S, S)
+    if pad_mask is not None:
+        mask = mask & pad_mask[:, None, :]                       # (B, S, S)
+    out = _sdpa_block(q, k, v, mask).reshape(b, s, num_heads * head_dim)
+    cache = init_cache(b, cache_len, num_kv_heads, head_dim, k.dtype,
+                       x.device)
+    c = min(cache_len, s)
+    cache["k"][:, :c] = k[:, s - c:]
+    cache["v"][:, :c] = v[:, s - c:]
+    return out @ params["wo"], cache
+
+
+def attn_decode(params, x1, cache, pos: int, *, num_heads, num_kv_heads,
+                head_dim, pos_embed="rope", rope_theta=10_000.0,
+                pad_len=None):
+    """One-token decode.  x1: (B, 1, d); ``pos``: the new token's index,
+    the same for every row.  ``pad_len``: optional (B,) — cache slots
+    before it are left-padding and masked out.  Writes K/V in place."""
+    b = x1.shape[0]
+    c = cache["k"].shape[1]
+    q, k, v = _project_qkv(params, x1, num_heads, num_kv_heads, head_dim)
+    if pos_embed == "rope":
+        posb = torch.full((1, 1), pos, device=x1.device)
+        q = apply_rope(q, posb, rope_theta)
+        k = apply_rope(k, posb, rope_theta)
+    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+    idx = torch.arange(c, device=x1.device)
+    valid = idx <= pos
+    if pad_len is None:
+        mask = valid[None, None, None, :]                        # (1,1,1,C)
+    else:
+        mask = (valid[None] & (idx[None] >= pad_len[:, None])
+                )[:, None, None, None, :]                        # (B,1,1,1,C)
+    out = _sdpa_block(q, cache["k"], cache["v"], mask)
+    return out.reshape(b, 1, num_heads * head_dim) @ params["wo"], cache

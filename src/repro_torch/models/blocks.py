@@ -1,0 +1,92 @@
+"""Per-layer blocks for serving.
+
+Port of the dense attention block of ``repro/models/blocks.py``
+(``_attn_block_prefill`` / ``_attn_block_decode`` / ``_attn_block_cache``):
+pre-norm GQA attention + MLP with residuals.  Other kinds (moe, rwkv,
+hymba, local/global) are not ported yet and raise.
+
+Uniform interface, params stacked per group by the caller:
+  block_init(gen, cfg, kind, groups)                   -> stacked params
+  block_prefill(p, x, cfg, kind, cache_len, pad_mask)  -> (y, cache)
+  block_decode(p, x1, cache, pos, cfg, kind, pad_len)  -> (y, cache)
+  block_cache(cfg, kind, batch, cache_len, dtype, device)
+"""
+from __future__ import annotations
+
+from repro_torch.models import attention as A
+from repro_torch.models.common import (DTYPE, dense_init, mlp_apply, mlp_init,
+                                       norm_apply, norm_init)
+from repro_torch.models.config import ModelConfig
+
+PORTED_KINDS = ("dense",)
+
+
+def _check_kind(kind: str):
+    if kind not in PORTED_KINDS:
+        raise NotImplementedError(f"layer kind {kind!r} is not yet ported "
+                                  f"to repro_torch (ported: {PORTED_KINDS})")
+
+
+def _attn_kwargs(cfg: ModelConfig):
+    return dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.resolved_head_dim, pos_embed=cfg.pos_embed,
+                rope_theta=cfg.rope_theta)
+
+
+def block_init(gen, cfg: ModelConfig, kind: str, groups: int):
+    _check_kind(kind)
+    d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd, lead = cfg.resolved_head_dim, (groups,)
+    return {"ln1": norm_init(d, cfg.norm, gen.device, lead),
+            "ln2": norm_init(d, cfg.norm, gen.device, lead),
+            "attn": {"wq": dense_init(gen, d, h * hd, DTYPE, lead),
+                     "wk": dense_init(gen, d, kv * hd, DTYPE, lead),
+                     "wv": dense_init(gen, d, kv * hd, DTYPE, lead),
+                     "wo": dense_init(gen, h * hd, d, DTYPE, lead)},
+            "mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp, DTYPE, lead)}
+
+
+def _attn_block_prefill(p, x, cfg: ModelConfig, cache_len: int,
+                        pad_mask=None):
+    h, cache = A.attn_prefill(p["attn"], norm_apply(p["ln1"], x, cfg.norm),
+                              cache_len=cache_len, pad_mask=pad_mask,
+                              **_attn_kwargs(cfg))
+    x = x + h
+    x = x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.mlp)
+    return x, cache
+
+
+def _attn_block_decode(p, x1, cache, pos: int, cfg: ModelConfig,
+                       pad_len=None):
+    h, cache = A.attn_decode(p["attn"], norm_apply(p["ln1"], x1, cfg.norm),
+                             cache, pos, pad_len=pad_len, **_attn_kwargs(cfg))
+    x1 = x1 + h
+    x1 = x1 + mlp_apply(p["mlp"], norm_apply(p["ln2"], x1, cfg.norm),
+                        cfg.mlp)
+    return x1, cache
+
+
+def _attn_block_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                      device):
+    return A.init_cache(batch, cache_len, cfg.num_kv_heads,
+                        cfg.resolved_head_dim, dtype, device)
+
+
+def block_prefill(p, x, cfg: ModelConfig, kind: str, cache_len: int,
+                  pad_mask=None):
+    """``pad_mask``: (B, S) bool, True = real token."""
+    _check_kind(kind)
+    return _attn_block_prefill(p, x, cfg, cache_len, pad_mask)
+
+
+def block_decode(p, x1, cache, pos: int, cfg: ModelConfig, kind: str,
+                 pad_len=None):
+    """``pad_len``: (B,) — cache slots before it are left-padding."""
+    _check_kind(kind)
+    return _attn_block_decode(p, x1, cache, pos, cfg, pad_len)
+
+
+def block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+                dtype=DTYPE, device=None):
+    _check_kind(kind)
+    return _attn_block_cache(cfg, batch, cache_len, dtype, device)

@@ -1,0 +1,81 @@
+"""The port stands alone: no file of ``src/repro_torch/`` or
+``chip_smoke.py`` imports JAX or the reference package, and entry points
+that are given no device ask for CUDA (and raise where there is none)."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import device as D
+from repro_torch.configs.registry import get
+from repro_torch.launch import serve as tserve
+from repro_torch.models import transformer
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = FORBIDDEN & set(_imported_roots(path))
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+            for p in sorted(PORT.rglob("*.py"))]
+    mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r})\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_is_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert D.resolve_device() == torch.device("cuda")
+    assert D.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_without_device_ask_for_cuda(no_cuda):
+    cfg = get("gpt2-small", smoke=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        D.resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        transformer.init_caches(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tserve.main(["--smoke", "--batch", "1", "--new-tokens", "2"])
+
+
+def test_cpu_tensors_take_the_plain_path():
+    assert not D.use_kernel(torch.zeros(2))
