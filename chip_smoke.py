@@ -34,7 +34,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
-SCALAR_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores
+FP32_OPS_PER_S = 67e12        # H100 SXM float32 rate outside the tensor cores
 BATCH = 4
 D_MODEL = 768                 # gpt2-small
 PROMPT_LENS = (64, 17, 40, 5)  # mixed-length static batch, longest 64
@@ -90,8 +90,8 @@ def device_events(prof):
 
 def device_ms(torch, fn, kernel=None, iters=20):
     """Device time per call of everything ``fn`` launches (torch.profiler),
-    and of the kernels whose name contains ``kernel``.  Where the profiler
-    sees no device time, the CUDA-event time of ``call_ms`` instead."""
+    and of the kernels whose name contains ``kernel``.  Raises where the
+    profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -102,16 +102,18 @@ def device_ms(torch, fn, kernel=None, iters=20):
         torch.cuda.synchronize()
     events = device_events(prof)
     total = sum(ms for ms, _ in events) / iters
-    if total > 0:
-        return total, sum(ms for ms, key in events
-                          if kernel and kernel in key) / iters
-    log("# torch.profiler saw no device time: CUDA-event time instead")
-    return call_ms(torch, fn), None
+    if not total > 0:
+        raise AssertionError("torch.profiler saw no device time")
+    return total, sum(ms for ms, key in events
+                      if kernel and kernel in key) / iters
 
 
 def bound_ms(nbytes, nops):
+    """The larger of the bytes the function must move (each input read
+    once, each output written once) over HBM's rate, and the float32
+    operations it needs over the card's float32 rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / SCALAR_OPS_PER_S * 1e3
+    t_ops = nops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -180,46 +182,51 @@ def check_kernels(torch, D, pack4, topk, inputs):
             idx = s_k[1]
             assert idx.shape == (m, k) and bool(
                 (idx[:, 1:] > idx[:, :-1]).all()), "indices not ascending"
-        for per_row in (True, False):
-            p_k, p_p = kernel_and_plain(
-                torch, D, lambda: pack4.pack4_wire(x32, per_row))
-            err["pack4_wire"] = max(err["pack4_wire"],
-                                    max_err(torch, p_k, p_p))
-            u_k, u_p = kernel_and_plain(
-                torch, D, lambda: pack4.unpack4_wire(*p_p, n))
-            err["unpack4_wire"] = max(err["unpack4_wire"],
-                                      max_err(torch, [u_k], [u_p]))
+        mn, sc = pack4.minmax_scale(x32)
+        p_k, p_p = kernel_and_plain(torch, D,
+                                    lambda: pack4.pack4_wire(x32, mn, sc))
+        err["pack4_wire"] = max(err["pack4_wire"],
+                                max_err(torch, [p_k], [p_p]))
+        u_k, u_p = kernel_and_plain(
+            torch, D, lambda: pack4.unpack4_wire(p_p, mn, sc, n))
+        err["unpack4_wire"] = max(err["unpack4_wire"],
+                                  max_err(torch, [u_k], [u_p]))
         log(f"# kernels bit-exact vs plain: {label}")
     return err
 
 
 def time_kernels(torch, D, pack4, topk, x32):
     """name -> dict of times and bound at one main-path shape (bf16
-    activations for TopK, their f32 cast for q4, as the codecs pass)."""
+    activations for TopK, their f32 cast and per-row stats for q4, as the
+    codecs pass).  The library calls take the magnitudes precomputed."""
     x = x32.to(torch.bfloat16)
     m, n = x.shape
+    e = x.element_size()
     k = max(1, int(round(0.1 * n)))
     h = (n + 1) // 2
     thresh = topk.topk_threshold_plain(x, k)
     mag = x.float().abs()
-    neg_mag = -mag
-    packed, mn, sc = pack4.pack4_wire_plain(x32, True)
+    mn, sc = pack4.minmax_scale(x32)
+    packed = pack4.pack4_wire_plain(x32, mn, sc)
     cases = {
         # (wrapper call, its CUDA kernel's name, library call or None,
-        #  bytes moved, operations)
+        #  bytes the function moves, float32 operations it needs: the
+        #  threshold one compare per |x| as a one-pass select, the compact
+        #  two compares and a count, the pack sub/div/round/clip and a
+        #  shift-or per pair, the unpack a mul and an add)
         "topk_threshold": (lambda: topk.topk_threshold(x, k),
                            "topk_threshold_kernel",
-                           lambda: torch.kthvalue(neg_mag, k, dim=1),
-                           m * n * 2 + m * 4, 2 * 31 * m * n),
+                           lambda: torch.topk(mag, k, dim=1).values[:, -1:],
+                           m * n * e + m * 4, m * n),
         "topk_compact": (lambda: topk.topk_compact(x, thresh, k),
                          "topk_compact_kernel",
                          lambda: torch.topk(mag, k, dim=1),
-                         m * n * 2 + m * 4 + m * k * (2 + 4), 4 * m * n),
-        "pack4_wire": (lambda: pack4.pack4_wire(x32, True), "pack4_kernel",
-                       None, m * n * 4 + m * h, 6 * m * n),
+                         m * n * e + m * 4 + m * k * (e + 4), 3 * m * n),
+        "pack4_wire": (lambda: pack4.pack4_wire(x32, mn, sc), "pack4_kernel",
+                       None, m * n * 4 + 8 * m + m * h, 6 * m * n),
         "unpack4_wire": (lambda: pack4.unpack4_wire(packed, mn, sc, n),
                          "unpack4_kernel", None,
-                         m * h + 8 * m + m * n * 4, 3 * m * n),
+                         m * h + 8 * m + m * n * 4, 2 * m * n),
     }
     rows = {}
     for name, (fn, kernel, lib, nbytes, nops) in cases.items():

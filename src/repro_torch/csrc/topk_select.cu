@@ -25,7 +25,6 @@
 // threshold also reads its row 31 times (from L2).  Simple first: a
 // multi-block-per-row or radix-select version is later work.
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,7 +38,6 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ int mag_bits(T v) {
@@ -164,7 +162,7 @@ int launch_compact(const void* x, const void* thresh, void* vals, void* idx,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns
+// dtype: 0 = float32, 1 = bfloat16.  Returns
 // cudaGetLastError() right after the launch (or cudaErrorInvalidValue for
 // an unknown dtype).  The caller checks 1 <= k <= n < 2**31, m >= 1.
 int topk_threshold_launch(const void* x, void* thresh, int dtype,
@@ -174,7 +172,6 @@ int topk_threshold_launch(const void* x, void* thresh, int dtype,
   switch (dtype) {
     case 0: return launch_threshold<float>(x, thresh, m, n, k, s);
     case 1: return launch_threshold<__nv_bfloat16>(x, thresh, m, n, k, s);
-    case 2: return launch_threshold<__half>(x, thresh, m, n, k, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -187,7 +184,6 @@ int topk_compact_launch(const void* x, const void* thresh, void* vals,
     case 0: return launch_compact<float>(x, thresh, vals, idx, m, n, k, s);
     case 1:
       return launch_compact<__nv_bfloat16>(x, thresh, vals, idx, m, n, k, s);
-    case 2: return launch_compact<__half>(x, thresh, vals, idx, m, n, k, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -3,17 +3,17 @@
 Port of ``repro/kernels/pack4.py``.  Byte ``j`` of a row is
 ``code[2j] | code[2j+1] << 4`` with one zero pad code when the feature dim
 is odd.  The JAX kernel takes one per-tensor (min, scale) pair; the port's
-kernel takes one pair PER ROW, because the serving boundary packs each
-request's row as its own payload (``per_row=True``, the written-out
-``jax.vmap`` of core/boundary.py).  With one row — or ``per_row=False``,
-where the single pair is broadcast — it is exactly the TPU kernel's
+kernel takes one pair PER ROW, ``(M,)`` each, because the serving boundary
+packs each request's row as its own payload (the written-out ``jax.vmap``
+of core/boundary.py).  With one row — or the per-tensor pair expanded over
+the rows, as ``transport/codecs.py`` does — it is exactly the TPU kernel's
 per-tensor format.
 
-The (min, scale) reduction stays a torch reduction before the kernel, as
-the JAX package computes it outside its Pallas body.  Bytes, min and scale
-are bit-identical to the plain version and to the JAX q4 wire format; the
-dequant is ``codes*scale+min`` without FMA contraction, bit-identical to
-the plain version.
+The (min, scale) reduction (:func:`minmax_scale`) stays a torch reduction
+before the kernel, as the JAX package computes it outside its Pallas body.
+Bytes are bit-identical to the plain version and to the JAX q4 wire format;
+the dequant is ``codes*scale+min`` without FMA contraction, bit-identical
+to the plain version.
 
 Bound on the H100: memory bytes (see the note in ``csrc/pack4.cu``).
 """
@@ -31,97 +31,94 @@ _SIGNATURES = {
 }
 
 
-def minmax_scale(flat: torch.Tensor, per_row: bool):
-    """(min, scale) as in ``quantize_kbit``: scalars, or ``(M,)`` per row."""
-    if per_row:
-        mn, mx = flat.amin(dim=1), flat.amax(dim=1)
-    else:
-        mn, mx = flat.min(), flat.max()
+def minmax_scale(flat: torch.Tensor):
+    """Per-row ``(min, scale)`` of ``(M, N)``, ``(M,)`` each, as in
+    ``quantize_kbit``."""
+    mn, mx = flat.amin(dim=1), flat.amax(dim=1)
     span = mx - mn
     sc = torch.where(span > 0, span / LEVELS, torch.ones_like(span))
     return mn, sc
 
 
-def _rows(v: torch.Tensor, m: int) -> torch.Tensor:
-    """A scalar or ``(M,)`` stat as a contiguous ``(M,)`` f32 vector."""
-    return v.to(torch.float32).reshape(-1).expand(m).contiguous()
+def _check_stats(m, mn, sc):
+    for v in (mn, sc):
+        if v.shape != (m,) or v.dtype != torch.float32:
+            raise ValueError(f"min/scale must be ({m},) float32, got "
+                             f"{tuple(v.shape)} {v.dtype}")
 
 
-def _check_pack(flat):
+def _check_pack(flat, mn, sc):
     if flat.ndim != 2 or flat.dtype != torch.float32:
         raise ValueError(f"pack4_wire takes a 2-D float32 tensor, got "
                          f"{tuple(flat.shape)} {flat.dtype}")
+    _check_stats(flat.shape[0], mn, sc)
 
 
-def pack4_wire_plain(flat: torch.Tensor, per_row: bool = False):
+def pack4_wire_plain(flat: torch.Tensor, mn: torch.Tensor,
+                     sc: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`pack4_wire`."""
-    _check_pack(flat)
-    m, n = flat.shape
-    mn, sc = minmax_scale(flat, per_row)
-    codes = torch.clamp(torch.round((flat - _rows(mn, m)[:, None])
-                                    / _rows(sc, m)[:, None]), 0.0, LEVELS)
-    codes = codes.to(torch.uint8)
+    _check_pack(flat, mn, sc)
+    n = flat.shape[1]
+    codes = torch.clamp(torch.round((flat - mn[:, None]) / sc[:, None]),
+                        0.0, LEVELS).to(torch.uint8)
     if n % 2:
         codes = torch.nn.functional.pad(codes, (0, 1))
-    packed = codes[:, 0::2] | (codes[:, 1::2] << 4)
-    return packed, mn, sc
+    return codes[:, 0::2] | (codes[:, 1::2] << 4)
 
 
-def pack4_wire(flat: torch.Tensor, per_row: bool = False):
-    """flat: (M, N) float32 -> ``(packed uint8 (M, ceil(N/2)), min, scale)``;
-    min/scale are scalars, or ``(M,)`` with ``per_row``."""
+def pack4_wire(flat: torch.Tensor, mn: torch.Tensor,
+               sc: torch.Tensor) -> torch.Tensor:
+    """flat: (M, N) float32, per-row min/scale (M,) float32 -> packed uint8
+    (M, ceil(N/2))."""
     if not D.use_kernel(flat):
-        return pack4_wire_plain(flat, per_row)
-    _check_pack(flat)
-    flat = flat.contiguous()
+        return pack4_wire_plain(flat, mn, sc)
+    _check_pack(flat, mn, sc)
+    flat, mn, sc = flat.contiguous(), mn.contiguous(), sc.contiguous()
     m, n = flat.shape
-    mn, sc = minmax_scale(flat, per_row)
-    mn_r, sc_r = _rows(mn, m), _rows(sc, m)
     packed = torch.empty((m, (n + 1) // 2), dtype=torch.uint8,
                          device=flat.device)
     lib = _build.library("pack4", _SIGNATURES)
     with torch.cuda.device(flat.device):
-        _build.call(lib, "pack4_wire_launch", flat.data_ptr(),
-                    mn_r.data_ptr(), sc_r.data_ptr(), packed.data_ptr(), m, n,
+        _build.call(lib, "pack4_wire_launch", flat.data_ptr(), mn.data_ptr(),
+                    sc.data_ptr(), packed.data_ptr(), m, n,
                     torch.cuda.current_stream().cuda_stream)
     _build.count("pack4_wire")
-    return packed, mn, sc
+    return packed
 
 
-def _check_unpack(packed, n):
+def _check_unpack(packed, mn, sc, n):
     if packed.ndim != 2 or packed.dtype != torch.uint8:
         raise ValueError(f"unpack4_wire takes a 2-D uint8 tensor, got "
                          f"{tuple(packed.shape)} {packed.dtype}")
     if packed.shape[1] != (n + 1) // 2:
         raise ValueError(f"packed width {packed.shape[1]} != ceil({n}/2)")
+    _check_stats(packed.shape[0], mn, sc)
 
 
-def unpack4_wire_plain(packed: torch.Tensor, mn, sc, n: int,
-                       dtype=torch.float32) -> torch.Tensor:
+def unpack4_wire_plain(packed: torch.Tensor, mn: torch.Tensor,
+                       sc: torch.Tensor, n: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`unpack4_wire`."""
-    _check_unpack(packed, n)
+    _check_unpack(packed, mn, sc, n)
     m = packed.shape[0]
     codes = torch.stack([packed & 0xF, packed >> 4], dim=-1)
     codes = codes.reshape(m, -1)[:, :n].to(torch.float32)
-    out = codes * _rows(sc, m)[:, None] + _rows(mn, m)[:, None]
-    return out.to(dtype)
+    return codes * sc[:, None] + mn[:, None]
 
 
-def unpack4_wire(packed: torch.Tensor, mn, sc, n: int,
-                 dtype=torch.float32) -> torch.Tensor:
-    """Inverse of :func:`pack4_wire`: (M, ceil(n/2)) uint8 -> (M, n)
-    ``dtype``; ``mn``/``sc`` scalars or ``(M,)``."""
+def unpack4_wire(packed: torch.Tensor, mn: torch.Tensor, sc: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """Inverse of :func:`pack4_wire`: (M, ceil(n/2)) uint8 and per-row
+    min/scale (M,) -> (M, n) float32."""
     if not D.use_kernel(packed):
-        return unpack4_wire_plain(packed, mn, sc, n, dtype)
-    _check_unpack(packed, n)
-    packed = packed.contiguous()
+        return unpack4_wire_plain(packed, mn, sc, n)
+    _check_unpack(packed, mn, sc, n)
+    packed, mn, sc = packed.contiguous(), mn.contiguous(), sc.contiguous()
     m = packed.shape[0]
-    mn_r, sc_r = _rows(mn, m), _rows(sc, m)
     out = torch.empty((m, n), dtype=torch.float32, device=packed.device)
     lib = _build.library("pack4", _SIGNATURES)
     with torch.cuda.device(packed.device):
         _build.call(lib, "unpack4_wire_launch", packed.data_ptr(),
-                    mn_r.data_ptr(), sc_r.data_ptr(), out.data_ptr(), m, n,
+                    mn.data_ptr(), sc.data_ptr(), out.data_ptr(), m, n,
                     torch.cuda.current_stream().cuda_stream)
     _build.count("unpack4_wire")
-    return out.to(dtype)
+    return out

@@ -18,7 +18,7 @@ import torch
 from repro_torch import device as D
 from repro_torch.kernels import _build
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "topk_threshold_launch": (_build.P, _build.P, _build.I32)
     + (_build.I64,) * 3 + (_build.P,),
@@ -29,7 +29,7 @@ _SIGNATURES = {
 
 def _check(flat: torch.Tensor, k: int):
     if flat.ndim != 2 or flat.dtype not in _DTYPE_CODE:
-        raise ValueError(f"TopK select takes a 2-D float32/bfloat16/float16 "
+        raise ValueError(f"TopK select takes a 2-D float32/bfloat16 "
                          f"tensor, got {tuple(flat.shape)} {flat.dtype}")
     m, n = flat.shape
     if not (1 <= k <= n < 2 ** 31) or m < 1:

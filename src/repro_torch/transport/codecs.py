@@ -31,7 +31,8 @@ import torch
 from repro_torch.core.compressors import (Compressor, dequantize_kbit,
                                           quantize_kbit, topk_count,
                                           topk_scatter)
-from repro_torch.kernels.pack4 import pack4_wire, unpack4_wire
+from repro_torch.kernels.pack4 import (minmax_scale, pack4_wire,
+                                      unpack4_wire)
 from repro_torch.kernels.topk_select import topk_select_wire
 
 # Index dtype threshold: a flattened feature dim of up to 2**16 entries has
@@ -114,7 +115,13 @@ class QuantCodec(WireCodec):
     def pack(self, x, k_frac: float = 1.0, per_request: bool = False):
         flat = x.reshape(x.shape[0], -1).to(torch.float32)
         if self.bits == 4:
-            packed, mn, sc = pack4_wire(flat, per_row=per_request)
+            if per_request:
+                mn, sc = minmax_scale(flat)
+            else:   # one pair over the tensor, the kernel reads it per row
+                mn, sc = (v.reshape(()) for v in
+                          minmax_scale(flat.reshape(1, -1)))
+            m = flat.shape[0]
+            packed = pack4_wire(flat, mn.expand(m), sc.expand(m))
             return {"codes4": packed, "min": mn, "scale": sc}
         codes, mn, sc = quantize_kbit(flat, 8, dim=1 if per_request else None)
         if per_request:
@@ -124,8 +131,9 @@ class QuantCodec(WireCodec):
     def unpack(self, payload, shape, dtype=torch.bfloat16):
         n = _flat_n(shape)
         if "codes4" in payload:
-            flat = unpack4_wire(payload["codes4"], payload["min"],
-                                payload["scale"], n)
+            m = payload["codes4"].shape[0]
+            flat = unpack4_wire(payload["codes4"], payload["min"].expand(m),
+                                payload["scale"].expand(m), n)
         else:
             flat = dequantize_kbit(payload["codes"],
                                    _stat_column(payload["min"]),

@@ -98,9 +98,10 @@ def test_q4_unpack(shape, kind, jax_backend):
     jax_backend("jnp")
     jp = JX.get_codec("q4").pack(jnp.asarray(x))
     packed = tensor_from_numpy(np.asarray(jp["codes4"]), "cpu")
-    mn = tensor_from_numpy(np.asarray(jp["min"]), "cpu")
-    sc = tensor_from_numpy(np.asarray(jp["scale"]), "cpu")
-    n = shape[1]
+    m, n = shape
+    # the port's kernel reads the per-tensor pair once per row
+    mn = tensor_from_numpy(np.asarray(jp["min"]), "cpu").expand(m)
+    sc = tensor_from_numpy(np.asarray(jp["scale"]), "cpu").expand(m)
     got = TP4.unpack4_wire(packed, mn, sc, n)
     _bits_equal(got, TP4.unpack4_wire_plain(packed, mn, sc, n))
     _bits_equal(got, JX.get_codec("q4").unpack(jp, shape, jnp.float32))
@@ -302,9 +303,16 @@ def test_plain_backend_and_bad_backend(monkeypatch):
 
 
 def test_kernel_wrappers_check_inputs():
+    mn, sc = torch.zeros(4), torch.ones(4)
     with pytest.raises(ValueError, match="float32"):
-        TP4.pack4_wire(torch.zeros(4, 8, dtype=torch.float64))
+        TP4.pack4_wire(torch.zeros(4, 8, dtype=torch.float64), mn, sc)
+    with pytest.raises(ValueError, match=r"min/scale must be \(4,\)"):
+        TP4.pack4_wire(torch.zeros(4, 8), mn[:1], sc[:1])
     with pytest.raises(ValueError, match="ceil"):
-        TP4.unpack4_wire(torch.zeros(2, 3, dtype=torch.uint8), 0.0, 1.0, 9)
+        TP4.unpack4_wire(torch.zeros(4, 3, dtype=torch.uint8), mn, sc, 9)
+    with pytest.raises(ValueError, match="min/scale"):
+        TP4.unpack4_wire(torch.zeros(4, 5, dtype=torch.uint8), mn[:2], sc, 9)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        TTS.topk_select_wire(torch.zeros(2, 8, dtype=torch.float16), 2)
     with pytest.raises(ValueError, match="k <= n"):
         TTS.topk_select_wire(torch.zeros(2, 8), 9)

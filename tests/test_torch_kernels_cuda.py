@@ -43,24 +43,23 @@ def test_topk_kernels_bit_exact(gen, shape, dtype, monkeypatch):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("per_row", [True, False])
 @pytest.mark.parametrize("shape", SHAPES)
-def test_pack4_kernels_bit_exact(gen, shape, per_row, monkeypatch):
+def test_pack4_kernels_bit_exact(gen, shape, monkeypatch):
     x = torch.randn(shape, generator=gen, device="cuda")
-    got, want = _kernel_and_plain(lambda: pack4.pack4_wire(x, per_row),
+    mn, sc = pack4.minmax_scale(x)
+    got, want = _kernel_and_plain(lambda: pack4.pack4_wire(x, mn, sc),
                                   monkeypatch)
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got.dtype == want.dtype and torch.equal(got, want)
     got, want = _kernel_and_plain(
-        lambda: pack4.unpack4_wire(*want, shape[1]), monkeypatch)
+        lambda: pack4.unpack4_wire(want, mn, sc, shape[1]), monkeypatch)
     assert torch.equal(got, want)
 
 
 def test_each_wrapper_counts_one_launch(gen, monkeypatch):
     x = torch.randn((2, 1000), generator=gen, device="cuda")
     _build.reset_launches()
-    packed, mn, sc = pack4.pack4_wire(x, True)
-    pack4.unpack4_wire(packed, mn, sc, 1000)
+    mn, sc = pack4.minmax_scale(x)
+    pack4.unpack4_wire(pack4.pack4_wire(x, mn, sc), mn, sc, 1000)
     topk_select.topk_select_wire(x, 100)
     assert _build.LAUNCHES == {"pack4_wire": 1, "unpack4_wire": 1,
                                "topk_threshold": 1, "topk_compact": 1}
