@@ -7,12 +7,14 @@ Needs one CUDA card and nvcc; exits non-zero, printing no result, without
 them or outside a checkout of the repository.  Phases, in order, every
 failure fatal:
 
-  1. card name and power limit (nvidia-smi); build every ``csrc/*.cu``.
+  1. card name and power limit (nvidia-smi); build every ``csrc/*.cu``
+     (one nvcc per source, all started together).  Deterministic
+     algorithms are on for the whole run.
   2. every kernel against its plain PyTorch version on the card, bit-exact,
-     at the serving shapes and edge cases; then, at the main path's
-     prefill and decode shapes, device time per call (torch.profiler) of
-     the kernel, of its plain version and of the one torch call computing
-     the same function, beside the bytes-or-operations bound.
+     at the serving and training shapes and edge cases; then, at the main
+     paths' shapes, device time per call (torch.profiler) of the kernel,
+     of its plain version and of the one torch call computing the same
+     function, beside the bytes-or-operations bound.
   3. serve full-width gpt2-small (random weights from a seeded generator)
      with ``ServeEngine`` under the policies none, q4q8 and top10, launch
      counters set to 0 just before and read just after: each compressed
@@ -20,11 +22,20 @@ failure fatal:
      must give the same tokens.  The smoke model's prefill logits on the
      card must agree with the CPU path's (which the CPU tests hold to the
      JAX package).  Prefill / decode tokens/s from ``throughput_probe``.
-  4. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+  4. train full-width gpt2-small through the simulated stage cuts (batch
+     8, seq 128, 4 stages, the launch/train AdamW) for 4 steps under
+     none, q4q8, top10, top10reuse and AQ-SGD, launch counters set to 0
+     just before and read just after: exact launches per step, finite
+     and falling losses, the same losses under the plain backend; eval
+     with compression on and off; one step of the smoke model on the
+     card against the CPU; tokens/s and a profile of one step per policy.
+  5. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -43,6 +54,18 @@ MAX_SEQ = 256
 POLICY_KERNELS = {"none": (), "q4q8": ("pack4_wire", "unpack4_wire"),
                   "top10": ("topk_threshold", "topk_compact")}
 LOGIT_ATOL = 0.03             # bf16 logits, card vs CPU (tests/test_torch_serve.py)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 4
+AQSGD_SAMPLES = 16            # steps 3-4 revisit the rows steps 1-2 wrote
+# policy -> (launch/train --policy, --feedback), the kernel its cuts
+# launch, launches per train step (3 cuts; top10reuse masks the gradient
+# with the forward's exact TopK, so only its 3 forward cuts launch)
+TRAIN_POLICIES = {"none": (("none", "none"), None, 0),
+                  "q4q8": (("q4q8", "none"), "quant_dequant", 6),
+                  "top10": (("top10", "none"), "topk_block", 6),
+                  "top10reuse": (("top10reuse", "none"), "topk_block", 3),
+                  "aqsgd": (("none", "aqsgd"), "topk_block", 6)}
+LOSS_ATOL = 2e-3              # smoke-model loss, card vs CPU (tests/test_torch_train.py)
+CUT_SHAPE = (TRAIN_BATCH, TRAIN_SEQ * D_MODEL)
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "topk_threshold": ("src/repro_torch/csrc/topk_select.cu",
                        "src/repro/kernels/topk_select.py:58"),
@@ -52,9 +75,17 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                    "src/repro/kernels/pack4.py:82"),
     "unpack4_wire": ("src/repro_torch/csrc/pack4.cu",
                      "src/repro/kernels/pack4.py:107"),
+    "quant_dequant": ("src/repro_torch/csrc/quantize.cu",
+                      "src/repro/kernels/quantize.py:58"),
+    "topk_block": ("src/repro_torch/csrc/topk_mask.cu",
+                   "src/repro/kernels/topk_mask.py:55"),
 }
+SERVE_KERNELS = ("topk_threshold", "topk_compact", "pack4_wire",
+                 "unpack4_wire")
+TRAIN_KERNELS = ("quant_dequant", "topk_block")
 PREFILL = f"prefill ({BATCH}, {max(PROMPT_LENS)}*768)"
 DECODE = f"decode ({BATCH}, 768)"
+CUT = f"training cut ({TRAIN_BATCH}, {TRAIN_SEQ}*768) bf16"
 
 
 def log(*a):
@@ -165,7 +196,7 @@ def max_err(torch, got, want):
 
 
 def check_kernels(torch, D, pack4, topk, inputs):
-    err = dict.fromkeys(KERNELS, 0.0)
+    err = dict.fromkeys(SERVE_KERNELS, 0.0)
     for label, x32 in inputs.items():
         m, n = x32.shape
         k = max(1, int(round(0.1 * n)))
@@ -228,6 +259,12 @@ def time_kernels(torch, D, pack4, topk, x32):
                          "unpack4_kernel", None,
                          m * h + 8 * m + m * n * 4, 2 * m * n),
     }
+    return time_cases(torch, D, cases)
+
+
+def time_cases(torch, D, cases):
+    """name -> times and bound of each ``(wrapper call, its CUDA kernel's
+    name, library call or None, bytes, float32 operations)``."""
     rows = {}
     for name, (fn, kernel, lib, nbytes, nops) in cases.items():
         D.KERNEL_BACKEND = "auto"
@@ -244,6 +281,79 @@ def time_kernels(torch, D, pack4, topk, x32):
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, nops)
         rows[name] = row
     return rows
+
+
+def cut_inputs(torch):
+    """The training cut's tensors: its shape in bf16 and f32, a shorter
+    sequence, m = 6 (row tile 2), the whole-tensor fallback tile, and a
+    constant, a half-zero and a heavily tied tensor."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(m, n):
+        return torch.randn((m, n), generator=gen, device="cuda")
+
+    x = randn(*CUT_SHAPE)
+    zero_rows = randn(4, 4096)
+    zero_rows[::2] = 0.0
+    bf16 = torch.bfloat16
+    return {
+        CUT: x.to(bf16),
+        f"training cut {CUT_SHAPE} f32": x,
+        "(4, 64*768) bf16": randn(4, 64 * D_MODEL).to(bf16),
+        "m=6 (6, 4096) bf16": randn(6, 4096).to(bf16),
+        "fallback tile (4, 767) bf16": randn(4, 767).to(bf16),
+        "fallback tile (4, 767) f32": randn(4, 767),
+        "constant (4, 4096) bf16": torch.full((4, 4096), 3.25, device="cuda",
+                                              dtype=bf16),
+        "all-zero rows (4, 4096) f32": zero_rows,
+        "heavy ties (4, 4096) bf16": torch.randint(
+            -3, 4, (4, 4096), generator=gen, device="cuda").to(bf16),
+    }
+
+
+def check_cut_kernels(torch, D, ops, inputs):
+    """Both training-cut kernels, through the ops layer that picks the
+    main path's tiles, against their plain versions: bit-exact."""
+    err = dict.fromkeys(TRAIN_KERNELS, 0.0)
+    for label, x in inputs.items():
+        for bits in (4, 8):
+            got, want = kernel_and_plain(
+                torch, D, lambda: ops.quant_dequant_op(x, bits))
+            err["quant_dequant"] = max(err["quant_dequant"],
+                                       max_err(torch, [got], [want]))
+        for k_frac in (0.1, 0.3):
+            got, want = kernel_and_plain(
+                torch, D, lambda: ops.topk_block_op(x, k_frac))
+            err["topk_block"] = max(err["topk_block"],
+                                    max_err(torch, [got], [want]))
+        log(f"# cut kernels bit-exact vs plain: {label}")
+    return err
+
+
+def time_cut_kernels(torch, D, ops, x):
+    """Both training-cut kernels at the cut's shape.  Each function reads
+    x once and writes its output once.  The quantizer needs about 9
+    float32 operations per element (min, max, sub, div, round, 2 clamps,
+    mul, add), the TopK mask 3 (abs, compare, select): the bisection's
+    24 passes are the kernel's cost, not the function's.  The library
+    yardstick of the TopK mask is the EXACT per-(row, tile) k-th largest
+    magnitude (``ref.topk_exact_block_ref``'s threshold, not the
+    bisection's bits) from ``torch.topk`` on precomputed magnitudes; the
+    quantizer has no one-call equivalent."""
+    m, n = x.shape
+    e = x.element_size()
+    bn = 2048                                   # lane_block(128 * 768)
+    k = math.ceil(0.1 * bn)
+    mag = x.float().abs().view(m * n // bn, bn)
+    return time_cases(torch, D, {
+        "quant_dequant": (lambda: ops.quant_dequant_op(x, 4),
+                          "quant_dequant_kernel", None, 2 * m * n * e,
+                          9 * m * n),
+        "topk_block": (lambda: ops.topk_block_op(x, 0.1),
+                       "topk_block_kernel",
+                       lambda: torch.topk(mag, k, dim=1).values[:, -1:],
+                       2 * m * n * e, 3 * m * n),
+    })
 
 
 # ---------------------------------------------------------------------------
@@ -360,6 +470,179 @@ def check_against_cpu(torch, transformer, get):
         f"(<= {LOGIT_ATOL})")
 
 
+# ---------------------------------------------------------------------------
+# phase 4: training
+# ---------------------------------------------------------------------------
+
+def train_run(torch, cfg, params, name, build, steps=TRAIN_STEPS,
+              profile_step=None):
+    """``steps`` train steps of ``name`` from ``params``, built as
+    ``launch/train`` builds its run.  Returns the losses, each step's
+    launches, each step's wall seconds and the profile of step
+    ``profile_step`` (1-based) if asked."""
+    from repro_torch.core.boundary import init_boundary_state
+    from repro_torch.launch.train import build_policy, synthetic_stream
+    from repro_torch.models.transformer import segment_bounds
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.steps import make_lm_train_step
+
+    policy = build_policy(*TRAIN_POLICIES[name][0])
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="cosine", t_max=steps, grad_clip=1.0)
+    cuts = len(segment_bounds(cfg.num_groups, policy.num_stages)) - 1
+    bstates = [init_boundary_state(policy.at(i), (TRAIN_SEQ, cfg.d_model),
+                                   batch=TRAIN_BATCH,
+                                   num_samples=AQSGD_SAMPLES,
+                                   dtype=torch.bfloat16, device="cuda")
+               for i in range(cuts)]
+    step = make_lm_train_step(cfg, policy, opt)
+    stream = synthetic_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, 0,
+                              num_samples=AQSGD_SAMPLES)
+    opt_state = init_opt_state(opt, params)
+    losses, launches, seconds, prof = [], [], [], None
+    for i in range(1, steps + 1):
+        toks, ids = next(stream)
+        batch = {"tokens": torch.from_numpy(toks).to("cuda", torch.int64)}
+        ids = torch.from_numpy(ids).to("cuda")
+        before = dict(build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == profile_step:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                params, opt_state, bstates, m = step(params, opt_state,
+                                                     bstates, batch, ids)
+                torch.cuda.synchronize()
+        else:
+            params, opt_state, bstates, m = step(params, opt_state, bstates,
+                                                 batch, ids)
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        launches.append({k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+                         for k in KERNELS})
+    return {"losses": losses, "launches": launches, "seconds": seconds,
+            "params": params, "profile": prof}
+
+
+def train(torch, D, build):
+    from repro_torch.configs.registry import get
+    from repro_torch.core.policy import POLICIES
+    from repro_torch.launch.train import synthetic_stream
+    from repro_torch.models import transformer
+    from repro_torch.train.steps import make_lm_eval_step
+
+    cfg = get("gpt2-small")
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    build.reset_launches()                  # the training path starts here
+    runs = {name: train_run(torch, cfg, params, name, build)
+            for name in TRAIN_POLICIES}
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}  # read here
+    log(f"# training-path launches {launches}")
+    for name, (_, kernel, per_step) in TRAIN_POLICIES.items():
+        run = runs[name]
+        want = {k: per_step if k == kernel else 0 for k in KERNELS}
+        for i, got in enumerate(run["launches"]):
+            if got != want:
+                raise AssertionError(f"train {name} step {i + 1}: launches "
+                                     f"{got}, expected {want}")
+        losses = run["losses"]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"train {name}: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train {name}: loss did not fall {losses}")
+        tok_s = (TRAIN_BATCH * TRAIN_SEQ * (TRAIN_STEPS - 1)
+                 / sum(run["seconds"][1:]))
+        log("# train " + json.dumps({
+            "policy": name, "losses": losses,
+            "launches_per_step": run["launches"][0],
+            "step_s": run["seconds"], "tokens_per_s_steps_2_to_4": tok_s}))
+
+    D.KERNEL_BACKEND = "plain"
+    try:
+        for name in TRAIN_POLICIES:
+            plain = train_run(torch, cfg, params, name, build)["losses"]
+            if plain != runs[name]["losses"]:
+                raise AssertionError(f"train {name}: plain backend losses "
+                                     f"{plain} != {runs[name]['losses']}")
+    finally:
+        D.KERNEL_BACKEND = "auto"
+    log("# plain backend on the card gives identical losses for every "
+        "policy")
+
+    # finding F3: the q4q8-trained model evaluated with and without it
+    policy = POLICIES["q4q8"]()
+    toks = next(synthetic_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=7))[0]
+    batch = {"tokens": torch.from_numpy(toks).to("cuda", torch.int64)}
+    evals = {}
+    for compress, want in ((True, 3), (False, 0)):
+        before = build.LAUNCHES.get("quant_dequant", 0)
+        evals[compress] = float(make_lm_eval_step(cfg, policy, compress)(
+            runs["q4q8"]["params"], batch))
+        got = build.LAUNCHES.get("quant_dequant", 0) - before
+        if got != want or not math.isfinite(evals[compress]):
+            raise AssertionError(f"eval compress={compress}: {got} "
+                                 f"launches, loss {evals[compress]}")
+    log("# eval of the q4q8 model " + json.dumps(
+        {"loss_on": evals[True], "loss_off": evals[False],
+         "launches_on": 3, "launches_off": 0}))
+
+    check_train_against_cpu(torch, transformer, get)
+    for name in TRAIN_POLICIES:
+        prof = train_run(torch, cfg, params, name, build, steps=3,
+                         profile_step=3)
+        dev = sorted(device_events(prof["profile"]), reverse=True)
+        busy_ms = sum(ms for ms, _ in dev)
+        wall_ms = prof["seconds"][2] * 1e3
+        # the profiler inflates the wall time; the unprofiled steps 2-4 of
+        # the run above give the idle share without its cost
+        step_ms = 1e3 * sorted(runs[name]["seconds"][1:])[1]
+        log("# train profile " + json.dumps({
+            "policy": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "unprofiled_step_ms": step_ms,
+            "device_idle_share_unprofiled": 1 - busy_ms / step_ms,
+            "top_device_ms": [[key[:60], ms] for ms, key in dev[:6]]}))
+    return launches
+
+
+def check_train_against_cpu(torch, transformer, get):
+    """Two steps of the smoke model without compression on the card and
+    on the CPU (which the CPU tests hold to the JAX package): losses
+    within the CPU tests' tolerance."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.policy import NO_POLICY
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.steps import make_lm_train_step
+    cfg = dataclasses.replace(get("gpt2-small", smoke=True), num_layers=4)
+    params = transformer.init_params(torch.Generator().manual_seed(1), cfg)
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="cosine", t_max=2, grad_clip=1.0)
+    rng = np.random.RandomState(2)
+    toks = [torch.from_numpy(rng.randint(0, cfg.vocab_size, (4, 32)))
+            for _ in range(2)]
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        p = _tree_to(params, dev)
+        o = init_opt_state(opt, p)
+        step = make_lm_train_step(cfg, NO_POLICY, opt)
+        losses[dev] = []
+        for t in toks:
+            p, o, _, m = step(p, o, [], {"tokens": t.to(dev)},
+                              torch.arange(4, device=dev))
+            losses[dev].append(float(m["loss"]))
+    gap = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+    if not gap <= LOSS_ATOL:
+        raise AssertionError(f"smoke train losses, card {losses['cuda']} "
+                             f"vs CPU {losses['cpu']}")
+    log(f"# smoke train step losses, card vs CPU: {losses['cuda']} vs "
+        f"{losses['cpu']}, max gap {gap} (<= {LOSS_ATOL})")
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -367,14 +650,19 @@ def _tree_to(tree, device):
 
 
 def main() -> int:
+    # cuBLAS reads this when it starts, so it goes before any CUDA call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    torch.use_deterministic_algorithms(True)
+    # the wrappers write every element they allocate; no NaN fill kernels
+    torch.utils.deterministic.fill_uninitialized_memory = False
     from repro_torch import device as D
-    from repro_torch.kernels import _build, pack4, topk_select as topk
+    from repro_torch.kernels import _build, ops, pack4, topk_select as topk
 
     # -- phase 1 ------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -390,19 +678,31 @@ def main() -> int:
     # -- phase 2 ------------------------------------------------------------
     inputs = kernel_inputs(torch)
     err = check_kernels(torch, D, pack4, topk, inputs)
+    cuts = cut_inputs(torch)
+    err.update(check_cut_kernels(torch, D, ops, cuts))
     timed = {}
     for label in (PREFILL, DECODE):
         timed[label] = time_kernels(torch, D, pack4, topk, inputs[label])
         for name, row in timed[label].items():
             log(f"# {name} {label}: " + json.dumps(row))
+    timed[CUT] = time_cut_kernels(torch, D, ops, cuts[CUT])
+    for name, row in timed[CUT].items():
+        log(f"# {name} {CUT}: " + json.dumps(row))
+    log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3 ------------------------------------------------------------
     launches = serve(torch, np, D, _build)
+    log(f"# phase 3 done at {time.perf_counter() - t0:.1f} s")
 
     # -- phase 4 ------------------------------------------------------------
+    launches.update({k: v for k, v in train(torch, D, _build).items()
+                     if k in TRAIN_KERNELS})
+    log(f"# phase 4 done at {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 5 ------------------------------------------------------------
     line = []
     for name, (src, replaces) in KERNELS.items():
-        row = timed[PREFILL][name]
+        row = timed[CUT if name in TRAIN_KERNELS else PREFILL][name]
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err[name], "ms": row["ms"],

@@ -1,17 +1,73 @@
-"""Inference-time compression boundaries.
+"""Compression boundaries at the pipeline-stage cuts.
 
-Port of the serving half of ``repro/core/boundary.py``.  The training
-boundary (``boundary_apply``, a ``custom_vjp`` in the reference) comes with
-the training slice.
+Port of ``repro/core/boundary.py``.  In training, :func:`boundary_apply`
+compresses the forward activation through the policy's
+:class:`~repro_torch.transport.simulated.SimulatedTransport` and, during
+backward, the activation-gradient through the same transport's ``bw``:
+
+  forward : y  = F(x)   F: the fw compressor, optionally wrapped in
+                         EF / EF21 / EF-mixed / AQ-SGD feedback;
+  backward: gx = G(gy)  G: the bw compressor, optionally wrapped in
+                         EF / EF21 / EF-mixed feedback, or the forward TopK
+                         mask under ``reuse_indices``.
+
+State threading.  The forward buffer's update is returned with ``y``.  The
+backward buffer's update is only known during backward: the reference
+returns it as the cotangent of ``bw_buf``; the port writes it into a
+:class:`BwSlot` that :func:`boundary_apply` returns, and the train step
+reads the slot after ``backward()``.
+
+At inference, :func:`boundary_eval` applies the plain fw compressor and
+:func:`boundary_wire_eval` packs and unpacks the real wire payload.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
+from repro_torch.core.feedback import FeedbackState, init_feedback
 from repro_torch.core.policy import BoundaryPolicy
 from repro_torch.transport.codecs import codec_for
+from repro_torch.transport.simulated import simulated_transport
+
+
+@dataclasses.dataclass
+class BwSlot:
+    """One cut's backward feedback state: the state the cut was given
+    until backward runs through the cut, the new state after."""
+    state: FeedbackState
+
+
+class _Boundary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, policy, fw_state, ids, slot):
+        m, new_fw, mask = simulated_transport(policy).fw(x, fw_state, ids)
+        ctx.policy, ctx.mask, ctx.slot = policy, mask, slot
+        return m, new_fw
+
+    @staticmethod
+    def backward(ctx, g, _g_new_fw):
+        gx, ctx.slot.state = simulated_transport(ctx.policy).bw(
+            g, ctx.slot.state, ctx.mask)
+        return gx, None, None, None, None
+
+
+def boundary_apply(policy: BoundaryPolicy, x: torch.Tensor,
+                   fw_state: FeedbackState, bw_state: FeedbackState, ids):
+    """Training-time boundary.  Returns ``(y, new_fw_state, bw_slot)``.
+
+    ``y`` is the forward message, computed without autograd; the gradient
+    that leaves the cut is exactly the bw transport's message.
+    ``ids``: (B,) example ids (AQ-SGD only; may be None otherwise).
+    ``bw_slot.state`` holds the new backward state once backward has run
+    through the cut."""
+    slot = BwSlot(bw_state)
+    y, new_fw = _Boundary.apply(x, policy, fw_state, ids, slot)
+    # EF21 / AQ-SGD keep the message itself as their buffer: store it
+    # without the autograd history that ``y`` now carries
+    return y, new_fw.map(torch.Tensor.detach), slot
 
 
 def boundary_eval(policy: BoundaryPolicy, x: torch.Tensor, compress: bool):
@@ -50,3 +106,32 @@ def boundary_wire_bytes_per_token(policy, d_model: int,
         codec = codec_for(bp.fw)
         total += codec.wire_bytes_per_elem(d_model, 2, bp.fw.k_frac) * d_model
     return total
+
+
+def empty_boundary_state(dtype=torch.float32, device=None):
+    """Buffer-free ``{'fw', 'bw'}`` state pair of a cut without feedback."""
+    return {d: init_feedback("none", (), direction=d, dtype=dtype,
+                             device=device) for d in ("fw", "bw")}
+
+
+def init_boundary_state(policy: BoundaryPolicy, feat_shape, *, batch: int,
+                        num_samples: int = 0, dtype=torch.float32,
+                        device=None):
+    """``{'fw': FeedbackState, 'bw': FeedbackState}`` for one cut
+    (``resid`` is size 0 when the direction has no feedback)."""
+    kw = dict(dtype=dtype, num_samples=num_samples, batch=batch,
+              device=device)
+    return {"fw": init_feedback(policy.feedback, feat_shape, direction="fw",
+                                **kw),
+            "bw": init_feedback(policy.bw_feedback, feat_shape,
+                                direction="bw", **kw)}
+
+
+def init_all_boundary_states(comp_policy, feat_shape, *, batch: int,
+                             num_samples: int = 0, dtype=torch.float32,
+                             device=None):
+    """One state dict per cut of a CompressionPolicy."""
+    return [init_boundary_state(comp_policy.at(i), feat_shape, batch=batch,
+                                num_samples=num_samples, dtype=dtype,
+                                device=device)
+            for i in range(comp_policy.num_boundaries)]

@@ -4,6 +4,18 @@ Port of ``repro/core/compressors.py``: uniform k-bit min-max quantization
 (paper Sec. 2.2) and TopK sparsification (Sec. 2.3) as plain functions on
 tensors, plus :class:`Compressor` with its wire-cost model.
 
+``Compressor.__call__`` -- the C(x) of a training cut and of
+``boundary_eval`` -- goes through ``kernels/ops.py`` on EVERY device:
+per-``(bm, bn)``-tile quantization scales and the block-local TopK
+bisection, the kernels on a CUDA tensor and their plain versions on a CPU
+tensor.  That is the function the reference computes on its accelerator
+(``KERNEL_BACKEND`` "pallas" / a TPU), not the per-tensor quantization and
+exact per-example TopK its jnp path runs on a CPU.  Those two,
+:func:`quantize_dequantize` and :func:`topk_mask` / :func:`topk_compress`,
+stay for the callers that use them directly in the reference too: the
+EF-mixed message (``core/feedback.py``), the ``reuse_indices`` mask
+(``transport/simulated.py``) and the wire codecs.
+
 Rounding matches the reference: ``torch.round`` is half-to-even like
 ``jnp.round``, and ``k = max(1, int(round(k_frac * n)))`` uses Python's
 banker's ``round``.  ``lax.top_k`` breaks ties toward the lower index;
@@ -16,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch import device as D
+from repro_torch.kernels.ops import quant_dequant_op, topk_block_op
 
 
 def quantize_kbit(x: torch.Tensor, bits: int, dim=None):
@@ -31,7 +43,10 @@ def quantize_kbit(x: torch.Tensor, bits: int, dim=None):
         x_min, x_max = x.amin(dim=dim, keepdim=True), x.amax(dim=dim,
                                                              keepdim=True)
     span = x_max - x_min
-    scale = torch.where(span > 0, span / levels, torch.ones_like(span))
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not IEEE division
+    scale = torch.where(span > 0, span / torch.full_like(span, levels),
+                        torch.ones_like(span))
     codes = torch.clamp(torch.round((x - x_min) / scale), 0, levels)
     return codes.to(torch.uint8 if bits <= 8 else torch.uint16), x_min, scale
 
@@ -101,19 +116,11 @@ class Compressor:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "none":
             return x
-        if self.kind not in ("quant", "topk"):
-            raise ValueError(f"unknown compressor kind: {self.kind}")
-        if D.use_kernel(x):
-            # The TPU runs these through kernels/quantize.py::quant_dequant
-            # and kernels/topk_mask.py::topk_block; their Hopper ports are
-            # still to come (training slice).
-            raise NotImplementedError(
-                f"{self.name} C(x) on a CUDA tensor needs the quant_dequant /"
-                " topk_block kernels, not yet ported; serving compresses "
-                "through the wire codecs (core.boundary.boundary_wire_eval)")
         if self.kind == "quant":
-            return quantize_dequantize(x, self.bits)
-        return topk_compress(x, self.k_frac)
+            return quant_dequant_op(x, self.bits)
+        if self.kind == "topk":
+            return topk_block_op(x, self.k_frac)
+        raise ValueError(f"unknown compressor kind: {self.kind}")
 
     def wire_bytes_per_elem(self, elem_bytes: int = 2,
                             n: Optional[int] = None) -> float:

@@ -1,0 +1,163 @@
+"""Error-compensation state and message functions (paper Sec. 2.4, 2.5).
+
+Port of ``repro/core/feedback.py`` for the simulated boundary.  Each
+message maps ``(compressor, x, buffer) -> (message, new_buffer)``;
+``message`` is what crosses the wire:
+
+  EF       (Seide et al.):     m = C(x + e);           e' = x + e - m
+  EF21     (Richtarik et al.): m = g + C(x - g);       g' = m
+  EF-mixed (this paper):       m = C_{K/2}(x) + C_{K/2}(e);  e' = x + e - m
+  AQ-SGD   (Wang et al.):      per-example EF21 on activations only:
+                               m_i = b_i + C(x_i - b_i); b_i' = m_i
+
+EF-mixed uses the exact per-example TopK (``topk_compress``), as the
+reference does on every backend, so it never reaches the block TopK
+kernel.  AQ-SGD's buffer is ``(num_samples, *feat)``, gathered and
+written back by example id.
+
+:class:`FeedbackState` holds the ``resid`` slot the simulated boundary
+uses.  The reference's ``mirror`` and ``agg`` slots belong to the real
+pipeline and the DP reduce, which are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Tuple
+
+import torch
+
+from repro_torch.core.compressors import Compressor, topk_compress
+
+
+def ef_message(comp: Compressor, x: torch.Tensor, e: torch.Tensor):
+    xe = x + e
+    m = comp(xe)
+    return m, xe - m
+
+
+def ef21_message(comp: Compressor, x: torch.Tensor, g: torch.Tensor):
+    m = g + comp(x - g)
+    return m, m
+
+
+def efmixed_message(comp: Compressor, x: torch.Tensor, e: torch.Tensor):
+    if comp.kind != "topk":
+        raise ValueError("EF-mixed is defined for TopK compression")
+    half = comp.k_frac / 2.0
+    m = topk_compress(x, half) + topk_compress(e, half)
+    return m, (x + e) - m
+
+
+def aqsgd_message(comp: Compressor, x: torch.Tensor, buf: torch.Tensor,
+                  ids: torch.Tensor):
+    """Per-example EF21.  ``buf``: (num_samples, *feat); ``ids``: (B,).
+
+    Writes the new rows into ``buf`` IN PLACE (``index_copy_``; the
+    reference returns an updated copy) and returns it as the new buffer.
+    With repeated ids the surviving row is unspecified, as for the
+    reference's ``buf.at[ids].set``: give each example of a batch its own
+    id."""
+    ids = ids.long()
+    b = buf[ids]
+    m = b + comp(x - b)
+    return m, buf.index_copy_(0, ids, m.to(buf.dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class FeedbackMode:
+    """One registry entry.  ``per_example``: the buffer is
+    ``(num_samples, *feat)``, indexed by example id.  ``scopes``: where
+    the mode is valid."""
+    name: str
+    message: Callable
+    per_example: bool = False
+    scopes: Tuple[str, ...] = ("boundary",)
+
+
+def _none_message(comp, x, buf, ids=None):
+    return comp(x), buf
+
+
+FEEDBACK_REGISTRY = {
+    "none": FeedbackMode("none", _none_message,
+                         scopes=("boundary", "dp", "tp")),
+    "ef": FeedbackMode(
+        "ef", lambda comp, x, buf, ids=None: ef_message(comp, x, buf),
+        scopes=("boundary", "dp", "tp")),
+    "ef21": FeedbackMode(
+        "ef21", lambda comp, x, buf, ids=None: ef21_message(comp, x, buf),
+        scopes=("boundary", "dp", "tp")),
+    "efmixed": FeedbackMode(
+        "efmixed",
+        lambda comp, x, buf, ids=None: efmixed_message(comp, x, buf)),
+    "aqsgd": FeedbackMode(
+        "aqsgd",
+        lambda comp, x, buf, ids=None: aqsgd_message(comp, x, buf, ids),
+        per_example=True),
+}
+
+
+def get_mode(mode: str) -> FeedbackMode:
+    try:
+        return FEEDBACK_REGISTRY[mode]
+    except KeyError:
+        raise ValueError(f"unknown feedback mode {mode!r}; known: "
+                         f"{sorted(FEEDBACK_REGISTRY)}") from None
+
+
+def feedback_message(mode: str, comp: Compressor, x: torch.Tensor, buf,
+                     ids=None):
+    """Dispatch.  ``mode='none'`` ignores the buffer and returns it."""
+    return get_mode(mode).message(comp, x, buf, ids)
+
+
+@dataclasses.dataclass(frozen=True)
+class FeedbackState:
+    """One compensation thread's state: the sender-side buffer ``resid``
+    (EF's error e, EF21's model g, AQ-SGD's per-example rows; size 0 when
+    the direction has no feedback) and its ``(scope, direction, mode)``."""
+    resid: torch.Tensor
+    scope: str = "boundary"
+    direction: str = "fw"
+    mode: str = "none"
+
+    def __post_init__(self):
+        spec = get_mode(self.mode)
+        if self.scope not in spec.scopes:
+            raise ValueError(
+                f"feedback mode {self.mode!r} is not valid at scope "
+                f"{self.scope!r} (valid scopes: {spec.scopes})")
+
+    def replace(self, **kw) -> "FeedbackState":
+        return dataclasses.replace(self, **kw)
+
+    def map(self, f) -> "FeedbackState":
+        """Apply ``f`` to every tensor slot (metadata kept)."""
+        return self.replace(resid=f(self.resid))
+
+
+def init_buffer(mode: str, feat_shape, dtype=torch.float32,
+                num_samples: int = 0, batch: int = 0, device=None):
+    """Initial buffer for one boundary direction: ``(batch, *feat)`` for
+    ef/ef21/efmixed, ``(num_samples, *feat)`` for aqsgd, size 0 for none."""
+    spec = get_mode(mode)
+    if mode == "none":
+        return torch.zeros((0,), dtype=dtype, device=device)
+    rows = num_samples if spec.per_example else batch
+    if rows <= 0:
+        raise ValueError(f"{mode} feedback needs "
+                         f"{'num_samples' if spec.per_example else 'batch'}"
+                         " > 0")
+    return torch.zeros((rows, *feat_shape), dtype=dtype, device=device)
+
+
+def init_feedback(mode: str, feat_shape, *, scope: str = "boundary",
+                  direction: str = "fw", dtype=torch.float32,
+                  num_samples: int = 0, batch: int = 0,
+                  device=None) -> FeedbackState:
+    """A fresh :class:`FeedbackState` for one boundary direction."""
+    return FeedbackState(
+        resid=init_buffer(mode, feat_shape, dtype=dtype,
+                          num_samples=num_samples, batch=batch,
+                          device=device),
+        scope=scope, direction=direction, mode=mode)

@@ -36,7 +36,10 @@ def minmax_scale(flat: torch.Tensor):
     ``quantize_kbit``."""
     mn, mx = flat.amin(dim=1), flat.amax(dim=1)
     span = mx - mn
-    sc = torch.where(span > 0, span / LEVELS, torch.ones_like(span))
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not IEEE division
+    sc = torch.where(span > 0, span / torch.full_like(span, LEVELS),
+                     torch.ones_like(span))
     return mn, sc
 
 

@@ -1,10 +1,11 @@
-"""GQA attention for serving: prefill and one-token decode over a KV cache.
+"""GQA attention: full-sequence training, prefill, and one-token decode
+over a KV cache.
 
 Port of ``repro/models/attention.py`` (full attention).  The reference has
 no Pallas attention, so this is plain torch ops following ``_sdpa_block``'s
 arithmetic: bf16 einsums, fp32 logits / sqrt(hd), -1e30 mask, fp32 softmax
-cast back to bf16.  Sliding windows, softcaps, decode spans, paging and TP
-are not ported yet.
+cast back to bf16, queries in chunks of ``_qchunk`` beyond 2048 tokens.
+Sliding windows, softcaps, decode spans, paging and TP are not ported yet.
 
 Cache layout: ``{"k": (B, C, KV, hd), "v": (B, C, KV, hd)}``, RoPE applied
 at write time.  :func:`attn_decode` writes the new K/V row IN PLACE (the
@@ -43,6 +44,54 @@ def _sdpa_block(q, k, v, mask):
     return out.reshape(b, s, h, hd)
 
 
+def _qchunk(s: int) -> int:
+    """Query-chunk size: bounds the materialized (S_chunk x T) logits."""
+    if s <= 2048:
+        return s
+    return max(2048, s // 4)
+
+
+def _sdpa(q, k, v, mask):
+    s = q.shape[1]
+    qc = _qchunk(s)
+    if qc >= s:
+        return _sdpa_block(q, k, v, mask)
+    outs = []
+    for i in range(0, s, qc):
+        mi = mask[:, i:i + qc] if mask.ndim == 3 else mask
+        outs.append(_sdpa_block(q[:, i:i + qc], k, v, mi))
+    return torch.cat(outs, dim=1)
+
+
+def _causal_mask(positions: torch.Tensor) -> torch.Tensor:
+    """(1, S, S) bool: key position <= query position."""
+    return (positions[None, :] <= positions[:, None])[None]
+
+
+def _attend(params, x, num_heads, num_kv_heads, head_dim, pos_embed,
+            rope_theta, pad_mask):
+    """Causal self-attention over ``x``: (output, RoPE'd keys, values)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(params, x, num_heads, num_kv_heads, head_dim)
+    if pos_embed == "rope":
+        q = apply_rope(q, positions[None], rope_theta)
+        k = apply_rope(k, positions[None], rope_theta)
+    mask = _causal_mask(positions)
+    if pad_mask is not None:
+        mask = mask & pad_mask[:, None, :]                       # (B, S, S)
+    out = _sdpa(q, k, v, mask).reshape(b, s, num_heads * head_dim)
+    return out @ params["wo"], k, v
+
+
+def attn_train(params, x, *, num_heads, num_kv_heads, head_dim,
+               pos_embed="rope", rope_theta=10_000.0, pad_mask=None):
+    """Full-sequence causal self-attention.  ``pad_mask``: optional (B, S)
+    bool, True = real token; pad keys are masked out of every query."""
+    return _attend(params, x, num_heads, num_kv_heads, head_dim, pos_embed,
+                   rope_theta, pad_mask)[0]
+
+
 def init_cache(batch: int, cache_len: int, num_kv_heads: int, head_dim: int,
                dtype=DTYPE, device=None):
     shape = (batch, cache_len, num_kv_heads, head_dim)
@@ -56,21 +105,14 @@ def attn_prefill(params, x, *, cache_len, num_heads, num_kv_heads, head_dim,
     ``pad_mask``: optional (B, S) bool, True = real token (left-padded
     serving batches: pad keys are masked out of every query)."""
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)
-    q, k, v = _project_qkv(params, x, num_heads, num_kv_heads, head_dim)
-    if pos_embed == "rope":
-        q = apply_rope(q, positions[None], rope_theta)
-        k = apply_rope(k, positions[None], rope_theta)
-    mask = (positions[None, :] <= positions[:, None])[None]      # (1, S, S)
-    if pad_mask is not None:
-        mask = mask & pad_mask[:, None, :]                       # (B, S, S)
-    out = _sdpa_block(q, k, v, mask).reshape(b, s, num_heads * head_dim)
+    out, k, v = _attend(params, x, num_heads, num_kv_heads, head_dim,
+                        pos_embed, rope_theta, pad_mask)
     cache = init_cache(b, cache_len, num_kv_heads, head_dim, k.dtype,
                        x.device)
     c = min(cache_len, s)
     cache["k"][:, :c] = k[:, s - c:]
     cache["v"][:, :c] = v[:, s - c:]
-    return out @ params["wo"], cache
+    return out, cache
 
 
 def attn_decode(params, x1, cache, pos: int, *, num_heads, num_kv_heads,

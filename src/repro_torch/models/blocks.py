@@ -1,17 +1,20 @@
-"""Per-layer blocks for serving.
+"""Per-layer blocks.
 
 Port of the dense attention block of ``repro/models/blocks.py``
-(``_attn_block_prefill`` / ``_attn_block_decode`` / ``_attn_block_cache``):
+(``_attn_block_train`` / ``_prefill`` / ``_decode`` / ``_cache``):
 pre-norm GQA attention + MLP with residuals.  Other kinds (moe, rwkv,
 hymba, local/global) are not ported yet and raise.
 
 Uniform interface, params stacked per group by the caller:
   block_init(gen, cfg, kind, groups)                   -> stacked params
+  block_train(p, x, cfg, kind)                         -> (y, aux_loss)
   block_prefill(p, x, cfg, kind, cache_len, pad_mask)  -> (y, cache)
   block_decode(p, x1, cache, pos, cfg, kind, pad_len)  -> (y, cache)
   block_cache(cfg, kind, batch, cache_len, dtype, device)
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models.common import (DTYPE, dense_init, mlp_apply, mlp_init,
@@ -46,6 +49,12 @@ def block_init(gen, cfg: ModelConfig, kind: str, groups: int):
             "mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp, DTYPE, lead)}
 
 
+def _attn_block_train(p, x, cfg: ModelConfig):
+    x = x + A.attn_train(p["attn"], norm_apply(p["ln1"], x, cfg.norm),
+                         **_attn_kwargs(cfg))
+    return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.mlp)
+
+
 def _attn_block_prefill(p, x, cfg: ModelConfig, cache_len: int,
                         pad_mask=None):
     h, cache = A.attn_prefill(p["attn"], norm_apply(p["ln1"], x, cfg.norm),
@@ -70,6 +79,12 @@ def _attn_block_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                       device):
     return A.init_cache(batch, cache_len, cfg.num_kv_heads,
                         cfg.resolved_head_dim, dtype, device)
+
+
+def block_train(p, x, cfg: ModelConfig, kind: str):
+    """Returns (y, aux_loss); the dense kind has no auxiliary loss."""
+    _check_kind(kind)
+    return _attn_block_train(p, x, cfg), x.new_zeros((), dtype=torch.float32)
 
 
 def block_prefill(p, x, cfg: ModelConfig, kind: str, cache_len: int,

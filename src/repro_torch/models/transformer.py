@@ -1,17 +1,23 @@
-"""Decoder-only transformer stack with compressed pipeline-stage cuts:
-serving entry points.
+"""Decoder-only transformer stack with compressed pipeline-stage cuts.
 
-Port of ``repro/models/transformer.py`` (prefill / decode).  The stack is
-``num_groups`` layer groups, evenly split into ``policy.num_stages``
-stages; at each cut between stages the activation is compressed —
-through the real wire codecs when ``wire`` is set (what the serve engine
-does, core/boundary.boundary_wire_eval).  Layer params carry a leading
-group dim; a Python loop over groups replaces the reference's
-``lax.scan``.  The mesh ``constrain`` calls of the reference are no-ops
-here and are dropped.
+Port of ``repro/models/transformer.py``.  The stack is ``num_groups``
+layer groups, evenly split into ``policy.num_stages`` stages; at each cut
+between stages sits a compression boundary: in training the
+``core/boundary.boundary_apply`` autograd function, at inference the
+plain fw compressor or, when ``wire`` is set, the real wire codecs (what
+the serve engine does).  Layer params carry a leading group dim; a Python
+loop over groups replaces the reference's ``lax.scan``, and
+``torch.utils.checkpoint`` per group its ``jax.checkpoint``.  The mesh
+``constrain`` calls of the reference are no-ops here and are dropped.
 
 Entry points:
   init_params(generator, cfg)
+  forward_hidden(params, batch, cfg, policy, bstates, ids, remat)
+                                      -> (hidden, aux, new_fw, bw_slots)
+  forward_train(...)                  -> (logits, aux, new_fw, bw_slots)
+  forward_eval(params, batch, cfg, policy, compress)      -> logits
+  hidden_lm_loss(params, hidden, labels, cfg, mask)       -> loss
+  lm_loss(logits, labels, mask)                           -> loss
   init_caches(cfg, batch, cache_len, dtype, device)
   prefill(params, batch, cfg, policy, cache_len, compress, pad_len, wire)
                                                   -> (logits (B,1,V), caches)
@@ -20,11 +26,14 @@ Entry points:
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.boundary import boundary_eval, boundary_wire_eval
+from repro_torch.core.boundary import (boundary_apply, boundary_eval,
+                                       boundary_wire_eval,
+                                       empty_boundary_state)
 from repro_torch.core.policy import CompressionPolicy, NO_POLICY
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
@@ -91,6 +100,136 @@ def _lm_logits(params, x, cfg: ModelConfig):
     return x.to(DTYPE) @ head.to(DTYPE).T
 
 
+def _embed(params, batch):
+    return params["embed"][batch["tokens"]].to(DTYPE)
+
+
+def forward_hidden(params, batch, cfg: ModelConfig,
+                   policy: CompressionPolicy = NO_POLICY,
+                   bstates: Optional[list] = None, ids=None,
+                   remat: bool = True):
+    """Returns ``(hidden, aux_loss, new_fw_states, bw_slots)``.
+
+    ``bstates``: one ``{"fw", "bw"}`` state dict per cut
+    (core.boundary.init_boundary_state).  ``bw_slots[i].state`` is cut
+    ``i``'s new backward state once backward has run (the reference
+    returns it as the cotangent of the bw buffer)."""
+    kinds = cfg.layer_kinds()
+    x = _embed(params, batch)
+    aux = x.new_zeros((), dtype=torch.float32)
+    segs = segment_bounds(cfg.num_groups, policy.num_stages)
+    new_fw, slots = [], []
+
+    def group_fn(x, gp):
+        a = x.new_zeros((), dtype=torch.float32)
+        for i, kind in enumerate(kinds):
+            x, ai = B.block_train(gp[f"b{i}"], x, cfg, kind)
+            a = a + ai
+        return x, a
+
+    for si, (g0, g1) in enumerate(segs):
+        for g in range(g0, g1):
+            gp = _group(params["layers"], g)
+            if remat:
+                x, a = checkpoint(group_fn, x, gp, use_reentrant=False)
+            else:
+                x, a = group_fn(x, gp)
+            aux = aux + a
+        if si < len(segs) - 1:
+            st = (bstates[si] if bstates is not None
+                  else empty_boundary_state(x.dtype, x.device))
+            x, nf, slot = boundary_apply(policy.at(si), x, st["fw"],
+                                         st["bw"], ids)
+            new_fw.append(nf)
+            slots.append(slot)
+    return x, aux, new_fw, slots
+
+
+def forward_train(params, batch, cfg: ModelConfig,
+                  policy: CompressionPolicy = NO_POLICY,
+                  bstates: Optional[list] = None, ids=None,
+                  remat: bool = True):
+    x, aux, new_fw, slots = forward_hidden(params, batch, cfg, policy,
+                                           bstates, ids, remat)
+    return _lm_logits(params, x, cfg), aux, new_fw, slots
+
+
+def forward_eval(params, batch, cfg: ModelConfig,
+                 policy: CompressionPolicy = NO_POLICY,
+                 compress: bool = True):
+    """Logits with the cuts compressed by the plain fw compressor
+    (``compress``) or not compressed at all."""
+    kinds = cfg.layer_kinds()
+    x = _embed(params, batch)
+    segs = segment_bounds(cfg.num_groups, policy.num_stages)
+    for si, (g0, g1) in enumerate(segs):
+        for g in range(g0, g1):
+            gp = _group(params["layers"], g)
+            for i, kind in enumerate(kinds):
+                x, _ = B.block_train(gp[f"b{i}"], x, cfg, kind)
+        if si < len(segs) - 1:
+            x = boundary_eval(policy.at(si), x, compress)
+    return _lm_logits(params, x, cfg)
+
+
+class _FusedXent(torch.autograd.Function):
+    """Per-token -log p[label] from bf16 logits without an fp32 (B,S,V)
+    copy: the forward keeps the fp32 logsumexp; the backward recomputes
+    ``(softmax - onehot) * g`` from the saved bf16 logits."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
+        picked = logits.gather(-1, labels[..., None])[..., 0]
+        ctx.save_for_backward(logits, labels, lse)
+        return lse - picked.to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        d = torch.exp(logits.to(torch.float32) - lse[..., None])
+        d.scatter_add_(-1, labels[..., None],
+                       torch.full_like(lse[..., None], -1.0))
+        return (d * g[..., None]).to(logits.dtype), None
+
+
+def _fused_xent(logits, labels):
+    return _FusedXent.apply(logits, labels.long())
+
+
+def hidden_lm_loss(params, x, labels, cfg: ModelConfig, mask=None):
+    """Chunked cross entropy straight from hidden states: each sequence
+    chunk's logits are computed, reduced and recomputed in backward
+    (``torch.utils.checkpoint``), so the (B,S,V) logits never exist."""
+    b, s, _ = x.shape
+    chunk = s if s <= 512 else max(512, s // 16)
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+
+    def chunk_nll(xc, lc, mc):
+        return (_fused_xent(_lm_logits(params, xc, cfg), lc) * mc).sum()
+
+    total = x.new_zeros((), dtype=torch.float32)
+    for i in range(0, s, chunk):
+        total = total + checkpoint(chunk_nll, x[:, i:i + chunk],
+                                   labels[:, i:i + chunk],
+                                   mask[:, i:i + chunk], use_reentrant=False)
+    return total / torch.clamp(mask.sum(), min=1.0)
+
+
+def lm_loss(logits, labels, mask=None):
+    """Next-token cross entropy.  logits: (B,S,V); labels: (B,S);
+    processed in sequence chunks as in the reference."""
+    s = labels.shape[1]
+    chunk = s if s <= 512 else max(512, s // 8)
+    nll = torch.cat([_fused_xent(logits[:, i:i + chunk],
+                                 labels[:, i:i + chunk])
+                     for i in range(0, s, chunk)], dim=1)
+    if mask is None:
+        return nll.mean()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=DTYPE,
                 device=None):
     """``{"b<i>": {"k", "v": (G, B, C, KV, hd)}}`` zeros."""
@@ -112,8 +251,7 @@ def prefill(params, batch, cfg: ModelConfig,
     the reference).  ``wire=True``: the cuts pack/unpack real payloads."""
     kinds = cfg.layer_kinds()
     beval = boundary_wire_eval if wire else boundary_eval
-    tokens = batch["tokens"]
-    x = params["embed"][tokens].to(DTYPE)
+    x = _embed(params, batch)
     cache_len = cache_len or x.shape[1]
     pad_mask = None
     if pad_len is not None:

@@ -1,0 +1,137 @@
+"""Optimizers: SGD + momentum + weight decay, AdamW, cosine schedule.
+
+Port of ``repro/optim/optimizers.py``.  Parameters and optimizer moments
+are nested dicts of tensors mirroring each other; every update is
+computed in float32 and cast back to the parameter's (and the moment's)
+dtype, step for step as in the reference.  Updates run under
+``torch.no_grad`` and return new tensors; nothing is updated in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    kind: str = "sgd"                   # sgd | adamw
+    lr: float = 0.01
+    momentum: float = 0.9               # sgd
+    beta1: float = 0.9                  # adamw
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 5e-4
+    grad_clip: float = 0.0              # 0 = off
+    moment_dtype: Any = torch.float32
+    # cosine schedule (paper: cosine annealing, T_max=200, lr0=0.01)
+    schedule: str = "cosine"            # cosine | constant
+    t_max: int = 200
+    lr_min: float = 0.0
+    warmup_steps: int = 0
+
+
+def tree_map(f, *trees):
+    """``f`` over the leaves of nested dicts of the same structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(f, *(t[k] for t in trees)) for k in trees[0]}
+    return f(*trees)
+
+
+def tree_leaves(tree):
+    """Leaves of a nested dict, in sorted-key order (``jax.tree.leaves``'
+    order for dicts)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def schedule_lr(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
+    """The learning rate at ``step`` (an integer tensor), float32."""
+    step = step.to(torch.float32)
+    lr = torch.full_like(step, cfg.lr)
+    if cfg.schedule == "cosine":
+        t = torch.clamp(step / max(cfg.t_max, 1), 0.0, 1.0)
+        lr = cfg.lr_min + 0.5 * (cfg.lr - cfg.lr_min) * (
+            1 + torch.cos(math.pi * t))
+    if cfg.warmup_steps:
+        lr = lr * torch.clamp(step / cfg.warmup_steps, 0.0, 1.0)
+    return lr
+
+
+def init_opt_state(cfg: OptimizerConfig, params):
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+    state = {"step": torch.zeros((), dtype=torch.int32,
+                                 device=tree_leaves(params)[0].device)}
+    if cfg.kind == "sgd":
+        state["mu"] = tree_map(zeros, params)
+    elif cfg.kind == "adamw":
+        state["mu"] = tree_map(zeros, params)
+        state["nu"] = tree_map(zeros, params)
+    else:
+        raise ValueError(cfg.kind)
+    return state
+
+
+def _global_norm(grads) -> torch.Tensor:
+    sq = [torch.sum(torch.square(g.to(torch.float32)))
+          for g in tree_leaves(grads)]
+    total = sq[0]
+    for v in sq[1:]:
+        total = total + v
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def apply_updates(cfg: OptimizerConfig, params, grads, state):
+    """Returns ``(new_params, new_state)``."""
+    step = state["step"] + 1
+    lr = schedule_lr(cfg, step)
+
+    if cfg.grad_clip:
+        scale = torch.clamp(cfg.grad_clip / (_global_norm(grads) + 1e-9),
+                            max=1.0)
+        # the reference's bf16 grad times its f32 scale is promoted to f32
+        grads = tree_map(lambda g: g.to(torch.float32) * scale, grads)
+
+    if cfg.kind == "sgd":
+        def upd(p, g, m):
+            gf = g.to(torch.float32)
+            if cfg.weight_decay:
+                gf = gf + cfg.weight_decay * p.to(torch.float32)
+            m_new = cfg.momentum * m.to(torch.float32) + gf
+            p_new = p.to(torch.float32) - lr * m_new
+            return p_new.to(p.dtype), m_new.to(cfg.moment_dtype)
+        out = tree_map(upd, params, grads, state["mu"])
+        return (_pick(out, 0),
+                {"step": step, "mu": _pick(out, 1)})
+
+    b1, b2 = cfg.beta1, cfg.beta2
+    bc1 = 1 - torch.pow(torch.full_like(lr, b1), step.to(torch.float32))
+    bc2 = 1 - torch.pow(torch.full_like(lr, b2), step.to(torch.float32))
+
+    def upd(p, g, m, v):
+        gf = g.to(torch.float32)
+        m_new = b1 * m.to(torch.float32) + (1 - b1) * gf
+        v_new = b2 * v.to(torch.float32) + (1 - b2) * gf * gf
+        mh = m_new / bc1
+        vh = v_new / bc2
+        pf = p.to(torch.float32)
+        p_new = pf - lr * (mh / (torch.sqrt(vh) + cfg.eps)
+                           + cfg.weight_decay * pf)
+        return (p_new.to(p.dtype), m_new.to(cfg.moment_dtype),
+                v_new.to(cfg.moment_dtype))
+
+    out = tree_map(upd, params, grads, state["mu"], state["nu"])
+    return (_pick(out, 0),
+            {"step": step, "mu": _pick(out, 1), "nu": _pick(out, 2)})
+
+
+def _pick(out, i):
+    """Element ``i`` of every tuple leaf of ``out``."""
+    if isinstance(out, dict):
+        return {k: _pick(v, i) for k, v in out.items()}
+    return out[i]

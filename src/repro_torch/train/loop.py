@@ -1,0 +1,89 @@
+"""The paper's LM experiment loop (Sec. 3.2).
+
+Port of ``run_lm_experiment`` and ``_lm_eval`` from
+``repro/train/loop.py`` for the simulated transport and a static
+policy: fine-tune with boundary compression, then evaluate the loss with
+compression on AND off (finding F3: a model trained compressed must be
+served compressed).  Rule policies, bandwidth probes, the parallel spec,
+the pipeline transport and trace spans are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.boundary import init_boundary_state
+from repro_torch.core.policy import CompressionPolicy
+from repro_torch.data.synthetic import LMData
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+from repro_torch.train.steps import make_lm_eval_step, make_lm_train_step
+
+
+@dataclasses.dataclass
+class ExperimentResult:
+    name: str
+    loss_on: float = 0.0           # eval loss with compression ON
+    loss_off: float = 0.0          # eval loss with compression OFF
+    train_curve: List[float] = dataclasses.field(default_factory=list)
+    seconds: float = 0.0
+    params: Optional[dict] = None
+
+
+def _lm_eval(params, cfg, data, policy, compress, batch=16,
+             device=None) -> float:
+    step = make_lm_eval_step(cfg, policy, compress)
+    losses = [float(step(params, {"tokens": torch.from_numpy(toks)
+                                  .to(device, torch.int64)}))
+              for toks, _ in data.test_batches(batch)]
+    return float(np.mean(losses))
+
+
+def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
+                      pretrained_params=None, epochs: int = 2,
+                      batch: int = 16, data: Optional[LMData] = None,
+                      name: str = "", opt: Optional[OptimizerConfig] = None,
+                      seed: int = 0, transport: str = "simulated",
+                      device=None) -> ExperimentResult:
+    """Fine-tune a (pre-trained) LM with boundary compression and report
+    the train curve and the eval loss with compression on and off.
+
+    ``pretrained_params``: a params tree on ``device`` (default: fresh
+    params from a generator seeded with ``seed``).  Runs on ``cuda``
+    unless ``device`` says otherwise."""
+    if transport != "simulated":
+        raise NotImplementedError(f"transport={transport!r} is not yet "
+                                  "ported to repro_torch (simulated only)")
+    dev = resolve_device(device)
+    data = data or LMData()
+    opt = opt or OptimizerConfig(kind="adamw", lr=3e-4, weight_decay=0.01,
+                                 schedule="constant", grad_clip=1.0)
+    params = pretrained_params or transformer.init_params(
+        torch.Generator(device=dev).manual_seed(seed), cfg)
+    opt_state = init_opt_state(opt, params)
+    bstates = [init_boundary_state(policy.at(i), (data.seq_len, cfg.d_model),
+                                   batch=batch, num_samples=data.num_train,
+                                   dtype=torch.bfloat16, device=dev)
+               for i in range(policy.num_boundaries)]
+    step = make_lm_train_step(cfg, policy, opt, remat=False)
+    t0 = time.time()
+    curve = []
+    for ep in range(epochs):
+        for toks, ids in data.epoch(batch, ep):
+            params, opt_state, bstates, m = step(
+                params, opt_state, bstates,
+                {"tokens": torch.from_numpy(toks).to(dev, torch.int64)},
+                torch.from_numpy(ids).to(dev))
+            curve.append(float(m["loss"]))
+    res = ExperimentResult(name=name or policy.boundary.name,
+                           train_curve=curve, seconds=time.time() - t0)
+    res.loss_on = _lm_eval(params, cfg, data, policy, True, batch, dev)
+    res.loss_off = _lm_eval(params, cfg, data, policy, False, batch, dev)
+    res.params = params
+    return res

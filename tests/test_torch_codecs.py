@@ -20,6 +20,7 @@ import torch
 import repro.core.compressors as JC
 from repro.core import boundary as JB
 from repro.kernels import pack4 as JP4
+from repro.kernels import ref as JREF
 from repro.kernels import topk_select as JTS
 from repro.launch.train import POLICIES as JPOL
 from repro.transport import codecs as JX
@@ -280,13 +281,25 @@ def test_boundary_wire_eval_matches_vmap(policy, shape, jax_path,
     _bits_equal(alone, got[1:2])
 
 
-def test_boundary_eval_and_compressor_call():
+def test_boundary_eval_and_compressor_call(jax_backend):
+    # C(x) is the per-tile / block-TopK function on every device in the
+    # port: the reference's kernel path (interpret mode here).  n = 96 is
+    # not a multiple of 128, so both take one whole-tensor tile; the
+    # quantizer is held to the reference's eager oracle for it, because
+    # the jitted wrapper rewrites the scale division and, in f32, fuses
+    # the dequant into an FMA (tests/test_torch_kernels.py measures both).
+    jax_backend("pallas")
     x = _inputs((2, 6, 16))
-    for policy in ("none", "q4q8", "top10"):
+    for policy in ("none", "top10"):
         _bits_equal(TB.boundary_eval(TPOL[policy]().at(0),
                                      torch.from_numpy(x), True),
                     JB.boundary_eval(JPOL[policy]().at(0), jnp.asarray(x),
                                      True))
+    for bits in (4, 8):
+        _bits_equal(TC.quant(bits)(torch.from_numpy(x)),
+                    JREF.quant_dequant_ref(jnp.asarray(x.reshape(2, -1)),
+                                           bits, block=(2, 96))
+                    .reshape(x.shape))
 
 
 def test_plain_backend_and_bad_backend(monkeypatch):

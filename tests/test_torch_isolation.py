@@ -12,8 +12,11 @@ import torch
 
 from repro_torch import device as D
 from repro_torch.configs.registry import get
+from repro_torch.core.policy import POLICIES
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import train as ttrain
 from repro_torch.models import transformer
+from repro_torch.train.loop import run_lm_experiment
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -75,6 +78,10 @@ def test_entry_points_without_device_ask_for_cuda(no_cuda):
         transformer.init_caches(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="cuda"):
         tserve.main(["--smoke", "--batch", "1", "--new-tokens", "2"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        ttrain.main(["--smoke", "--steps", "1", "--batch", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_lm_experiment(cfg, POLICIES["top10"](), epochs=1)
 
 
 def test_cpu_tensors_take_the_plain_path():
