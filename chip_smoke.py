@@ -11,10 +11,13 @@ failure fatal:
      (one nvcc per source, all started together).  Deterministic
      algorithms are on for the whole run.
   2. every kernel against its plain PyTorch version on the card, bit-exact,
-     at the serving and training shapes and edge cases; then, at the main
-     paths' shapes, device time per call (torch.profiler) of the kernel,
-     of its plain version and of the one torch call computing the same
-     function, beside the bytes-or-operations bound.
+     at the serving, training and pipeline shapes and edge cases (the q8
+     wire quantizer at a full-width microbatch in bf16 and f32; framing of
+     the q4, q8-tiled, TopK and EF-mixed payloads of one and of odd-sized
+     leaves); then, at the main paths' shapes, device time per call
+     (torch.profiler) of the kernel, of its plain version and of the one
+     torch call computing the same function, beside the bytes-or-
+     operations bound.
   3. serve full-width gpt2-small (random weights from a seeded generator)
      with ``ServeEngine`` under the policies none, q4q8 and top10, launch
      counters set to 0 just before and read just after: each compressed
@@ -29,7 +32,19 @@ failure fatal:
      and falling losses, the same losses under the plain backend; eval
      with compression on and off; one step of the smoke model on the
      card against the CPU; tokens/s and a profile of one step per policy.
-  5. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+  5. train full-width gpt2-small through the real compressed pipeline
+     (batch 32, seq 128, 4 stages of 3 layer groups, 4 microbatches of 8,
+     the launch/train AdamW) for 3 steps: gpipe under none, q4q8, top10,
+     top10reuse, ef21top10 and AQ-SGD (64 samples: step 3 revisits step
+     1's buffer rows), 1f1b under q4q8 and AQ-SGD, interleaved (2 stages x
+     2 virtual) under q4q8; launch counters set to 0 just before and read
+     just after.  Holds exact launches per step (12 hops per direction),
+     the bytes counted at the hops == ``wire_telemetry`` x hops, 1f1b ==
+     gpipe bitwise (losses and params), the same losses under the plain
+     backend, falling losses, and the smoke model's pipeline step on the
+     card against the CPU; tokens/s per run and a profile of one step per
+     schedule.
+  6. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -79,10 +94,65 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                       "src/repro/kernels/quantize.py:58"),
     "topk_block": ("src/repro_torch/csrc/topk_mask.cu",
                    "src/repro/kernels/topk_mask.py:55"),
+    "quantize_wire": ("src/repro_torch/csrc/quantize.cu",
+                      "src/repro/kernels/quantize.py:80"),
+    "frame_parts": ("src/repro_torch/csrc/framing.cu",
+                    "src/repro/kernels/framing.py:61"),
+    "unframe_parts": ("src/repro_torch/csrc/framing.cu",
+                      "src/repro/kernels/framing.py:84"),
 }
 SERVE_KERNELS = ("topk_threshold", "topk_compact", "pack4_wire",
                  "unpack4_wire")
 TRAIN_KERNELS = ("quant_dequant", "topk_block")
+WIRE_KERNELS = ("quantize_wire", "frame_parts", "unframe_parts")
+# the pipeline phase: 4 stages, 4 microbatches of 8 -> 12 hops per
+# direction per step (interleaved: 2 stages x 2 virtual, 3 cuts each)
+PIPE_BATCH, PIPE_SEQ, PIPE_STEPS, PIPE_MB, PIPE_STAGES = 32, 128, 3, 4, 4
+PIPE_SAMPLES = 64             # AQ-SGD: step 3 revisits step 1's rows
+PIPE_HOPS = 12
+MB_SHAPE = (PIPE_BATCH // PIPE_MB, PIPE_SEQ, D_MODEL)
+# bytes of one full-width microbatch's payload
+PAYLOAD_BYTES = {"q4": 393224, "q8_tiled": 786816, "top10": 471840,
+                 "top10_values": 157280, "none": 1572864}
+LM_LOSS_ATOL = 0.02           # compressed smoke loss (tests/test_torch_pipeline.py)
+
+
+def _per_step(**launches):
+    """Expected launches per pipeline step: every kernel 0 but these."""
+    return {k: launches.get(k, 0) for k in KERNELS}
+
+
+_Q4Q8 = dict(pack4_wire=PIPE_HOPS, unpack4_wire=PIPE_HOPS,
+             quantize_wire=PIPE_HOPS)
+_FRAMED = dict(frame_parts=2 * PIPE_HOPS, unframe_parts=2 * PIPE_HOPS)
+_TOPK = dict(topk_threshold=2 * PIPE_HOPS, topk_compact=2 * PIPE_HOPS)
+# run -> (launch/train --policy, --feedback, schedule, virtual stages,
+#         launches per step, (fw, bw) payload bytes of one microbatch)
+PIPE_RUNS = {
+    "gpipe/none": ("none", "none", "gpipe", 1, _per_step(),
+                   ("none", "none")),
+    "gpipe/q4q8": ("q4q8", "none", "gpipe", 1, _per_step(**_Q4Q8),
+                   ("q4", "q8_tiled")),
+    "gpipe/top10": ("top10", "none", "gpipe", 1, _per_step(**_TOPK),
+                    ("top10", "top10")),
+    "gpipe/top10reuse": ("top10reuse", "none", "gpipe", 1,
+                         _per_step(topk_threshold=PIPE_HOPS,
+                                   topk_compact=PIPE_HOPS),
+                         ("top10", "top10_values")),
+    "gpipe/ef21top10": ("ef21top10", "none", "gpipe", 1,
+                        _per_step(**_TOPK), ("top10", "top10")),
+    "gpipe/aqsgd": ("none", "aqsgd", "gpipe", 1, _per_step(**_TOPK),
+                    ("top10", "top10")),
+    "1f1b/q4q8": ("q4q8", "none", "1f1b", 1,
+                  _per_step(**_Q4Q8, **_FRAMED), ("q4", "q8_tiled")),
+    "1f1b/aqsgd": ("none", "aqsgd", "1f1b", 1,
+                   _per_step(**_TOPK, **_FRAMED), ("top10", "top10")),
+    "interleaved/q4q8": ("q4q8", "none", "interleaved", 2,
+                         _per_step(**_Q4Q8, **_FRAMED), ("q4", "q8_tiled")),
+}
+MB_ROWS = (PIPE_BATCH // PIPE_MB, PIPE_SEQ * D_MODEL)
+WIRE = f"pipeline microbatch {MB_ROWS} bf16"
+FRAMED = "q8-tiled backward hop (786432 + 384 B)"
 PREFILL = f"prefill ({BATCH}, {max(PROMPT_LENS)}*768)"
 DECODE = f"decode ({BATCH}, 768)"
 CUT = f"training cut ({TRAIN_BATCH}, {TRAIN_SEQ}*768) bf16"
@@ -354,6 +424,122 @@ def time_cut_kernels(torch, D, ops, x):
                        lambda: torch.topk(mag, k, dim=1).values[:, -1:],
                        2 * m * n * e, 3 * m * n),
     })
+
+
+def wire_payload_parts(torch, codecs, x):
+    """Flat uint8 leaf segments of the payloads a full-width microbatch
+    ``x`` (bf16) sends through the pipeline's fused hops, and odd-sized
+    leaves."""
+    payloads = {
+        "q4": codecs.get_codec("q4").pack(x),
+        "q8-tiled": codecs.get_codec("q8").pack(x),
+        "top10": codecs.get_codec("topk").pack(x, 0.1),
+        "EF-mixed top10": {"x": codecs.get_codec("topk").pack(x, 0.05),
+                           "e": codecs.get_codec("topk").pack(-x, 0.05)},
+    }
+    out = {name: [a.reshape(-1).view(torch.uint8)
+                  for a in codecs.payload_leaves(pl)]
+           for name, pl in payloads.items()}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out["odd sizes"] = [torch.randint(0, 256, (nb,), generator=gen,
+                                      device="cuda", dtype=torch.uint8)
+                        for nb in (1, 7, 0, 33, 4097, 2, 16, 15)]
+    whole = torch.randint(0, 256, (4098,), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    out["misaligned view"] = [whole[1:4097], whole[:5]]
+    out["one segment"] = [whole[1:4097]]
+    out["one segment and an empty one"] = [whole[:0], whole[:4097]]
+    return out
+
+
+def check_wire_kernels(torch, D, quantize, framing, codecs, tiling):
+    """The q8 wire quantizer and the framing pair against their plain
+    versions: bit-exact."""
+    err = dict.fromkeys(WIRE_KERNELS, 0.0)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(MB_ROWS, generator=gen, device="cuda")
+    half = torch.randn((16, 4096), generator=gen, device="cuda")
+    half[:, :2048] = 0.0
+    cases = {
+        f"{MB_ROWS} bf16": x.to(torch.bfloat16),
+        f"{MB_ROWS} f32": x,
+        "(16, 4096) f32": torch.randn((16, 4096), generator=gen,
+                                      device="cuda"),
+        "constant (8, 4096) bf16": torch.full((8, 4096), 3.25, device="cuda",
+                                              dtype=torch.bfloat16),
+        "half-zero tiles (16, 4096) f32": half,
+    }
+    for label, t in cases.items():
+        block = tiling.wire_tiling(tuple(t.shape))
+        got, want = kernel_and_plain(
+            torch, D, lambda: quantize.quantize_wire(t, 8, block))
+        err["quantize_wire"] = max(err["quantize_wire"],
+                                   max_err(torch, got, want))
+        log(f"# quantize_wire bit-exact vs plain: {label} tile {block}")
+    xb = x.to(torch.bfloat16).reshape(MB_SHAPE)
+    for label, parts in wire_payload_parts(torch, codecs, xb).items():
+        sizes = [p.numel() for p in parts]
+        got, want = kernel_and_plain(torch, D,
+                                     lambda: framing.frame_parts(parts))
+        err["frame_parts"] = max(err["frame_parts"],
+                                 max_err(torch, [got], [torch.cat(parts)]))
+        max_err(torch, [got], [want])
+        segs, plain = kernel_and_plain(
+            torch, D, lambda: framing.unframe_parts(want, sizes))
+        err["unframe_parts"] = max(err["unframe_parts"],
+                                   max_err(torch, segs, plain))
+        max_err(torch, segs, [p.contiguous() for p in parts])
+        log(f"# framing bit-exact vs plain: {label} {sizes}")
+    idx = torch.randint(0, 1 << 16, (8, 300), generator=gen, device="cuda",
+                        dtype=torch.int32).to(torch.uint16)
+    seg = idx.reshape(-1).view(torch.uint8)
+    back = framing.unframe_parts(framing.frame_parts([seg, seg[:6]]),
+                                 [seg.numel(), 6])[0]
+    assert torch.equal(back.view(torch.uint16).reshape(8, 300), idx)
+    log("# uint16 index leaves view to and from uint8 on the card")
+    return err
+
+
+def time_wire_kernels(torch, D, quantize, framing, codecs, tiling):
+    """The wire kernels at the pipeline's shapes: the q8 quantizer on a
+    full-width microbatch in bf16 (reads 2 B, writes 1 B an element plus
+    the meta; about 7 float32 operations an element: min, max, sub, div,
+    round, two clamps), the framing pair on the q8-tiled backward hop
+    (each byte read once and written once).  Library yardsticks:
+    ``torch.cat`` frames, ``torch.split_with_sizes_copy`` unframes into
+    fresh tensors; a per-tile quantizer has no one-call torch
+    equivalent."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(MB_ROWS, generator=gen, device="cuda").to(torch.bfloat16)
+    m, n = x.shape
+    block = tiling.wire_tiling((m, n))
+    meta_bytes = 4 * 2 * (m // block[0]) * (n // block[1])
+    pl = codecs.get_codec("q8").pack(x)
+    parts = [a.reshape(-1).view(torch.uint8)
+             for a in codecs.payload_leaves(pl)]
+    sizes = [p.numel() for p in parts]
+    buf = torch.cat(parts)
+    total = buf.numel()
+    rows = time_cases(torch, D, {
+        "quantize_wire": (lambda: quantize.quantize_wire(x, 8, block),
+                          "quantize_wire_kernel", None,
+                          m * n * (x.element_size() + 1) + meta_bytes,
+                          7 * m * n),
+        "frame_parts": (lambda: framing.frame_parts(parts), "framing_kernel",
+                        lambda: torch.cat(parts), 2 * total, 0),
+        "unframe_parts": (lambda: framing.unframe_parts(buf, sizes),
+                          "framing_kernel",
+                          lambda: torch.split_with_sizes_copy(buf, sizes),
+                          2 * total, 0),
+    })
+    rows["quantize_wire"]["shape"] = WIRE
+    rows["frame_parts"]["shape"] = rows["unframe_parts"]["shape"] = FRAMED
+    rows["quantize_wire"]["library"] = ("none: no one torch call quantizes "
+                                        "per tile")
+    rows["frame_parts"]["library"] = "torch.cat(parts)"
+    rows["unframe_parts"]["library"] = ("torch.split_with_sizes_copy("
+                                        "buf, sizes)")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -643,6 +829,223 @@ def check_train_against_cpu(torch, transformer, get):
         f"{losses['cpu']}, max gap {gap} (<= {LOSS_ATOL})")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the real pipeline
+# ---------------------------------------------------------------------------
+
+def pipe_policy(name, stages):
+    import dataclasses
+    from repro_torch.launch.train import build_policy
+    pname, feedback = PIPE_RUNS[name][:2]
+    return dataclasses.replace(build_policy(pname, feedback, 0.1),
+                               num_stages=stages)
+
+
+def pipe_run(torch, cfg, params, name, build, steps=PIPE_STEPS,
+             profile_step=None):
+    """``steps`` pipeline train steps of run ``name`` from ``params``,
+    built as ``launch/train --transport pipeline`` builds its run.
+    Returns the losses, each step's launches, wire counters and wall
+    seconds, the final params and the profile of ``profile_step``."""
+    from repro_torch.launch.train import synthetic_stream
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.loop import _pipeline_bstates
+    from repro_torch.train.steps import make_lm_train_step
+
+    _, _, sched, v = PIPE_RUNS[name][:4]
+    stages = PIPE_STAGES // v
+    policy = pipe_policy(name, stages)
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="cosine", t_max=steps, grad_clip=1.0)
+    bstates = _pipeline_bstates(policy, (PIPE_SEQ, cfg.d_model),
+                                batch=PIPE_BATCH, microbatches=PIPE_MB,
+                                num_samples=PIPE_SAMPLES,
+                                dtype=torch.bfloat16, virtual_stages=v,
+                                device="cuda")
+    step = make_lm_train_step(cfg, policy, opt, transport="pipeline",
+                              pipeline_microbatches=PIPE_MB, schedule=sched,
+                              virtual_stages=v)
+    stream = synthetic_stream(cfg, PIPE_BATCH, PIPE_SEQ, 0,
+                              num_samples=PIPE_SAMPLES)
+    opt_state = init_opt_state(opt, params)
+    out = {"losses": [], "launches": [], "wire": [], "seconds": [],
+           "profile": None}
+    for i in range(1, steps + 1):
+        toks, ids = next(stream)
+        batch = {"tokens": torch.from_numpy(toks).to("cuda", torch.int64)}
+        ids = torch.from_numpy(ids).to("cuda")
+        before = dict(build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == profile_step:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                params, opt_state, bstates, m = step(params, opt_state,
+                                                     bstates, batch, ids)
+                torch.cuda.synchronize()
+            out["profile"] = prof
+        else:
+            params, opt_state, bstates, m = step(params, opt_state, bstates,
+                                                 batch, ids)
+            torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["losses"].append(float(m["loss"]))
+        out["wire"].append(m["wire"])
+        out["launches"].append({k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+                                for k in KERNELS})
+    out["params"] = params
+    return out
+
+
+def pipe_expected_wire(name):
+    """Bytes and hops per step of run ``name`` from ``wire_telemetry``,
+    checked against the payload sizes of one full-width microbatch."""
+    from repro_torch.transport.pipeline import (PipelineTransport,
+                                                wire_telemetry)
+    from repro_torch.transport.schedules import get_schedule
+    from repro_torch.train.steps import _uniform_boundary
+    _, _, sched, v, _, (fw, bw) = PIPE_RUNS[name]
+    schedule = get_schedule(sched, v)
+    stages = PIPE_STAGES // v
+    tel = wire_telemetry(
+        PipelineTransport(_uniform_boundary(pipe_policy(name, stages)),
+                          stages, virtual_stages=v,
+                          fused=schedule.fused_wire),
+        schedule, MB_SHAPE, microbatches=PIPE_MB)
+    hops = PIPE_MB * tel["wire_cuts"]
+    assert hops == PIPE_HOPS, (name, hops)
+    assert tel["fw_payload_bytes_per_hop"] == PAYLOAD_BYTES[fw], (name, tel)
+    assert tel["bw_payload_bytes_per_hop"] == PAYLOAD_BYTES[bw], (name, tel)
+    return {"fw_hops": hops, "bw_hops": hops,
+            "fw_bytes": hops * tel["fw_payload_bytes_per_hop"],
+            "bw_bytes": hops * tel["bw_payload_bytes_per_hop"]}
+
+
+def pipeline(torch, D, build):
+    from repro_torch.configs.registry import get
+    from repro_torch.models import transformer
+
+    cfg = get("gpt2-small")
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    build.reset_launches()                  # the pipeline path starts here
+    runs = {name: pipe_run(torch, cfg, params, name, build)
+            for name in PIPE_RUNS}
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}  # read here
+    log(f"# pipeline-path launches {launches}")
+    for name, spec in PIPE_RUNS.items():
+        run, want = runs[name], spec[4]
+        for i, got in enumerate(run["launches"]):
+            if got != want:
+                raise AssertionError(f"pipeline {name} step {i + 1}: "
+                                     f"launches {got}, expected {want}")
+        wire = pipe_expected_wire(name)
+        for i, got in enumerate(run["wire"]):
+            if got != wire:
+                raise AssertionError(f"pipeline {name} step {i + 1}: wire "
+                                     f"{got}, expected {wire}")
+        losses = run["losses"]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"pipeline {name}: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"pipeline {name}: loss did not fall "
+                                 f"{losses}")
+        tok_s = (PIPE_BATCH * PIPE_SEQ * (PIPE_STEPS - 1)
+                 / sum(run["seconds"][1:]))
+        log("# pipeline " + json.dumps({
+            "run": name, "losses": losses,
+            "launches_per_step": {k: v for k, v in run["launches"][0].items()
+                                  if v},
+            "wire_per_step": run["wire"][0], "step_s": run["seconds"],
+            "tokens_per_s_steps_2_to_3": tok_s}))
+    for pol in ("q4q8", "aqsgd"):
+        a, b = runs[f"gpipe/{pol}"], runs[f"1f1b/{pol}"]
+        if a["losses"] != b["losses"]:
+            raise AssertionError(f"1f1b != gpipe under {pol}: "
+                                 f"{b['losses']} vs {a['losses']}")
+        for (n, x), (_, y) in zip(_leaves(a["params"]), _leaves(b["params"])):
+            if not torch.equal(x, y):
+                raise AssertionError(f"1f1b != gpipe under {pol}: param {n}")
+    log("# 1f1b equals gpipe bitwise (losses and params after 3 steps) "
+        "under q4q8 and aqsgd")
+
+    D.KERNEL_BACKEND = "plain"
+    try:
+        for name in PIPE_RUNS:
+            plain = pipe_run(torch, cfg, params, name, build)["losses"]
+            if plain != runs[name]["losses"]:
+                raise AssertionError(f"pipeline {name}: plain backend "
+                                     f"losses {plain} != "
+                                     f"{runs[name]['losses']}")
+    finally:
+        D.KERNEL_BACKEND = "auto"
+    log("# plain backend on the card gives identical pipeline losses for "
+        "every run")
+
+    check_pipeline_against_cpu(torch, transformer, get)
+    for name in ("gpipe/q4q8", "1f1b/q4q8", "interleaved/q4q8"):
+        prof = pipe_run(torch, cfg, params, name, build, steps=2,
+                        profile_step=2)
+        dev = sorted(device_events(prof["profile"]), reverse=True)
+        busy_ms = sum(ms for ms, _ in dev)
+        wall_ms = prof["seconds"][1] * 1e3
+        step_ms = 1e3 * min(runs[name]["seconds"][1:])
+        log("# pipeline profile " + json.dumps({
+            "run": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "unprofiled_step_ms": step_ms,
+            "device_idle_share_unprofiled": 1 - busy_ms / step_ms,
+            "top_device_ms": [[key[:60], ms] for ms, key in dev[:6]]}))
+    return launches
+
+
+def check_pipeline_against_cpu(torch, transformer, get):
+    """One pipeline step of the smoke model (4 layer groups, 2 stages, 2
+    microbatches) on the card and on the CPU, which the CPU tests hold to
+    the JAX package: without compression within the train tolerance,
+    under q4q8 / 1f1b within the compressed one."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.policy import POLICIES
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.steps import make_lm_train_step
+    cfg = dataclasses.replace(get("gpt2-small", smoke=True), num_layers=4)
+    params = transformer.init_params(torch.Generator().manual_seed(1), cfg)
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="cosine", t_max=1, grad_clip=1.0)
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (16, 32)))
+    for pname, sched, tol in (("none", "gpipe", LOSS_ATOL),
+                              ("q4q8", "1f1b", LM_LOSS_ATOL)):
+        policy = dataclasses.replace(POLICIES[pname](), num_stages=2)
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            p = _tree_to(params, dev)
+            step = make_lm_train_step(cfg, policy, opt, transport="pipeline",
+                                      pipeline_microbatches=2,
+                                      schedule=sched)
+            _, _, _, m = step(p, init_opt_state(opt, p), [],
+                              {"tokens": toks.to(dev)},
+                              torch.arange(16, device=dev))
+            losses[dev] = float(m["loss"])
+        gap = abs(losses["cpu"] - losses["cuda"])
+        if not (math.isfinite(losses["cuda"]) and gap <= tol):
+            raise AssertionError(f"smoke pipeline {pname}/{sched}: card "
+                                 f"{losses['cuda']} vs CPU {losses['cpu']}")
+        log(f"# smoke pipeline step {pname}/{sched}, card vs CPU: "
+            f"{losses['cuda']} vs {losses['cpu']}, gap {gap} (<= {tol})")
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -662,7 +1065,9 @@ def main() -> int:
     # the wrappers write every element they allocate; no NaN fill kernels
     torch.utils.deterministic.fill_uninitialized_memory = False
     from repro_torch import device as D
-    from repro_torch.kernels import _build, ops, pack4, topk_select as topk
+    from repro_torch.kernels import _build, framing, ops, pack4, quantize
+    from repro_torch.kernels import tiling, topk_select as topk
+    from repro_torch.transport import codecs
 
     # -- phase 1 ------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -688,6 +1093,12 @@ def main() -> int:
     timed[CUT] = time_cut_kernels(torch, D, ops, cuts[CUT])
     for name, row in timed[CUT].items():
         log(f"# {name} {CUT}: " + json.dumps(row))
+    err.update(check_wire_kernels(torch, D, quantize, framing, codecs,
+                                  tiling))
+    timed[WIRE] = time_wire_kernels(torch, D, quantize, framing, codecs,
+                                    tiling)
+    for name, row in timed[WIRE].items():
+        log(f"# {name} {row['shape']}: " + json.dumps(row))
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3 ------------------------------------------------------------
@@ -700,9 +1111,15 @@ def main() -> int:
     log(f"# phase 4 done at {time.perf_counter() - t0:.1f} s")
 
     # -- phase 5 ------------------------------------------------------------
+    launches.update({k: v for k, v in pipeline(torch, D, _build).items()
+                     if k in WIRE_KERNELS})
+    log(f"# phase 5 done at {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 6 ------------------------------------------------------------
     line = []
     for name, (src, replaces) in KERNELS.items():
-        row = timed[CUT if name in TRAIN_KERNELS else PREFILL][name]
+        row = timed[CUT if name in TRAIN_KERNELS else
+                    WIRE if name in WIRE_KERNELS else PREFILL][name]
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err[name], "ms": row["ms"],

@@ -1,8 +1,10 @@
 """Error-compensation state and message functions (paper Sec. 2.4, 2.5).
 
-Port of ``repro/core/feedback.py`` for the simulated boundary.  Each
-message maps ``(compressor, x, buffer) -> (message, new_buffer)``;
-``message`` is what crosses the wire:
+Port of ``repro/core/feedback.py`` for the stage boundary: the simulated
+cut (``core/boundary.py``) and the real pipeline
+(``transport/pipeline.py``).  Each message maps ``(compressor, x,
+buffer) -> (message, new_buffer)``; ``message`` is what crosses the
+wire:
 
   EF       (Seide et al.):     m = C(x + e);           e' = x + e - m
   EF21     (Richtarik et al.): m = g + C(x - g);       g' = m
@@ -15,9 +17,12 @@ reference does on every backend, so it never reaches the block TopK
 kernel.  AQ-SGD's buffer is ``(num_samples, *feat)``, gathered and
 written back by example id.
 
-:class:`FeedbackState` holds the ``resid`` slot the simulated boundary
-uses.  The reference's ``mirror`` and ``agg`` slots belong to the real
-pipeline and the DP reduce, which are not ported yet.
+:class:`FeedbackState` holds the sender-side ``resid`` buffer and the
+receiver-side ``mirror`` that the real pipeline keeps for the
+delta-coded modes (EF21, AQ-SGD: the receiver rebuilds the message from
+its own copy of the sender's buffer).  The simulated boundary collapses
+both ends into ``resid`` and keeps ``mirror`` size 0.  The reference's
+``agg`` slot belongs to the DP reduce, which is not ported yet.
 """
 from __future__ import annotations
 
@@ -65,11 +70,14 @@ def aqsgd_message(comp: Compressor, x: torch.Tensor, buf: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class FeedbackMode:
-    """One registry entry.  ``per_example``: the buffer is
-    ``(num_samples, *feat)``, indexed by example id.  ``scopes``: where
-    the mode is valid."""
+    """One registry entry.  ``delta_coded``: the wire message is a
+    compressed DELTA against the buffer (m = buf + C(x - buf)), so a real
+    wire's receiver keeps a mirror of the sender's buffer.
+    ``per_example``: the buffer is ``(num_samples, *feat)``, indexed by
+    example id.  ``scopes``: where the mode is valid."""
     name: str
     message: Callable
+    delta_coded: bool = False
     per_example: bool = False
     scopes: Tuple[str, ...] = ("boundary",)
 
@@ -86,14 +94,14 @@ FEEDBACK_REGISTRY = {
         scopes=("boundary", "dp", "tp")),
     "ef21": FeedbackMode(
         "ef21", lambda comp, x, buf, ids=None: ef21_message(comp, x, buf),
-        scopes=("boundary", "dp", "tp")),
+        delta_coded=True, scopes=("boundary", "dp", "tp")),
     "efmixed": FeedbackMode(
         "efmixed",
         lambda comp, x, buf, ids=None: efmixed_message(comp, x, buf)),
     "aqsgd": FeedbackMode(
         "aqsgd",
         lambda comp, x, buf, ids=None: aqsgd_message(comp, x, buf, ids),
-        per_example=True),
+        delta_coded=True, per_example=True),
 }
 
 
@@ -103,6 +111,12 @@ def get_mode(mode: str) -> FeedbackMode:
     except KeyError:
         raise ValueError(f"unknown feedback mode {mode!r}; known: "
                          f"{sorted(FEEDBACK_REGISTRY)}") from None
+
+
+def needs_recv_mirror(mode: str) -> bool:
+    """True when a real (packed-wire) transport of this mode must keep a
+    receiver-side replica of the compensation buffer."""
+    return get_mode(mode).delta_coded
 
 
 def feedback_message(mode: str, comp: Compressor, x: torch.Tensor, buf,
@@ -115,8 +129,11 @@ def feedback_message(mode: str, comp: Compressor, x: torch.Tensor, buf,
 class FeedbackState:
     """One compensation thread's state: the sender-side buffer ``resid``
     (EF's error e, EF21's model g, AQ-SGD's per-example rows; size 0 when
-    the direction has no feedback) and its ``(scope, direction, mode)``."""
+    the direction has no feedback), the receiver-side ``mirror`` of the
+    real pipeline's delta-coded modes (size 0 otherwise, and always on the
+    simulated boundary) and its ``(scope, direction, mode)``."""
     resid: torch.Tensor
+    mirror: torch.Tensor
     scope: str = "boundary"
     direction: str = "fw"
     mode: str = "none"
@@ -133,7 +150,7 @@ class FeedbackState:
 
     def map(self, f) -> "FeedbackState":
         """Apply ``f`` to every tensor slot (metadata kept)."""
-        return self.replace(resid=f(self.resid))
+        return self.replace(resid=f(self.resid), mirror=f(self.mirror))
 
 
 def init_buffer(mode: str, feat_shape, dtype=torch.float32,
@@ -155,9 +172,42 @@ def init_feedback(mode: str, feat_shape, *, scope: str = "boundary",
                   direction: str = "fw", dtype=torch.float32,
                   num_samples: int = 0, batch: int = 0,
                   device=None) -> FeedbackState:
-    """A fresh :class:`FeedbackState` for one boundary direction."""
+    """A fresh :class:`FeedbackState` for one boundary direction (the
+    simulated transport's view: ``mirror`` size 0)."""
     return FeedbackState(
         resid=init_buffer(mode, feat_shape, dtype=dtype,
                           num_samples=num_samples, batch=batch,
                           device=device),
+        mirror=torch.zeros((0,), dtype=dtype, device=device),
         scope=scope, direction=direction, mode=mode)
+
+
+# ---------------------------------------------------------------------------
+# Buffer row addressing (the pipeline's per-microbatch slices)
+# ---------------------------------------------------------------------------
+
+def gather_rows(buf, k, slot, ids, mode: str, v: int = 1):
+    """One microbatch's slice of a device's feedback buffer (size-0 passes
+    through).  ``k`` selects the virtual chunk when ``v > 1``; the row is
+    ``ids`` for per-example modes, the microbatch ``slot`` otherwise.  An
+    int slot gives a view, an id tensor a copy."""
+    if mode == "none":
+        return buf
+    row = ids.long() if get_mode(mode).per_example else slot
+    return buf[row] if v == 1 else buf[k, row]
+
+
+def scatter_rows(buf, k, slot, ids, mode: str, v: int, new_slice):
+    """Write one microbatch's slice back (the inverse of
+    :func:`gather_rows`), IN PLACE; returns ``buf``.  The reference
+    returns an updated copy and takes a validity mask for its fill/drain
+    ticks; the port's pipeline computes valid ticks only."""
+    if mode == "none":
+        return buf
+    upd = new_slice.to(buf.dtype)
+    row = ids.long() if get_mode(mode).per_example else slot
+    if v == 1:
+        buf[row] = upd
+    else:
+        buf[k, row] = upd
+    return buf

@@ -51,6 +51,14 @@ class BoundaryPolicy:
             raise ValueError("reuse_indices requires a TopK forward compressor")
 
     @property
+    def needs_fw_buffer(self) -> bool:
+        return self.feedback in ("ef", "ef21", "efmixed", "aqsgd")
+
+    @property
+    def needs_bw_buffer(self) -> bool:
+        return self.bw_feedback in ("ef", "ef21", "efmixed")
+
+    @property
     def name(self) -> str:
         parts = [f"fw={self.fw.name}", f"bw={self.bw.name}"]
         if self.feedback != "none":

@@ -1,5 +1,4 @@
-"""Training launcher: the simulated-boundary LM run (port of
-``repro/launch/train.py``).
+"""Training launcher: the LM run (port of ``repro/launch/train.py``).
 
 Trains a registry architecture (full width, or ``--smoke``) on the
 synthetic order-2 Markov token stream with a boundary-compression policy
@@ -10,15 +9,23 @@ Runs on ``cuda`` unless ``--device cpu``.
       --steps 20 --batch 8 --seq 128 --policy q4q8
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
       --smoke --device cpu --steps 4 --policy top10 --feedback aqsgd
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
+      --smoke --device cpu --transport pipeline --stages 2 \\
+      --schedule 1f1b --pipeline-microbatches 2 --policy q4q8
 
-Only the simulated transport with a static named policy and
-``--grad-accum 1`` is ported; the reference's other flags (the real
-pipeline, DP, meshes and wires, rule-spec policies, checkpoints,
-telemetry) exit with an error saying so.
+``--transport simulated`` compresses simulated stage cuts;
+``--transport pipeline`` runs the layer stack through the real
+compressed pipeline (``--stages``, ``--schedule``, ``--virtual-stages``,
+``--pipeline-microbatches``; one process, every stage on the one
+device), and its JSON lines add the step's forward and backward wire
+bytes.  Static named policies and ``--grad-accum 1`` only; the
+reference's other flags (DP, meshes and wires, rule-spec policies,
+checkpoints, telemetry) exit with an error saying so.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import sys
@@ -34,11 +41,12 @@ from repro_torch.core.policy import (POLICIES, CompressionPolicy,
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+from repro_torch.train.loop import _pipeline_bstates
 from repro_torch.train.steps import make_lm_train_step
+from repro_torch.transport.schedules import get_schedule
 
 # Flags of the reference launcher that belong to features not ported yet.
-NOT_PORTED = ("--stages", "--schedule", "--virtual-stages",
-              "--pipeline-microbatches", "--mesh", "--wire", "--dp",
+NOT_PORTED = ("--mesh", "--wire", "--dp",
               "--dp-codec", "--dp-feedback", "--dp-k-frac", "--microbatches",
               "--ckpt", "--save-every", "--ckpt-every", "--resume",
               "--trace", "--perfetto", "--metrics")
@@ -92,7 +100,23 @@ def main(argv=None) -> int:
                     help="a named policy: %s (rule specs are not yet "
                          "ported)" % ", ".join(sorted(POLICIES)))
     ap.add_argument("--transport", default="simulated",
-                    choices=("simulated", "pipeline"))
+                    choices=("simulated", "pipeline"),
+                    help="simulated boundary (paper) or the real "
+                         "compressed pipeline")
+    ap.add_argument("--stages", type=int, default=None,
+                    help="pipeline stage count (default: policy's)")
+    ap.add_argument("--schedule", default="gpipe",
+                    choices=("gpipe", "1f1b", "interleaved"),
+                    help="pipeline schedule: gpipe (minimum-tick skew), "
+                         "1f1b (rematerialized stages + fused single-buffer "
+                         "hops), interleaved (--virtual-stages slices per "
+                         "device: 1/v the bubble, v*S-1 compressed cuts)")
+    ap.add_argument("--virtual-stages", type=int, default=None,
+                    help="virtual stage slices per device for --schedule "
+                         "interleaved (default 2)")
+    ap.add_argument("--pipeline-microbatches", type=int, default=None,
+                    help="microbatch count for the pipeline transport "
+                         "(default: the stage count)")
     ap.add_argument("--feedback", default="none",
                     choices=("none", "ef", "ef21", "efmixed", "aqsgd"),
                     help="error-feedback mode (paper Tables 3-4); replaces "
@@ -113,14 +137,11 @@ def main(argv=None) -> int:
     for flag in rest:
         if flag.split("=")[0] in NOT_PORTED:
             ap.error(f"{flag.split('=')[0]} is not yet ported to repro_torch "
-                     "(only the simulated transport is)")
+                     "(one replica, no tensor parallelism)")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     if args.grad_accum != 1:
         ap.error("--grad-accum > 1 is not yet ported to repro_torch")
-    if args.transport != "simulated":
-        ap.error(f"--transport {args.transport} is not yet ported to "
-                 "repro_torch (only the simulated transport is)")
     if args.policy not in POLICIES:
         ap.error(f"--policy {args.policy!r}: rule-spec policies are not yet "
                  f"ported to repro_torch (named: "
@@ -134,6 +155,11 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     seq = min(args.seq, cfg.max_seq)
     policy = build_policy(args.policy, args.feedback, args.k_frac)
+    if args.stages:
+        policy = dataclasses.replace(policy, num_stages=args.stages)
+    virtual_stages = (args.virtual_stages if args.virtual_stages is not None
+                      else (2 if args.schedule == "interleaved" else 1))
+    pipeline = args.transport == "pipeline"
     print(f"# arch={cfg.arch_id} B={args.batch} S={seq} "
           f"policy={args.policy}"
           f"{'' if args.feedback == 'none' else '+' + args.feedback} "
@@ -144,15 +170,39 @@ def main(argv=None) -> int:
     params = transformer.init_params(
         torch.Generator(device=dev).manual_seed(args.seed), cfg)
     opt_state = init_opt_state(opt, params)
-    # the cuts that exist: segment_bounds caps the stages at the groups
-    cuts = len(transformer.segment_bounds(cfg.num_groups,
-                                          policy.num_stages)) - 1
-    bstates = [init_boundary_state(policy.at(i), (seq, cfg.d_model),
-                                   batch=args.batch,
-                                   num_samples=args.num_samples,
-                                   dtype=torch.bfloat16, device=dev)
-               for i in range(cuts)]
-    step_fn = make_lm_train_step(cfg, policy, opt, remat=not args.no_remat)
+    if pipeline:
+        sched = get_schedule(args.schedule, virtual_stages)
+        mb_eff = args.pipeline_microbatches or policy.num_stages
+        if args.batch % mb_eff:
+            ap.error(f"--batch {args.batch} is not divisible by the "
+                     f"{mb_eff} pipeline microbatches")
+        try:
+            sched.validate(mb_eff, policy.num_stages)
+            transformer.stack_layer_stages(
+                params, policy.num_stages * virtual_stages)
+            bstates = _pipeline_bstates(
+                policy, (seq, cfg.d_model), batch=args.batch,
+                microbatches=args.pipeline_microbatches,
+                num_samples=args.num_samples, dtype=torch.bfloat16,
+                virtual_stages=virtual_stages, device=dev)
+        except ValueError as e:
+            ap.error(str(e))
+        print(f"# pipeline transport: schedule={args.schedule} "
+              f"microbatches={mb_eff} "
+              f"{sched.describe(mb_eff, policy.num_stages)}", flush=True)
+    else:
+        # the cuts that exist: segment_bounds caps the stages at the groups
+        cuts = len(transformer.segment_bounds(cfg.num_groups,
+                                              policy.num_stages)) - 1
+        bstates = [init_boundary_state(policy.at(i), (seq, cfg.d_model),
+                                       batch=args.batch,
+                                       num_samples=args.num_samples,
+                                       dtype=torch.bfloat16, device=dev)
+                   for i in range(cuts)]
+    step_fn = make_lm_train_step(
+        cfg, policy, opt, remat=not args.no_remat, transport=args.transport,
+        pipeline_microbatches=args.pipeline_microbatches,
+        schedule=args.schedule, virtual_stages=virtual_stages)
     stream = synthetic_stream(cfg, args.batch, seq, args.seed,
                               num_samples=args.num_samples)
     metrics, t0 = [], time.time()
@@ -169,6 +219,9 @@ def main(argv=None) -> int:
                    "ppl": round(math.exp(min(loss, 20.0)), 2),
                    "tok_per_s": round(step * args.batch * seq / dt, 1),
                    "wall_s": round(dt, 1)}
+            if pipeline:
+                rec.update(fw_bytes=m["wire"]["fw_bytes"],
+                           bw_bytes=m["wire"]["bw_bytes"])
             metrics.append(rec)
             print(json.dumps(rec), flush=True)
     if args.json:

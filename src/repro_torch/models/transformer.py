@@ -18,6 +18,8 @@ Entry points:
   forward_eval(params, batch, cfg, policy, compress)      -> logits
   hidden_lm_loss(params, hidden, labels, cfg, mask)       -> loss
   lm_loss(logits, labels, mask)                           -> loss
+  stage_stack_fn(cfg)            -> stage_fn(gp_stack, x) -> x (pipeline)
+  stack_layer_stages(params, num_slices)  -> (S*v, groups/(S*v), ...) views
   init_caches(cfg, batch, cache_len, dtype, device)
   prefill(params, batch, cfg, policy, cache_len, compress, pad_len, wire)
                                                   -> (logits (B,1,V), caches)
@@ -152,6 +154,43 @@ def forward_train(params, batch, cfg: ModelConfig,
     x, aux, new_fw, slots = forward_hidden(params, batch, cfg, policy,
                                            bstates, ids, remat)
     return _lm_logits(params, x, cfg), aux, new_fw, slots
+
+
+def stage_stack_fn(cfg: ModelConfig):
+    """``stage_fn(gp_stack, x) -> x`` applying a stacked slice of layer
+    groups in order: the per-stage body of the real pipeline
+    (``transport/pipeline.py``).  MoE aux losses are dropped on this
+    path, as in the reference."""
+    kinds = cfg.layer_kinds()
+
+    def stage_fn(gp_stack, x):
+        leaf = gp_stack
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        for g in range(leaf.shape[0]):
+            gp = _group(gp_stack, g)
+            for i, kind in enumerate(kinds):
+                x, _ = B.block_train(gp[f"b{i}"], x, cfg, kind)
+        return x
+
+    return stage_fn
+
+
+def stack_layer_stages(params, num_stages: int):
+    """The (num_groups, ...) layer stack as (num_stages, groups/stages,
+    ...) views: the pipeline's stage-stacked params (``num_stages`` is the
+    number of logical slices, stages x virtual stages)."""
+    def reshape(tree):
+        if isinstance(tree, dict):
+            return {k: reshape(v) for k, v in tree.items()}
+        g = tree.shape[0]
+        if g % num_stages:
+            raise ValueError(
+                f"num_groups={g} is not divisible by num_stages="
+                f"{num_stages}; pick a stage count that divides the "
+                "layer-group count (--stages for launch/train)")
+        return tree.reshape(num_stages, g // num_stages, *tree.shape[1:])
+    return reshape(params["layers"])
 
 
 def forward_eval(params, batch, cfg: ModelConfig,

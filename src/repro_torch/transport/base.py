@@ -10,8 +10,12 @@ boundary of a :class:`~repro_torch.core.policy.CompressionPolicy`:
   ``bw(g, bw_state, ctx) -> (grad_message, new_bw_state)``
       the backward activation-gradient crossing the cut.
 
-:class:`~repro_torch.transport.simulated.SimulatedTransport` is the one
-implementation ported so far; the real pipeline comes later.
+:class:`~repro_torch.transport.simulated.SimulatedTransport` implements
+it (a compress-decompress round trip in one program).
+:class:`~repro_torch.transport.pipeline.PipelineTransport` (packed wire
+payloads both ways) shares the codec helpers below; its hops are
+``fw_hop`` / ``bw_hop`` of one cut of the schedule, with the feedback
+buffers addressed by the cut.
 """
 from __future__ import annotations
 

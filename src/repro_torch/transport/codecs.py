@@ -2,7 +2,8 @@
 
 Port of ``repro/transport/codecs.py``.  One codec = one wire scheme:
 ``pack`` maps a boundary tensor ``(B, ...)`` to a payload dict of tensors,
-``unpack`` inverts it given the original shape.
+``unpack`` inverts it given the original shape, and ``payload_struct``
+gives the payload's leaf shapes and dtypes from the input shape alone.
 
   * ``none`` — raw bf16                            (2    bytes/elem)
   * ``q8``   — uint8 codes + min/scale             (1    byte/elem)
@@ -14,25 +15,37 @@ Quantization stats are per tensor, as in the reference — or, with
 each row then carries exactly the payload the reference's
 ``jax.vmap``-per-request pack gives it (core/boundary.py).  ``unpack``
 reads either form from the shape of ``min``.  TopK is per example in both.
+On the pipeline (``per_request=False``) q8 packs into the per-tile wire
+format ``{"codes", "tile_meta"}`` through ``kernels/quantize.py::
+quantize_wire`` whenever ``kernels/tiling.wire_tiling`` fits the flattened
+shape (8 rows or more), as the reference does on its accelerator; other
+shapes keep the per-tensor format.
 
 q4 packs through ``kernels/pack4.py`` and TopK selects through
 ``kernels/topk_select.py`` (CUDA kernels on the card, plain versions on the
-CPU); q8 stays per-tensor torch ops, as the reference computes it outside
-Pallas when serving.  The TopK unpack scatter is torch ops, as the
-reference leaves it to XLA.  Payload fusion (``fuse_payload``) is not
-ported yet.
+CPU).  The TopK unpack scatter and the q8 dequantizations are torch ops,
+as the reference leaves them to XLA.
+
+``fuse_payload`` / ``unfuse_payload`` frame a payload into ONE contiguous
+uint8 hop buffer and back (the fused hops of the 1f1b and interleaved
+schedules), through ``kernels/framing.py`` for payloads of two or more
+leaves.  Leaves go in ``jax.tree.leaves`` order: dict keys sorted, nested
+dicts depth first.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.core.compressors import (Compressor, dequantize_kbit,
                                           quantize_kbit, topk_count,
                                           topk_scatter)
+from repro_torch.kernels.framing import frame_parts, unframe_parts
 from repro_torch.kernels.pack4 import (minmax_scale, pack4_wire,
                                       unpack4_wire)
+from repro_torch.kernels.quantize import dequantize_wire, quantize_wire
+from repro_torch.kernels.tiling import wire_tiling
 from repro_torch.kernels.topk_select import topk_select_wire
 
 # Index dtype threshold: a flattened feature dim of up to 2**16 entries has
@@ -50,6 +63,12 @@ def _flat_n(shape) -> int:
 def _stat_column(v: torch.Tensor) -> torch.Tensor:
     """A scalar or per-row ``(B,)`` stat, broadcastable against (B, n)."""
     return v.reshape(-1, 1)
+
+
+class LeafStruct(NamedTuple):
+    """Shape and dtype of one payload leaf (``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 class WireCodec:
@@ -75,6 +94,11 @@ class WireCodec:
     def unpack(self, payload: dict, shape, dtype=torch.bfloat16):
         raise NotImplementedError
 
+    def payload_struct(self, shape, k_frac: float = 1.0) -> dict:
+        """The leaves' :class:`LeafStruct` of ``pack(x, k_frac)`` for an x
+        of ``shape``, worked out without packing."""
+        raise NotImplementedError
+
     def wire_bytes_per_elem(self, n: int, elem_bytes: int = 2,
                             k_frac: float = 1.0) -> float:
         raise NotImplementedError
@@ -94,6 +118,9 @@ class NoneCodec(WireCodec):
     def unpack(self, payload, shape, dtype=torch.bfloat16):
         return payload["raw"].to(dtype)
 
+    def payload_struct(self, shape, k_frac: float = 1.0):
+        return {"raw": LeafStruct(tuple(shape), torch.bfloat16)}
+
     def wire_bytes_per_elem(self, n, elem_bytes: int = 2,
                             k_frac: float = 1.0) -> float:
         return float(elem_bytes)
@@ -110,10 +137,18 @@ class QuantCodec(WireCodec):
     def payload_keysets(self):
         if self.bits == 4:
             return (("codes4", "min", "scale"),)
-        return (("codes", "min", "scale"),)
+        return (("codes", "min", "scale"),      # per-tensor format
+                ("codes", "tile_meta"))         # per-tile wire format
 
     def pack(self, x, k_frac: float = 1.0, per_request: bool = False):
-        flat = x.reshape(x.shape[0], -1).to(torch.float32)
+        flat = x.reshape(x.shape[0], -1)
+        tiling = wire_tiling(flat.shape)
+        if self.bits == 8 and not per_request and tiling is not None:
+            # the kernel reads bf16 directly; the reference casts to f32
+            # first, which is exact
+            codes, meta = quantize_wire(flat, 8, block=tiling)
+            return {"codes": codes, "tile_meta": meta}
+        flat = flat.to(torch.float32)
         if self.bits == 4:
             if per_request:
                 mn, sc = minmax_scale(flat)
@@ -134,11 +169,29 @@ class QuantCodec(WireCodec):
             m = payload["codes4"].shape[0]
             flat = unpack4_wire(payload["codes4"], payload["min"].expand(m),
                                 payload["scale"].expand(m), n)
+        elif "tile_meta" in payload:
+            codes, meta = payload["codes"], payload["tile_meta"]
+            gm, gn = meta.shape[0], meta.shape[1] // 2
+            block = (codes.shape[0] // gm, codes.shape[1] // gn)
+            flat = dequantize_wire(codes, meta, torch.float32, block=block)
         else:
             flat = dequantize_kbit(payload["codes"],
                                    _stat_column(payload["min"]),
                                    _stat_column(payload["scale"]))
         return flat.reshape(shape).to(dtype)
+
+    def payload_struct(self, shape, k_frac: float = 1.0):
+        b, n = shape[0], _flat_n(shape)
+        scalar = LeafStruct((), torch.float32)
+        if self.bits == 4:
+            return {"codes4": LeafStruct((b, (n + 1) // 2), torch.uint8),
+                    "min": scalar, "scale": scalar}
+        codes = LeafStruct((b, n), torch.uint8)
+        tiling = wire_tiling((b, n))
+        if tiling is None:
+            return {"codes": codes, "min": scalar, "scale": scalar}
+        meta = (b // tiling[0], 2 * (n // tiling[1]))
+        return {"codes": codes, "tile_meta": LeafStruct(meta, torch.float32)}
 
     def wire_bytes_per_elem(self, n, elem_bytes: int = 2,
                             k_frac: float = 1.0) -> float:
@@ -166,6 +219,13 @@ class TopKCodec(WireCodec):
         idx = payload["idx"].to(torch.int32)
         return topk_scatter(payload["vals"].to(torch.float32), idx, shape,
                             torch.float32).to(dtype)
+
+    def payload_struct(self, shape, k_frac: float = 0.1):
+        b, n = shape[0], _flat_n(shape)
+        k = topk_count(k_frac, n)
+        idx = torch.uint16 if n <= _U16_MAX_N else torch.int32
+        return {"idx": LeafStruct((b, k), idx),
+                "vals": LeafStruct((b, k), torch.bfloat16)}
 
     def wire_bytes_per_elem(self, n, elem_bytes: int = 2,
                             k_frac: float = 0.1) -> float:
@@ -243,6 +303,82 @@ def unpack_payload(payload: dict, shape, dtype=torch.bfloat16):
     return get_codec(name).unpack(payload, shape, dtype)
 
 
-def wire_bytes(payload: dict) -> int:
-    """Actual bytes-on-wire of a packed payload."""
-    return sum(t.numel() * t.element_size() for t in payload.values())
+def payload_leaves(payload) -> list:
+    """The leaves of a (nested) payload dict in ``jax.tree.leaves`` order:
+    keys sorted, nested dicts depth first."""
+    if isinstance(payload, dict):
+        return [leaf for k in sorted(payload)
+                for leaf in payload_leaves(payload[k])]
+    return [payload]
+
+
+def _unflatten(struct, leaves):
+    """Rebuild ``struct``'s nesting from an iterator over its leaves."""
+    if isinstance(struct, dict):
+        return {k: _unflatten(struct[k], leaves) for k in sorted(struct)}
+    return next(leaves)
+
+
+def payload_struct(payload):
+    """The :class:`LeafStruct` tree of a packed payload."""
+    if isinstance(payload, dict):
+        return {k: payload_struct(v) for k, v in payload.items()}
+    return LeafStruct(tuple(payload.shape), payload.dtype)
+
+
+def _leaf_nbytes(leaf) -> int:
+    nb = leaf.dtype.itemsize
+    for dim in leaf.shape:
+        nb *= dim
+    return nb
+
+
+def wire_bytes(payload) -> int:
+    """Bytes-on-wire of a packed payload, nested or not, its leaves given
+    as tensors or as :class:`LeafStruct` tuples."""
+    return sum(_leaf_nbytes(leaf) for leaf in payload_leaves(payload))
+
+
+# ---------------------------------------------------------------------------
+# Payload fusion: one contiguous byte buffer per hop
+# ---------------------------------------------------------------------------
+
+def _leaf_bytes(a: torch.Tensor) -> torch.Tensor:
+    """A leaf's bytes as a flat uint8 tensor (a view where it can be)."""
+    flat = a.contiguous().reshape(-1)
+    return flat.to(torch.uint8) if a.dtype == torch.bool \
+        else flat.view(torch.uint8)
+
+
+def _bytes_to_leaf(seg: torch.Tensor, s: LeafStruct) -> torch.Tensor:
+    """Flat uint8 segment -> tensor of the leaf's shape and dtype (the
+    inverse of :func:`_leaf_bytes`).  ``seg`` must start at a storage
+    offset that is a multiple of the item size; ``unframe_parts`` gives
+    every segment its own allocation."""
+    if s.dtype == torch.bool:
+        return seg.to(torch.bool).reshape(s.shape)
+    return seg.view(s.dtype).reshape(s.shape)
+
+
+def fuse_payload(payload) -> torch.Tensor:
+    """Flatten a packed payload into one contiguous uint8 hop buffer:
+    byte-identical to concatenating its leaves' bytes in
+    :func:`payload_leaves` order.  A one-leaf payload is that leaf's bytes
+    as they are; two or more go through ``frame_parts``."""
+    parts = [_leaf_bytes(a) for a in payload_leaves(payload)]
+    if not parts:
+        return torch.zeros((0,), dtype=torch.uint8)
+    if len(parts) == 1:
+        return parts[0]
+    return frame_parts(parts)
+
+
+def unfuse_payload(buf: torch.Tensor, struct):
+    """Inverse of :func:`fuse_payload` given the payload's
+    :class:`LeafStruct` tree (``payload_struct`` of the pack, or a codec's
+    ``payload_struct``)."""
+    leaves = payload_leaves(struct)
+    sizes = [_leaf_nbytes(s) for s in leaves]
+    segs = unframe_parts(buf, sizes) if len(leaves) > 1 else [buf]
+    return _unflatten(struct, iter([_bytes_to_leaf(seg, s)
+                                     for seg, s in zip(segs, leaves)]))

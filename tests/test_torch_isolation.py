@@ -82,6 +82,12 @@ def test_entry_points_without_device_ask_for_cuda(no_cuda):
         ttrain.main(["--smoke", "--steps", "1", "--batch", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
         run_lm_experiment(cfg, POLICIES["top10"](), epochs=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ttrain.main(["--smoke", "--steps", "1", "--batch", "2",
+                     "--transport", "pipeline", "--stages", "2"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_lm_experiment(cfg, POLICIES["q4q8"](), epochs=1,
+                          transport="pipeline", schedule="1f1b")
 
 
 def test_cpu_tensors_take_the_plain_path():

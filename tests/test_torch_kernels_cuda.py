@@ -9,8 +9,8 @@ import pytest
 import torch
 
 from repro_torch import device as D
-from repro_torch.kernels import _build, ops, pack4, quantize, topk_mask
-from repro_torch.kernels import topk_select
+from repro_torch.kernels import _build, framing, ops, pack4, quantize
+from repro_torch.kernels import tiling, topk_mask, topk_select
 
 pytestmark = pytest.mark.cuda
 
@@ -104,3 +104,79 @@ def test_each_wrapper_counts_one_launch(gen, monkeypatch):
     assert _build.LAUNCHES["topk_threshold"] == 1
     assert _build.LAUNCHES["quant_dequant"] == 1
     assert _build.LAUNCHES["topk_block"] == 1
+
+
+# the q8 wire quantizer at the pipeline's shapes: a full-width gpt2-small
+# microbatch (8, 128*768), (16, 4096), and the per-tile fallback shapes
+WIRE_SHAPES = [(8, 128 * 768), (16, 4096), (8, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", WIRE_SHAPES)
+def test_quantize_wire_bit_exact(gen, shape, dtype, monkeypatch):
+    block = tiling.wire_tiling(shape)
+    for x in _cut_inputs(gen, shape, dtype):
+        got, want = _kernel_and_plain(
+            lambda: quantize.quantize_wire(x, 8, block), monkeypatch)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a, b)
+
+
+def _segments(gen, sizes):
+    return [torch.randint(0, 256, (nb,), generator=gen, device="cuda",
+                          dtype=torch.uint8) for nb in sizes]
+
+
+@pytest.mark.parametrize("sizes", [
+    [393216, 4, 4],                      # q4: codes4, min, scale
+    [786432, 384],                       # q8 tiled: codes, tile_meta
+    [314560, 157280],                    # top10: int32 idx, bf16 vals
+    [157280, 78640, 157280, 78640],      # EF-mixed top10: e, x
+    [1, 7, 0, 33, 4097, 2, 16, 15],      # odd sizes and an empty leaf
+    [4097],                              # one segment
+    [0, 4097],                           # one segment and an empty one
+])
+def test_framing_bit_exact(gen, sizes, monkeypatch):
+    parts = _segments(gen, sizes)
+    # a misaligned view too: the segment starts one byte into its storage
+    parts[0] = torch.cat([parts[0][:1], parts[0]])[1:]
+    got, want = _kernel_and_plain(lambda: framing.frame_parts(parts),
+                                  monkeypatch)
+    assert torch.equal(got, want) and torch.equal(got, torch.cat(parts))
+    got, want = _kernel_and_plain(lambda: framing.unframe_parts(want, sizes),
+                                  monkeypatch)
+    for a, b, p in zip(got, want, parts):
+        assert a.storage_offset() == 0
+        assert torch.equal(a, b) and torch.equal(a, p)
+        assert a.data_ptr() != p.data_ptr() or not p.numel()
+
+
+def test_framing_one_segment_launches_and_copies(gen):
+    seg = _segments(gen, [4097])[0]
+    _build.reset_launches()
+    buf = framing.frame_parts([seg, seg[:0]])
+    back = framing.unframe_parts(buf, [0, 4097])
+    assert buf.data_ptr() != seg.data_ptr() and torch.equal(buf, seg)
+    assert torch.equal(back[1], seg) and back[0].numel() == 0
+    assert _build.LAUNCHES == {"frame_parts": 1, "unframe_parts": 1}
+
+
+def test_uint16_leaf_views_to_and_from_uint8(gen):
+    idx = torch.randint(0, 1 << 16, (8, 300), generator=gen, device="cuda",
+                        dtype=torch.int32).to(torch.uint16)
+    seg = idx.reshape(-1).view(torch.uint8)
+    back = framing.unframe_parts(framing.frame_parts([seg, seg[:6]]),
+                                 [seg.numel(), 6])[0]
+    assert torch.equal(back.view(torch.uint16).reshape(8, 300), idx)
+
+
+def test_wire_wrappers_count_one_launch(gen):
+    x = torch.randn((8, 4096), generator=gen, device="cuda")
+    _build.reset_launches()
+    codes, meta = quantize.quantize_wire(x, 8, (8, 2048))
+    buf = framing.frame_parts([codes.reshape(-1),
+                               meta.reshape(-1).view(torch.uint8)])
+    framing.unframe_parts(buf, [codes.numel(), meta.numel() * 4])
+    assert _build.LAUNCHES == {"quantize_wire": 1, "frame_parts": 1,
+                               "unframe_parts": 1}

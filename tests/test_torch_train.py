@@ -255,8 +255,32 @@ def test_launch_train_main_cpu(argv, capsys):
     assert all(np.isfinite(r["loss"]) and r["tok_per_s"] > 0 for r in recs)
 
 
+@pytest.mark.parametrize("argv", [
+    ["--schedule", "gpipe"],
+    ["--schedule", "1f1b"],
+    ["--schedule", "interleaved", "--virtual-stages", "1"]])
+def test_launch_train_pipeline_cpu(argv, capsys):
+    """The pipeline transport through the launcher: two stages (the smoke
+    model has two layer groups), two microbatches, q4q8 cuts."""
+    from repro_torch.launch import train as ttrain
+    assert ttrain.main(["--smoke", "--device", "cpu", "--steps", "2",
+                        "--batch", "4", "--seq", "16", "--log-every", "1",
+                        "--transport", "pipeline", "--stages", "2",
+                        "--pipeline-microbatches", "2", "--policy", "q4q8",
+                        *argv]) == 0
+    out = capsys.readouterr().out
+    assert f"schedule={argv[1]}" in out
+    recs = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    assert [r["step"] for r in recs] == [1, 2]
+    assert all(np.isfinite(r["loss"]) for r in recs)
+    # one cut, two microbatches: q4 forward, q8 (per-tensor: 2 rows) back
+    n = 16 * 256
+    assert all(r["fw_bytes"] == 2 * (2 * n // 2 + 8) for r in recs)
+    assert all(r["bw_bytes"] == 2 * (2 * n + 8) for r in recs)
+
+
 @pytest.mark.parametrize("argv,what", [
-    (["--transport", "pipeline"], "--transport pipeline"),
+    (["--wire", "data=q8"], "--wire"),
     (["--dp", "2"], "--dp"), (["--mesh", "data=2"], "--mesh"),
     (["--grad-accum", "2"], "--grad-accum"), (["--ckpt", "x.npz"], "--ckpt"),
     (["--resume", "x.npz"], "--resume"), (["--trace", "t.jsonl"], "--trace"),
