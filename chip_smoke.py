@@ -14,10 +14,13 @@ failure fatal:
      at the serving, training and pipeline shapes and edge cases (the q8
      wire quantizer at a full-width microbatch in bf16 and f32; framing of
      the q4, q8-tiled, TopK and EF-mixed payloads of one and of odd-sized
-     leaves); then, at the main paths' shapes, device time per call
-     (torch.profiler) of the kernel, of its plain version and of the one
-     torch call computing the same function, beside the bytes-or-
-     operations bound.
+     leaves, and of the 39-segment q8 DP gradient payload; the DP decode +
+     sum at dp 1, 3 and 4, q8 and q4, on the full-width gpt2-small
+     gradient payload and on a ragged tree with misaligned meta and a
+     constant leaf, also against the unfused loop); then, at the main
+     paths' shapes, device time per call (torch.profiler) of the kernel,
+     of its plain version and of the one torch call computing the same
+     function, beside the bytes-or-operations bound.
   3. serve full-width gpt2-small (random weights from a seeded generator)
      with ``ServeEngine`` under the policies none, q4q8 and top10, launch
      counters set to 0 just before and read just after: each compressed
@@ -44,7 +47,20 @@ failure fatal:
      backend, falling losses, and the smoke model's pipeline step on the
      card against the CPU; tokens/s per run and a profile of one step per
      schedule.
-  6. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+  6. train full-width gpt2-small data-parallel on the simulated transport
+     (dp = 4 lanes of 8, global batch 32, seq 128, 4 stages, the
+     launch/train AdamW) for 3 steps with the compressed gradient
+     all-reduce, as (DP codec, DP feedback, cut policy): (none, none,
+     q4q8), (q8, none, q4q8), (q4, none, q4q8), (q8, ef, q4q8), (q4, ef21,
+     q4q8), (topk 0.1, none, q4q8) and (q8, none, AQ-SGD + TopK 10%) with
+     ``synthetic_stream(dp=4)``'s ids; launch counters set to 0 just before
+     and read just after.  Holds exact launches per step (one
+     ``decode_sum_fused`` per q8/q4 step), the ring's bytes ==
+     ``dp_wire_report`` x dp(dp-1) hops, falling losses, the same losses
+     under the plain backend, and the smoke model's DP step on the card
+     against the CPU; tokens/s and the reduce's share of the step (CUDA
+     events) per run, a profile of one step.
+  7. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -100,6 +116,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                     "src/repro/kernels/framing.py:61"),
     "unframe_parts": ("src/repro_torch/csrc/framing.cu",
                       "src/repro/kernels/framing.py:84"),
+    "decode_sum_fused": ("src/repro_torch/csrc/dp_reduce.cu",
+                         "src/repro/kernels/dp_reduce.py:148"),
 }
 SERVE_KERNELS = ("topk_threshold", "topk_compact", "pack4_wire",
                  "unpack4_wire")
@@ -118,7 +136,7 @@ LM_LOSS_ATOL = 0.02           # compressed smoke loss (tests/test_torch_pipeline
 
 
 def _per_step(**launches):
-    """Expected launches per pipeline step: every kernel 0 but these."""
+    """Expected launches per train step: every kernel 0 but these."""
     return {k: launches.get(k, 0) for k in KERNELS}
 
 
@@ -156,6 +174,44 @@ FRAMED = "q8-tiled backward hop (786432 + 384 B)"
 PREFILL = f"prefill ({BATCH}, {max(PROMPT_LENS)}*768)"
 DECODE = f"decode ({BATCH}, 768)"
 CUT = f"training cut ({TRAIN_BATCH}, {TRAIN_SEQ}*768) bf16"
+
+# the DP phase: 4 lanes of 8 (global batch 32), seq 128, 4 stages (3
+# simulated cuts per lane), 13 parameter leaves, Sum n = 123,570,432
+DP, DP_BATCH, DP_SEQ, DP_STEPS, DP_STAGES = 4, 32, 128, 3, 4
+DP_SAMPLES = 64               # AQ-SGD: 16 rows a lane, step 3 revisits them
+LEAVES = 13
+# bytes of one replica's fused gradient buffer (one ring hop)
+DP_PAYLOAD = {"q8": 123570536, "q4": 61785320}
+_DP = DP * LEAVES             # one pack / select per leaf and replica
+_Q_RING = dict(frame_parts=3 * DP, decode_sum_fused=1)   # 39 segments
+# run -> (DP codec, DP feedback, k_frac, launch/train --policy,
+#         --feedback, launches per step)
+DP_RUNS = {
+    "none/q4q8": ("none", "none", 0.1, "q4q8", "none",
+                  _per_step(quant_dequant=6 * DP, frame_parts=DP,
+                            unframe_parts=DP)),
+    "q8/q4q8": ("q8", "none", 0.1, "q4q8", "none",
+                _per_step(quant_dequant=6 * DP, **_Q_RING)),
+    "q4/q4q8": ("q4", "none", 0.1, "q4q8", "none",
+                _per_step(quant_dequant=6 * DP, pack4_wire=_DP, **_Q_RING)),
+    "q8+ef/q4q8": ("q8", "ef", 0.1, "q4q8", "none",
+                   _per_step(quant_dequant=6 * DP, **_Q_RING)),
+    "q4+ef21/q4q8": ("q4", "ef21", 0.1, "q4q8", "none",
+                     _per_step(quant_dequant=6 * DP, pack4_wire=_DP,
+                               unpack4_wire=_DP, **_Q_RING)),
+    "topk/q4q8": ("topk", "none", 0.1, "q4q8", "none",
+                  _per_step(quant_dequant=6 * DP, topk_threshold=_DP,
+                            topk_compact=_DP, frame_parts=2 * DP,
+                            unframe_parts=2 * DP)),
+    "q8/aqsgd": ("q8", "none", 0.1, "none", "aqsgd",
+                 _per_step(topk_block=6 * DP, **_Q_RING)),
+}
+DP_KERNELS = ("decode_sum_fused",)
+DPQ8 = f"DP decode dp={DP} q8, full-width gpt2-small payload"
+DPQ4 = f"DP decode dp={DP} q4, full-width gpt2-small payload"
+# a ragged gradient tree: an odd leaf (misaligned meta), a rank-3 stack,
+# a constant leaf (one code) and a leaf of 3 tiles and a bit
+RAGGED = [(7,), (5, 33), (2, 3, 17), (6,), (3 * 8192 + 5,)]
 
 
 def log(*a):
@@ -539,6 +595,110 @@ def time_wire_kernels(torch, D, quantize, framing, codecs, tiling):
     rows["frame_parts"]["library"] = "torch.cat(parts)"
     rows["unframe_parts"]["library"] = ("torch.split_with_sizes_copy("
                                         "buf, sizes)")
+    return rows
+
+
+def gpt2_leaf_shapes(torch):
+    """The 13 parameter leaf shapes of full-width gpt2-small, in
+    ``tree_leaves`` order (Sum n = 123,570,432)."""
+    from repro_torch.configs.registry import get
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import tree_leaves
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(0), get("gpt2-small"))
+    shapes = [tuple(a.shape) for a in tree_leaves(params)]
+    assert len(shapes) == LEAVES, shapes
+    return shapes
+
+
+def dp_bank(torch, codecs, collectives, codec, shapes, seed):
+    """(dp, nbytes) uint8 bank of ``DP`` replicas' fused gradient buffers
+    packed from seeded f32 gradients of ``shapes`` (leaf 3 of the ragged
+    tree constant), its decode plans and payload structs."""
+    from repro_torch.kernels import dp_reduce
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = codecs.get_codec(codec)
+    rows = []
+    for _ in range(DP):
+        payload = []
+        for i, s in enumerate(shapes):
+            g = torch.randn(s, generator=gen, device="cuda") * 0.01
+            if shapes is RAGGED and i == 3:
+                g = torch.full(s, 0.75, device="cuda")
+            payload.append(collectives.pack_grad_leaf(c, g))
+        leaves = [a.reshape(-1).view(torch.uint8)
+                  for a in codecs.payload_leaves(payload)]
+        buf = codecs.fuse_payload(payload)
+        if not torch.equal(buf, torch.cat(leaves)):
+            raise AssertionError(f"{codec} DP payload: framing != torch.cat")
+        rows.append(buf)
+    structs = codecs.payload_struct(payload)
+    plans = dp_reduce.build_decode_plans(structs, shapes)
+    return torch.stack(rows), plans, structs, leaves
+
+
+def check_dp_kernels(torch, D, codecs, collectives, framing, shapes):
+    """The DP decode + sum against its plain version and against the
+    unfused loop (unfuse -> unpack -> rank-ordered add), bit-exact, at
+    dp 1, 3 and 4, on the full-width payload and the ragged tree; framing
+    of the 39-segment q8 payload against torch.cat and slices."""
+    from repro_torch.kernels import dp_reduce
+    err = 0.0
+    for label, leaf_shapes in (("full-width gpt2-small", shapes),
+                               ("ragged", RAGGED)):
+        for codec in ("q8", "q4"):
+            bank, plans, structs, leaves = dp_bank(
+                torch, codecs, collectives, codec, leaf_shapes, 5)
+            if leaf_shapes is RAGGED:
+                assert any(p.meta_off % 4 for p in plans), "meta aligned"
+            sizes = [a.numel() for a in leaves]
+            segs, plain = kernel_and_plain(
+                torch, D, lambda: framing.unframe_parts(bank[-1], sizes))
+            max_err(torch, segs, plain)
+            max_err(torch, segs, leaves)
+            c = codecs.get_codec(codec)
+            for dp in (1, 3, 4):
+                slots = bank[:dp]
+                got, want = kernel_and_plain(
+                    torch, D,
+                    lambda: dp_reduce.decode_sum_fused(slots, plans, dp))
+                err = max(err, max_err(torch, got, want))
+                loop = [None] * len(leaf_shapes)
+                for s in range(dp):
+                    pls = codecs.unfuse_payload(slots[s], structs)
+                    for i, shape in enumerate(leaf_shapes):
+                        m = collectives.unpack_grad_leaf(c, pls[i], shape)
+                        loop[i] = m if loop[i] is None else loop[i] + m
+                max_err(torch, [a.reshape(l.shape) for a, l in
+                                zip(got, loop)], loop)
+                log(f"# decode_sum_fused bit-exact vs plain and the unfused "
+                    f"loop: {label} {codec} dp={dp} ({len(sizes)} segments)")
+            del bank, leaves
+    return {"decode_sum_fused": err}
+
+
+def time_dp_kernels(torch, D, codecs, collectives, shapes):
+    """``decode_sum_fused`` at dp = 4 on the full-width payload.  The
+    function reads each source's code bytes once (dp * nbytes, the meta
+    included) and writes Sum n float32; 2 dp float32 operations an
+    element (a multiply and an add per source).  No one torch call
+    decodes and sums."""
+    from repro_torch.kernels import dp_reduce
+    rows = {}
+    for label, codec in ((DPQ8, "q8"), (DPQ4, "q4")):
+        bank, plans, _, _ = dp_bank(torch, codecs, collectives, codec,
+                                    shapes, 6)
+        if bank.shape[1] != DP_PAYLOAD[codec]:
+            raise AssertionError(f"{codec} DP payload {bank.shape[1]} B, "
+                                 f"expected {DP_PAYLOAD[codec]}")
+        total = sum(p.n for p in plans)
+        rows[label] = time_cases(torch, D, {"decode_sum_fused": (
+            lambda: dp_reduce.decode_sum_fused(bank, plans, DP),
+            "decode_sum_kernel", None, DP * bank.shape[1] + 4 * total,
+            2 * DP * total)})["decode_sum_fused"]
+        rows[label]["shape"] = label
+        rows[label]["library"] = "none: no one torch call decodes and sums"
+        del bank
     return rows
 
 
@@ -1038,6 +1198,228 @@ def check_pipeline_against_cpu(torch, transformer, get):
             f"{losses['cuda']} vs {losses['cpu']}, gap {gap} (<= {tol})")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: data-parallel training with the compressed gradient all-reduce
+# ---------------------------------------------------------------------------
+
+def dp_spec(name):
+    from repro_torch.core.parallel import AxisSpec, ParallelSpec
+    codec, fb, k_frac = DP_RUNS[name][:3]
+    return ParallelSpec({"data": AxisSpec(size=DP, codec=codec, feedback=fb,
+                                          k_frac=k_frac)})
+
+
+def make_timed_dp_step(torch, cfg, policy, opt, spec, reduce_events):
+    """``make_lm_train_step(parallel=spec)`` whose reduce records a pair
+    of CUDA events around each call into ``reduce_events``."""
+    import repro_torch.train.steps as TS
+    real = TS.make_grad_all_reduce
+
+    def timed(*a, **kw):
+        red = real(*a, **kw)
+
+        def reduce(grads, state):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = red(grads, state)
+            ev[1].record()
+            reduce_events.append(ev)
+            return out
+        return reduce
+
+    TS.make_grad_all_reduce = timed
+    try:
+        return TS.make_lm_train_step(cfg, policy, opt, parallel=spec)
+    finally:
+        TS.make_grad_all_reduce = real
+
+
+def dp_run(torch, cfg, params, name, build, steps=DP_STEPS,
+           profile_step=None):
+    """``steps`` data-parallel train steps of run ``name`` from ``params``,
+    built as ``launch/train --mesh data=4 --wire data=...`` builds its
+    run.  Returns the losses, each step's launches, ring bytes, wall
+    seconds, CUDA-event step and reduce ms, and the profile of
+    ``profile_step``."""
+    from repro_torch.core.boundary import init_boundary_state
+    from repro_torch.launch.train import build_policy, synthetic_stream
+    from repro_torch.models.transformer import segment_bounds
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.loop import init_lm_dp_state
+
+    _, dfb, _, pname, fb, _ = DP_RUNS[name]
+    policy = build_policy(pname, fb, 0.1)
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="cosine", t_max=steps, grad_clip=1.0)
+    cuts = len(segment_bounds(cfg.num_groups, policy.num_stages)) - 1
+    bstates = [init_boundary_state(policy.at(i), (DP_SEQ, cfg.d_model),
+                                   batch=DP_BATCH, num_samples=DP_SAMPLES,
+                                   dtype=torch.bfloat16, device="cuda")
+               for i in range(cuts)]
+    reduce_events = []
+    step = make_timed_dp_step(torch, cfg, policy, opt, dp_spec(name),
+                              reduce_events)
+    dp_state = init_lm_dp_state(cfg, params, policy, DP, dfb)
+    stream = synthetic_stream(cfg, DP_BATCH, DP_SEQ, 0,
+                              num_samples=DP_SAMPLES, dp=DP)
+    opt_state = init_opt_state(opt, params)
+    out = {"losses": [], "launches": [], "dp_bytes": [], "seconds": [],
+           "step_ms": [], "reduce_ms": [], "profile": None}
+    for i in range(1, steps + 1):
+        toks, ids = next(stream)
+        batch = {"tokens": torch.from_numpy(toks).to("cuda", torch.int64)}
+        ids = torch.from_numpy(ids).to("cuda")
+        before = dict(build.LAUNCHES)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        if i == profile_step:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                params, opt_state, bstates, dp_state, m = step(
+                    params, opt_state, bstates, batch, ids, dp_state)
+                torch.cuda.synchronize()
+            out["profile"] = prof
+        else:
+            params, opt_state, bstates, dp_state, m = step(
+                params, opt_state, bstates, batch, ids, dp_state)
+        ev[1].record()
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["step_ms"].append(ev[0].elapsed_time(ev[1]))
+        r0, r1 = reduce_events[-1]
+        out["reduce_ms"].append(r0.elapsed_time(r1))
+        out["losses"].append(float(m["loss"]))
+        out["dp_bytes"].append(m["wire"]["dp_bytes"])
+        out["launches"].append({k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+                                for k in KERNELS})
+    return out
+
+
+def dp_expected_bytes(name, params):
+    """Ring bytes per step: dp (dp - 1) hops of ``dp_wire_report``'s
+    buffer, checked against the q8 / q4 payload sizes."""
+    from repro_torch.transport.collectives import dp_wire_report
+    codec, _, k_frac = DP_RUNS[name][:3]
+    rep = dp_wire_report(params, codec, k_frac=k_frac, dp=DP)
+    if codec in DP_PAYLOAD:
+        assert rep["payload_bytes_per_hop"] == DP_PAYLOAD[codec], rep
+    assert rep["n_param_leaves"] == LEAVES, rep
+    return DP * rep["wire_bytes_per_reduce"]
+
+
+def data_parallel(torch, D, build):
+    from repro_torch.configs.registry import get
+    from repro_torch.models import transformer
+
+    cfg = get("gpt2-small")
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    build.reset_launches()                  # the DP path starts here
+    runs = {name: dp_run(torch, cfg, params, name, build)
+            for name in DP_RUNS}
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}  # read here
+    log(f"# dp-path launches {launches}")
+    for name, spec in DP_RUNS.items():
+        run, want = runs[name], spec[5]
+        for i, got in enumerate(run["launches"]):
+            if got != want:
+                raise AssertionError(f"dp {name} step {i + 1}: launches "
+                                     f"{got}, expected {want}")
+        nbytes = dp_expected_bytes(name, params)
+        if run["dp_bytes"] != [nbytes] * DP_STEPS:
+            raise AssertionError(f"dp {name}: ring bytes {run['dp_bytes']}, "
+                                 f"expected {nbytes} a step")
+        losses = run["losses"]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"dp {name}: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"dp {name}: loss did not fall {losses}")
+        tok_s = (DP_BATCH * DP_SEQ * (DP_STEPS - 1)
+                 / sum(run["seconds"][1:]))
+        log("# dp " + json.dumps({
+            "run": name, "losses": losses,
+            "launches_per_step": {k: v for k, v in run["launches"][0].items()
+                                  if v},
+            "dp_bytes_per_step": run["dp_bytes"][0], "step_s": run["seconds"],
+            "step_ms_cuda_events": run["step_ms"],
+            "reduce_ms_cuda_events": run["reduce_ms"],
+            "reduce_share": [r / t for r, t in zip(run["reduce_ms"],
+                                                   run["step_ms"])],
+            "tokens_per_s_steps_2_to_3": tok_s}))
+
+    D.KERNEL_BACKEND = "plain"
+    try:
+        for name in DP_RUNS:
+            plain = dp_run(torch, cfg, params, name, build)["losses"]
+            if plain != runs[name]["losses"]:
+                raise AssertionError(f"dp {name}: plain backend losses "
+                                     f"{plain} != {runs[name]['losses']}")
+    finally:
+        D.KERNEL_BACKEND = "auto"
+    log("# plain backend on the card gives identical DP losses for every "
+        "run")
+
+    check_dp_against_cpu(torch, transformer, get)
+    name = "q8/q4q8"
+    prof = dp_run(torch, cfg, params, name, build, steps=2, profile_step=2)
+    dev = sorted(device_events(prof["profile"]), reverse=True)
+    busy_ms = sum(ms for ms, _ in dev)
+    wall_ms = prof["seconds"][1] * 1e3
+    step_ms = 1e3 * min(runs[name]["seconds"][1:])
+    log("# dp profile " + json.dumps({
+        "run": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / wall_ms,
+        "unprofiled_step_ms": step_ms,
+        "device_idle_share_unprofiled": 1 - busy_ms / step_ms,
+        "top_device_ms": [[key[:60], ms] for ms, key in dev[:8]]}))
+    return launches
+
+
+def check_dp_against_cpu(torch, transformer, get):
+    """Two DP steps (dp 2, batch 4, seq 32) of the smoke model on the card
+    and on the CPU (which the CPU tests hold to the JAX package): the DP
+    codec none within the train tolerance, q8 within the compressed one;
+    step 2's loss reads step 1's reduced update."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.parallel import AxisSpec, ParallelSpec
+    from repro_torch.core.policy import NO_POLICY
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.loop import init_lm_dp_state
+    from repro_torch.train.steps import make_lm_train_step
+    cfg = dataclasses.replace(get("gpt2-small", smoke=True), num_layers=4)
+    params = transformer.init_params(torch.Generator().manual_seed(1), cfg)
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="cosine", t_max=2, grad_clip=1.0)
+    rng = np.random.RandomState(2)
+    toks = [torch.from_numpy(rng.randint(0, cfg.vocab_size, (4, 32)))
+            for _ in range(2)]
+    for codec, tol in (("none", LOSS_ATOL), ("q8", LM_LOSS_ATOL)):
+        spec = ParallelSpec({"data": AxisSpec(size=2, codec=codec)})
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            p = _tree_to(params, dev)
+            o = init_opt_state(opt, p)
+            st = init_lm_dp_state(cfg, p, NO_POLICY, 2)
+            step = make_lm_train_step(cfg, NO_POLICY, opt, parallel=spec)
+            losses[dev] = []
+            for t in toks:
+                p, o, _, st, m = step(p, o, [], {"tokens": t.to(dev)},
+                                      torch.arange(4, device=dev), st)
+                losses[dev].append(float(m["loss"]))
+        gap = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+        if not (all(math.isfinite(v) for v in losses["cuda"])
+                and gap <= tol):
+            raise AssertionError(f"smoke DP step {codec}: card "
+                                 f"{losses['cuda']} vs CPU {losses['cpu']}")
+        log(f"# smoke DP step dp=2 {codec}, card vs CPU: {losses['cuda']} "
+            f"vs {losses['cpu']}, max gap {gap} (<= {tol})")
+
+
 def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -1067,7 +1449,7 @@ def main() -> int:
     from repro_torch import device as D
     from repro_torch.kernels import _build, framing, ops, pack4, quantize
     from repro_torch.kernels import tiling, topk_select as topk
-    from repro_torch.transport import codecs
+    from repro_torch.transport import codecs, collectives
 
     # -- phase 1 ------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1099,6 +1481,13 @@ def main() -> int:
                                     tiling)
     for name, row in timed[WIRE].items():
         log(f"# {name} {row['shape']}: " + json.dumps(row))
+    shapes = gpt2_leaf_shapes(torch)
+    err.update(check_dp_kernels(torch, D, codecs, collectives, framing,
+                                shapes))
+    timed.update(time_dp_kernels(torch, D, codecs, collectives, shapes))
+    for label in (DPQ8, DPQ4):
+        log(f"# decode_sum_fused {label}: " + json.dumps(timed[label]))
+    torch.cuda.empty_cache()
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3 ------------------------------------------------------------
@@ -1116,10 +1505,16 @@ def main() -> int:
     log(f"# phase 5 done at {time.perf_counter() - t0:.1f} s")
 
     # -- phase 6 ------------------------------------------------------------
+    launches.update({k: v for k, v in data_parallel(torch, D, _build).items()
+                     if k in DP_KERNELS})
+    log(f"# phase 6 done at {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 7 ------------------------------------------------------------
     line = []
     for name, (src, replaces) in KERNELS.items():
-        row = timed[CUT if name in TRAIN_KERNELS else
-                    WIRE if name in WIRE_KERNELS else PREFILL][name]
+        row = (timed[DPQ8] if name in DP_KERNELS else
+               timed[CUT if name in TRAIN_KERNELS else
+                     WIRE if name in WIRE_KERNELS else PREFILL][name])
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err[name], "ms": row["ms"],

@@ -17,17 +17,20 @@ reference does on every backend, so it never reaches the block TopK
 kernel.  AQ-SGD's buffer is ``(num_samples, *feat)``, gathered and
 written back by example id.
 
-:class:`FeedbackState` holds the sender-side ``resid`` buffer and the
+:class:`FeedbackState` holds the sender-side ``resid`` buffer, the
 receiver-side ``mirror`` that the real pipeline keeps for the
 delta-coded modes (EF21, AQ-SGD: the receiver rebuilds the message from
-its own copy of the sender's buffer).  The simulated boundary collapses
-both ends into ``resid`` and keeps ``mirror`` size 0.  The reference's
-``agg`` slot belongs to the DP reduce, which is not ported yet.
+its own copy of the sender's buffer) and the ``agg`` slot of the
+data-parallel gradient reduce (EF21's replicated aggregate).  The
+simulated boundary collapses both ends into ``resid`` and keeps
+``mirror`` and ``agg`` size 0.  At scope ``"dp"`` (``transport/
+collectives.py``) ``resid`` and ``agg`` are trees (nested dicts) of
+tensors mirroring the parameters.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Any, Callable, Tuple
 
 import torch
 
@@ -125,15 +128,26 @@ def feedback_message(mode: str, comp: Compressor, x: torch.Tensor, buf,
     return get_mode(mode).message(comp, x, buf, ids)
 
 
+def _tree_map(f, tree):
+    """``f`` over the tensors of a nested dict (or over one tensor)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(f, v) for k, v in tree.items()}
+    return f(tree)
+
+
 @dataclasses.dataclass(frozen=True)
 class FeedbackState:
     """One compensation thread's state: the sender-side buffer ``resid``
-    (EF's error e, EF21's model g, AQ-SGD's per-example rows; size 0 when
-    the direction has no feedback), the receiver-side ``mirror`` of the
-    real pipeline's delta-coded modes (size 0 otherwise, and always on the
-    simulated boundary) and its ``(scope, direction, mode)``."""
-    resid: torch.Tensor
-    mirror: torch.Tensor
+    (EF's error e, EF21's model g, AQ-SGD's per-example rows, the DP
+    reduce's per-replica residuals; size 0 when the direction has no
+    feedback), the receiver-side ``mirror`` of the real pipeline's
+    delta-coded modes (size 0 otherwise, and always on the simulated
+    boundary), ``agg``, the DP EF21 reduce's replicated aggregate
+    G = sum_r w_r (size 0 otherwise), and its ``(scope, direction,
+    mode)``.  At scope ``"dp"`` the slots are trees of tensors."""
+    resid: Any
+    mirror: Any
+    agg: Any
     scope: str = "boundary"
     direction: str = "fw"
     mode: str = "none"
@@ -149,8 +163,10 @@ class FeedbackState:
         return dataclasses.replace(self, **kw)
 
     def map(self, f) -> "FeedbackState":
-        """Apply ``f`` to every tensor slot (metadata kept)."""
-        return self.replace(resid=f(self.resid), mirror=f(self.mirror))
+        """Apply ``f`` to every tensor of every slot (metadata kept)."""
+        return self.replace(resid=_tree_map(f, self.resid),
+                            mirror=_tree_map(f, self.mirror),
+                            agg=_tree_map(f, self.agg))
 
 
 def init_buffer(mode: str, feat_shape, dtype=torch.float32,
@@ -173,12 +189,13 @@ def init_feedback(mode: str, feat_shape, *, scope: str = "boundary",
                   num_samples: int = 0, batch: int = 0,
                   device=None) -> FeedbackState:
     """A fresh :class:`FeedbackState` for one boundary direction (the
-    simulated transport's view: ``mirror`` size 0)."""
+    simulated transport's view: ``mirror`` and ``agg`` size 0)."""
     return FeedbackState(
         resid=init_buffer(mode, feat_shape, dtype=dtype,
                           num_samples=num_samples, batch=batch,
                           device=device),
         mirror=torch.zeros((0,), dtype=dtype, device=device),
+        agg=torch.zeros((0,), dtype=dtype, device=device),
         scope=scope, direction=direction, mode=mode)
 
 
@@ -211,3 +228,20 @@ def scatter_rows(buf, k, slot, ids, mode: str, v: int, new_slice):
     else:
         buf[k, row] = upd
     return buf
+
+
+def shard_ids(ids, replica, num_samples: int, dp: int):
+    """Translate global example ids into a replica's id-shard rows.
+
+    AQ-SGD + DP shards the ``(num_samples, *feat)`` buffer by example id
+    over the data axis: replica ``r`` owns rows
+    ``[r * num_samples/dp, (r+1) * num_samples/dp)`` and gathers/scatters
+    with LOCAL row indices, so the per-example compensation never leaves
+    the replica.  The data stream must route example ``i`` to replica
+    ``i // (num_samples/dp)`` (``launch/train.synthetic_stream(dp=)``'s
+    contiguous id blocks do)."""
+    if num_samples % dp:
+        raise ValueError(
+            f"aqsgd + dp shards the per-example buffer by id: num_samples "
+            f"{num_samples} must be divisible by dp {dp}")
+    return ids - replica * (num_samples // dp)

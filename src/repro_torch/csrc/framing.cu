@@ -8,9 +8,11 @@
 // unframe: the inverse, segment p copied out of the buffer into its own
 //          fresh allocation (so a later dtype view of it starts aligned).
 //
-// One launch per direction over a small descriptor table of (pointer,
-// offset, bytes) passed by value: grid (chunks, n), block y copies segment
-// y with a grid-stride loop over its bytes.  Bound on the card: bytes,
+// One launch over a small descriptor table of (pointer, offset, bytes) of
+// at most 16 segments, passed by value: grid (chunks, n), block y copies
+// segment y with a grid-stride loop over its bytes.  A payload of more
+// segments (a DP gradient payload: three per parameter leaf) is framed by
+// one launch per group of 16 into the same buffer (kernels/framing.py).  Bound on the card: bytes,
 // each byte read once and written once (at the q8-tiled backward hop of a
 // full-width gpt2-small microbatch, 786,816 B each way, 0.00047 ms at
 // 3.35 TB/s: launch latency dominates at these sizes).  Where both ends of

@@ -12,14 +12,21 @@ Runs on ``cuda`` unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
       --smoke --device cpu --transport pipeline --stages 2 \\
       --schedule 1f1b --pipeline-microbatches 2 --policy q4q8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
+      --smoke --device cpu --mesh data=2 --wire data=q4+ef --policy q4q8
 
 ``--transport simulated`` compresses simulated stage cuts;
 ``--transport pipeline`` runs the layer stack through the real
 compressed pipeline (``--stages``, ``--schedule``, ``--virtual-stages``,
 ``--pipeline-microbatches``; one process, every stage on the one
 device), and its JSON lines add the step's forward and backward wire
-bytes.  Static named policies and ``--grad-accum 1`` only; the
-reference's other flags (DP, meshes and wires, rule-spec policies,
+bytes.  ``--mesh data=N --wire data=codec[+feedback][:k]`` (or the
+deprecated ``--dp`` / ``--dp-codec`` / ``--dp-feedback`` /
+``--dp-k-frac``) adds N data-parallel lanes on the simulated transport
+with the compressed gradient all-reduce; the JSON lines add the ring's
+``dp_bytes`` per step.  Static named policies and ``--grad-accum 1``
+only; the reference's other flags (a mesh with a tensor axis or with
+both data and stage axes, rule-spec policies and axis codecs,
 checkpoints, telemetry) exit with an error saying so.
 """
 from __future__ import annotations
@@ -36,28 +43,32 @@ import torch
 
 from repro_torch.configs.registry import ARCHS, get
 from repro_torch.core.boundary import init_boundary_state
+from repro_torch.core.parallel import spec_from_cli
 from repro_torch.core.policy import (POLICIES, CompressionPolicy,
                                      aqsgd_policy, ef_policy)
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
-from repro_torch.train.loop import _pipeline_bstates
-from repro_torch.train.steps import make_lm_train_step
+from repro_torch.train.loop import _pipeline_bstates, init_lm_dp_state
+from repro_torch.train.steps import _resolve_parallel, make_lm_train_step
 from repro_torch.transport.schedules import get_schedule
 
 # Flags of the reference launcher that belong to features not ported yet.
-NOT_PORTED = ("--mesh", "--wire", "--dp",
-              "--dp-codec", "--dp-feedback", "--dp-k-frac", "--microbatches",
-              "--ckpt", "--save-every", "--ckpt-every", "--resume",
-              "--trace", "--perfetto", "--metrics")
+NOT_PORTED = ("--microbatches", "--ckpt", "--save-every", "--ckpt-every",
+              "--resume", "--trace", "--perfetto", "--metrics")
 
 
 def synthetic_stream(cfg, batch: int, seq: int, seed: int = 0,
-                     num_samples: int = 4096, start_step: int = 0):
+                     num_samples: int = 4096, start_step: int = 0,
+                     dp: int = 1):
     """Deterministic order-2 Markov token stream, vocab-clipped to the
     model's vocabulary; bitwise the reference's (numpy ``RandomState``).
     Each step's batch is a pure function of (seed, step).  Ids cycle over
-    ``num_samples`` so that AQ-SGD's per-example buffers revisit rows."""
+    ``num_samples`` so that AQ-SGD's per-example buffers revisit rows.
+
+    ``dp > 1`` deals ids per replica: contiguous batch shard r cycles over
+    its own id block ``[r*num_samples/dp, (r+1)*num_samples/dp)``, the
+    AQ-SGD + DP routing contract (``core/feedback.shard_ids``)."""
     rng = np.random.RandomState(seed)
     vocab = min(cfg.vocab_size, 1024)
     succ = rng.randint(0, vocab, size=(vocab, vocab, 4))
@@ -70,7 +81,14 @@ def synthetic_stream(cfg, batch: int, seq: int, seed: int = 0,
         for t in range(2, seq):
             out[:, t] = succ[out[:, t - 2], out[:, t - 1],
                              r.randint(0, 4, batch)]
-        ids = (np.arange(batch, dtype=np.int32) + batch * step) % num_samples
+        if dp > 1:
+            sh, per = batch // dp, num_samples // dp
+            ids = np.concatenate(
+                [r * per + (np.arange(sh, dtype=np.int32) + sh * step) % per
+                 for r in range(dp)])
+        else:
+            ids = (np.arange(batch, dtype=np.int32)
+                   + batch * step) % num_samples
         yield out, ids
         step += 1
 
@@ -117,6 +135,35 @@ def main(argv=None) -> int:
     ap.add_argument("--pipeline-microbatches", type=int, default=None,
                     help="microbatch count for the pipeline transport "
                          "(default: the stage count)")
+    ap.add_argument("--mesh", default=None, metavar="SPEC",
+                    help="mesh sizes, 'data=2' (axis aliases dp/pp/tp/model "
+                         "accepted; missing axes default to 1).  stage>1 "
+                         "implies --transport pipeline; a tensor axis, and "
+                         "data>1 with stage>1, are not yet ported.  "
+                         "Replaces --dp/--stages")
+    ap.add_argument("--wire", default=None, metavar="SPEC",
+                    help="per-axis wire config "
+                         "'axis=codec[+feedback][:k_frac]', e.g. "
+                         "'data=q8+ef:0.1'.  Codecs none|q8|q4|topk; "
+                         "feedback ef|ef21.  Replaces --dp-codec/"
+                         "--dp-feedback/--dp-k-frac")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="DEPRECATED (use --mesh data=N): data-parallel "
+                         "replicas: the global batch splits into --dp "
+                         "contiguous shards whose gradients are all-reduced "
+                         "over the compressed wire "
+                         "(transport/collectives.py)")
+    ap.add_argument("--dp-codec", default="none",
+                    choices=("none", "q8", "q4", "topk"),
+                    help="DEPRECATED (use --wire data=CODEC): wire codec "
+                         "of the DP gradient all-reduce")
+    ap.add_argument("--dp-feedback", default="none",
+                    choices=("none", "ef", "ef21"),
+                    help="DEPRECATED (use --wire data=codec+FEEDBACK): "
+                         "per-replica error feedback on the DP reduce")
+    ap.add_argument("--dp-k-frac", type=float, default=0.1,
+                    help="DEPRECATED (use --wire data=topk:K): TopK kept "
+                         "fraction for --dp-codec topk")
     ap.add_argument("--feedback", default="none",
                     choices=("none", "ef", "ef21", "efmixed", "aqsgd"),
                     help="error-feedback mode (paper Tables 3-4); replaces "
@@ -136,8 +183,7 @@ def main(argv=None) -> int:
     args, rest = ap.parse_known_args(argv)
     for flag in rest:
         if flag.split("=")[0] in NOT_PORTED:
-            ap.error(f"{flag.split('=')[0]} is not yet ported to repro_torch "
-                     "(one replica, no tensor parallelism)")
+            ap.error(f"{flag.split('=')[0]} is not yet ported to repro_torch")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     if args.grad_accum != 1:
@@ -159,7 +205,36 @@ def main(argv=None) -> int:
         policy = dataclasses.replace(policy, num_stages=args.stages)
     virtual_stages = (args.virtual_stages if args.virtual_stages is not None
                       else (2 if args.schedule == "interleaved" else 1))
-    pipeline = args.transport == "pipeline"
+    parallel = None
+    if args.mesh or args.wire:
+        legacy_used = [f for f, used in
+                       (("--dp", args.dp != 1),
+                        ("--dp-codec", args.dp_codec != "none"),
+                        ("--dp-feedback", args.dp_feedback != "none"),
+                        ("--dp-k-frac", args.dp_k_frac != 0.1),
+                        ("--stages", bool(args.stages))) if used]
+        if legacy_used:
+            ap.error(f"--mesh/--wire conflict with the deprecated "
+                     f"{', '.join(legacy_used)} — configure every axis "
+                     "through --mesh/--wire")
+        try:
+            parallel = spec_from_cli(args.mesh, args.wire)
+            _, policy_eff, transport = _resolve_parallel(
+                "launch.train", parallel, policy, args.transport, {})
+        except (ValueError, NotImplementedError) as e:
+            ap.error(f"--mesh/--wire: {e}")
+        dp_n, dp_codec, dp_feedback = (parallel.dp, parallel.data.codec,
+                                       parallel.data.feedback)
+    else:
+        policy_eff, transport = policy, args.transport
+        dp_n, dp_codec, dp_feedback = args.dp, args.dp_codec, args.dp_feedback
+    pipeline = transport == "pipeline"
+    if dp_n > 1 and pipeline:
+        ap.error("--mesh/--dp: data > 1 with the pipeline transport (the "
+                 "pipeline x DP step) is not yet ported to repro_torch")
+    if args.batch % dp_n:
+        ap.error(f"--batch {args.batch} is not divisible by the {dp_n} "
+                 "data-parallel replicas")
     print(f"# arch={cfg.arch_id} B={args.batch} S={seq} "
           f"policy={args.policy}"
           f"{'' if args.feedback == 'none' else '+' + args.feedback} "
@@ -172,16 +247,16 @@ def main(argv=None) -> int:
     opt_state = init_opt_state(opt, params)
     if pipeline:
         sched = get_schedule(args.schedule, virtual_stages)
-        mb_eff = args.pipeline_microbatches or policy.num_stages
+        mb_eff = args.pipeline_microbatches or policy_eff.num_stages
         if args.batch % mb_eff:
             ap.error(f"--batch {args.batch} is not divisible by the "
                      f"{mb_eff} pipeline microbatches")
         try:
-            sched.validate(mb_eff, policy.num_stages)
+            sched.validate(mb_eff, policy_eff.num_stages)
             transformer.stack_layer_stages(
-                params, policy.num_stages * virtual_stages)
+                params, policy_eff.num_stages * virtual_stages)
             bstates = _pipeline_bstates(
-                policy, (seq, cfg.d_model), batch=args.batch,
+                policy_eff, (seq, cfg.d_model), batch=args.batch,
                 microbatches=args.pipeline_microbatches,
                 num_samples=args.num_samples, dtype=torch.bfloat16,
                 virtual_stages=virtual_stages, device=dev)
@@ -189,29 +264,54 @@ def main(argv=None) -> int:
             ap.error(str(e))
         print(f"# pipeline transport: schedule={args.schedule} "
               f"microbatches={mb_eff} "
-              f"{sched.describe(mb_eff, policy.num_stages)}", flush=True)
+              f"{sched.describe(mb_eff, policy_eff.num_stages)}", flush=True)
     else:
         # the cuts that exist: segment_bounds caps the stages at the groups
         cuts = len(transformer.segment_bounds(cfg.num_groups,
-                                              policy.num_stages)) - 1
-        bstates = [init_boundary_state(policy.at(i), (seq, cfg.d_model),
+                                              policy_eff.num_stages)) - 1
+        bstates = [init_boundary_state(policy_eff.at(i), (seq, cfg.d_model),
                                        batch=args.batch,
                                        num_samples=args.num_samples,
                                        dtype=torch.bfloat16, device=dev)
                    for i in range(cuts)]
-    step_fn = make_lm_train_step(
-        cfg, policy, opt, remat=not args.no_remat, transport=args.transport,
-        pipeline_microbatches=args.pipeline_microbatches,
-        schedule=args.schedule, virtual_stages=virtual_stages)
+    if parallel is not None:
+        pkw = {"parallel": parallel}
+    else:
+        # only the legacy kwargs the user set, so that a plain run never
+        # warns ParallelDeprecationWarning
+        pkw = {k: v for k, v, d in (("dp", args.dp, 1),
+                                     ("dp_codec", args.dp_codec, "none"),
+                                     ("dp_feedback", args.dp_feedback,
+                                      "none"),
+                                     ("dp_k_frac", args.dp_k_frac, 0.1))
+               if v != d}
+    try:
+        step_fn = make_lm_train_step(
+            cfg, policy, opt, remat=not args.no_remat,
+            transport=args.transport,
+            pipeline_microbatches=args.pipeline_microbatches,
+            schedule=args.schedule, virtual_stages=virtual_stages, **pkw)
+    except ValueError as e:
+        ap.error(str(e))
+    dp_state = None
+    if dp_n > 1:
+        dp_state = init_lm_dp_state(cfg, params, policy_eff, dp_n,
+                                    dp_feedback)
+        print(f"# dp={dp_n} gradient all-reduce: codec={dp_codec} "
+              f"feedback={dp_feedback}", flush=True)
     stream = synthetic_stream(cfg, args.batch, seq, args.seed,
-                              num_samples=args.num_samples)
+                              num_samples=args.num_samples, dp=dp_n)
     metrics, t0 = [], time.time()
     for step in range(1, args.steps + 1):
         toks, ids = next(stream)
-        params, opt_state, bstates, m = step_fn(
+        extra = [] if dp_state is None else [dp_state]
+        out = step_fn(
             params, opt_state, bstates,
             {"tokens": torch.from_numpy(toks).to(dev, torch.int64)},
-            torch.from_numpy(ids).to(dev))
+            torch.from_numpy(ids).to(dev), *extra)
+        params, opt_state, bstates, m = out[0], out[1], out[2], out[-1]
+        if dp_state is not None:
+            dp_state = out[3]
         if step % args.log_every == 0 or step == args.steps:
             loss = float(m["loss"])       # waits for the device
             dt = time.time() - t0
@@ -222,6 +322,8 @@ def main(argv=None) -> int:
             if pipeline:
                 rec.update(fw_bytes=m["wire"]["fw_bytes"],
                            bw_bytes=m["wire"]["bw_bytes"])
+            if dp_state is not None:
+                rec["dp_bytes"] = m["wire"]["dp_bytes"]
             metrics.append(rec)
             print(json.dumps(rec), flush=True)
     if args.json:

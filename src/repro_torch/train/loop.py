@@ -1,11 +1,12 @@
 """The paper's LM experiment loop (Sec. 3.2).
 
-Port of ``run_lm_experiment``, ``_lm_eval`` and ``_pipeline_bstates``
-from ``repro/train/loop.py`` for a static policy on the simulated
-transport or the real pipeline (``dp=1``): fine-tune with boundary
+Port of ``run_lm_experiment``, ``_lm_eval``, ``_pipeline_bstates`` and
+``init_lm_dp_state`` from ``repro/train/loop.py`` for a static policy on
+the simulated transport (with or without the compressed data-parallel
+gradient reduce) or the real pipeline (``dp=1``): fine-tune with boundary
 compression, then evaluate the loss with compression on AND off (finding
 F3: a model trained compressed must be served compressed).  Rule
-policies, bandwidth probes, the parallel spec and trace spans are not
+policies, rule-spec axis codecs, bandwidth probes and trace spans are not
 ported yet.
 """
 from __future__ import annotations
@@ -18,13 +19,17 @@ import numpy as np
 import torch
 
 from repro_torch.core.boundary import init_boundary_state
+from repro_torch.core.parallel import ParallelSpec, from_legacy, warn_legacy
 from repro_torch.core.policy import BoundaryPolicy, CompressionPolicy
 from repro_torch.data.synthetic import LMData
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
-from repro_torch.train.steps import make_lm_eval_step, make_lm_train_step
+from repro_torch.train.steps import (_LEGACY_DEFAULTS, _UNSET,
+                                     _resolve_parallel, make_lm_eval_step,
+                                     make_lm_train_step)
+from repro_torch.transport.collectives import init_dp_state
 from repro_torch.transport.pipeline import init_feedback_state
 
 
@@ -62,6 +67,20 @@ def _pipeline_bstates(policy: CompressionPolicy, feat_shape, *, batch: int,
                                virtual_stages=virtual_stages, device=device)
 
 
+def init_lm_dp_state(cfg, params, policy: CompressionPolicy, dp: int,
+                     dp_feedback: str = "none", *,
+                     transport: str = "simulated"):
+    """DP-reduce state for an LM train step: the residual / aggregate
+    trees mirror what crosses the data axis, on the simulated transport
+    the FULL param tree (every lane differentiates everything), on
+    ``params``' device.  The pipeline x DP step is not ported yet."""
+    if transport != "simulated":
+        raise NotImplementedError(
+            f"init_lm_dp_state(transport={transport!r}): the pipeline x DP "
+            "step is not yet ported to repro_torch")
+    return init_dp_state(params, dp, dp_feedback)
+
+
 def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
                       pretrained_params=None, epochs: int = 2,
                       batch: int = 16, data: Optional[LMData] = None,
@@ -69,17 +88,45 @@ def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
                       seed: int = 0, transport: str = "simulated",
                       pipeline_microbatches: Optional[int] = None,
                       schedule: str = "gpipe", virtual_stages: int = 1,
+                      dp=_UNSET, dp_codec=_UNSET, dp_feedback=_UNSET,
+                      dp_k_frac=_UNSET,
+                      parallel: Optional[ParallelSpec] = None,
                       device=None) -> ExperimentResult:
     """Fine-tune a (pre-trained) LM with boundary compression and report
     the train curve and the eval loss with compression on and off.
 
     ``transport="pipeline"`` runs the layer stack as the real compressed
     pipeline under ``schedule`` (gpipe | 1f1b | interleaved).
+    ``parallel=`` (a :class:`~repro_torch.core.parallel.ParallelSpec`)
+    sizes and wires the data axis (the compressed gradient all-reduce) and
+    the stage axis; the ``dp``/``dp_codec``/``dp_feedback``/``dp_k_frac``
+    kwargs are its deprecated alias family (warns
+    ``ParallelDeprecationWarning``; passing both is an error).
     ``pretrained_params``: a params tree on ``device`` (default: fresh
     params from a generator seeded with ``seed``).  Runs on ``cuda``
     unless ``device`` says otherwise."""
     if transport not in ("simulated", "pipeline"):
         raise ValueError(f"unknown transport {transport!r}")
+    legacy = {"dp": dp, "dp_codec": dp_codec, "dp_feedback": dp_feedback,
+              "dp_k_frac": dp_k_frac}
+    explicit = tuple(sorted(k for k, v in legacy.items() if v is not _UNSET))
+    spec = parallel
+    if spec is None:
+        # fold the deprecated family into the equivalent spec HERE, so the
+        # warning names this call site and make_lm_train_step never re-warns
+        if explicit:
+            warn_legacy("run_lm_experiment", explicit)
+        vals = {k: (legacy[k] if legacy[k] is not _UNSET else d)
+                for k, d in _LEGACY_DEFAULTS.items()}
+        spec = from_legacy(
+            num_stages=(policy.num_stages if transport == "pipeline" else 1),
+            **vals)
+    elif explicit:
+        raise ValueError(
+            f"run_lm_experiment: both parallel= and the legacy kwarg(s) "
+            f"{list(explicit)} were passed — drop the legacy kwargs")
+    spec, policy_eff, transport = _resolve_parallel(
+        "run_lm_experiment", spec, policy, transport, {})
     dev = resolve_device(device)
     data = data or LMData()
     opt = opt or OptimizerConfig(kind="adamw", lr=3e-4, weight_decay=0.01,
@@ -89,33 +136,42 @@ def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
     opt_state = init_opt_state(opt, params)
     feat = (data.seq_len, cfg.d_model)
     if transport == "pipeline":
-        bstates = _pipeline_bstates(policy, feat, batch=batch,
+        bstates = _pipeline_bstates(policy_eff, feat, batch=batch,
                                     microbatches=pipeline_microbatches,
                                     num_samples=data.num_train,
                                     dtype=torch.bfloat16,
                                     virtual_stages=virtual_stages, device=dev)
     else:
-        bstates = [init_boundary_state(policy.at(i), feat, batch=batch,
+        bstates = [init_boundary_state(policy_eff.at(i), feat, batch=batch,
                                        num_samples=data.num_train,
                                        dtype=torch.bfloat16, device=dev)
-                   for i in range(policy.num_boundaries)]
+                   for i in range(policy_eff.num_boundaries)]
     step = make_lm_train_step(cfg, policy, opt, remat=False,
                               transport=transport,
                               pipeline_microbatches=pipeline_microbatches,
                               schedule=schedule,
-                              virtual_stages=virtual_stages)
+                              virtual_stages=virtual_stages, parallel=spec)
+    dp_state = (init_lm_dp_state(cfg, params, policy_eff, spec.dp,
+                                 spec.data.feedback, transport=transport)
+                if spec.dp > 1 else None)
     t0 = time.time()
     curve = []
     for ep in range(epochs):
         for toks, ids in data.epoch(batch, ep):
-            params, opt_state, bstates, m = step(
-                params, opt_state, bstates,
-                {"tokens": torch.from_numpy(toks).to(dev, torch.int64)},
-                torch.from_numpy(ids).to(dev))
+            args = [params, opt_state, bstates,
+                    {"tokens": torch.from_numpy(toks).to(dev, torch.int64)},
+                    torch.from_numpy(ids).to(dev)]
+            if dp_state is not None:
+                args.append(dp_state)
+            out = step(*args)
+            params, opt_state, bstates, m = out[0], out[1], out[2], out[-1]
+            if dp_state is not None:
+                dp_state = out[3]
             curve.append(float(m["loss"]))
-    res = ExperimentResult(name=name or policy.boundary.name,
+    res = ExperimentResult(name=name or policy_eff.boundary.name,
                            train_curve=curve, seconds=time.time() - t0)
-    res.loss_on = _lm_eval(params, cfg, data, policy, True, batch, dev)
-    res.loss_off = _lm_eval(params, cfg, data, policy, False, batch, dev)
+    res.loss_on = _lm_eval(params, cfg, data, policy_eff, True, batch, dev)
+    res.loss_off = _lm_eval(params, cfg, data, policy_eff, False, batch,
+                            dev)
     res.params = params
     return res

@@ -9,20 +9,105 @@ in ``forward_hidden``; on the pipeline the embedding and the loss run on
 the whole batch and the layer stack runs through ``pipeline_apply``.  The
 new backward feedback state is read after the backward from the cuts'
 ``BwSlot``s or the pipeline's ``PipelineSlot`` (the reference reads it
-out of the gradient w.r.t. the bw buffers).  DP, TP and gradient
-accumulation are not ported yet.
+out of the gradient w.r.t. the bw buffers).
+
+Data parallelism on the simulated transport (``parallel=`` a
+:class:`~repro_torch.core.parallel.ParallelSpec` with ``data`` > 1, or
+the deprecated ``dp``/``dp_codec``/``dp_feedback``/``dp_k_frac``
+kwargs): the global batch splits into ``dp`` contiguous shards, each
+lane computes its gradient, and one compressed all-reduce
+(``transport/collectives.py``) feeds one optimizer update.  The pipeline
+x DP and DP x TP steps, TP and gradient accumulation are not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
-from repro_torch.core.policy import BoundaryPolicy, CompressionPolicy
+from repro_torch.core.feedback import FeedbackState, get_mode, shard_ids
+from repro_torch.core.parallel import ParallelSpec, from_legacy, warn_legacy
+from repro_torch.core.policy import (NO_COMPRESSION, BoundaryPolicy,
+                                     CompressionPolicy)
 from repro_torch.models import transformer
 from repro_torch.optim.optimizers import (OptimizerConfig, apply_updates,
-                                          tree_map)
+                                          tree_leaves, tree_map)
+from repro_torch.transport.collectives import make_grad_all_reduce
 from repro_torch.transport.pipeline import pipeline_apply
+
+# Sentinel distinguishing "caller passed the legacy kwarg" (deprecation
+# shim -> ParallelSpec) from "default" on make_lm_train_step.
+_UNSET = object()
+
+_LEGACY_DEFAULTS = {"dp": 1, "dp_codec": "none", "dp_feedback": "none",
+                    "dp_k_frac": 0.1}
+
+
+def _resolve_parallel(api: str, parallel, policy, transport: str, legacy):
+    """Fold ``parallel=`` and the deprecated ``dp_*`` kwarg family into
+    one ``(ParallelSpec, policy, transport)`` triple, as the reference
+    does.  Legacy kwargs (``_UNSET`` when not passed) build the equivalent
+    spec and warn; passing both families is an error.  A spec with
+    ``stages > 1`` implies the pipeline transport; its stage wire
+    (``spec.stage_policy()``) becomes the boundary policy unless the
+    caller already supplied a compressing ``policy`` (conflict)."""
+    explicit = tuple(sorted(k for k, v in legacy.items() if v is not _UNSET))
+    if parallel is not None:
+        if explicit:
+            raise ValueError(
+                f"{api}: both parallel= and the legacy kwarg(s) "
+                f"{list(explicit)} were passed — drop the legacy kwargs")
+        if not isinstance(parallel, ParallelSpec):
+            raise TypeError(f"{api}: parallel= must be a ParallelSpec, "
+                            f"got {type(parallel).__name__}")
+        spec = parallel
+    else:
+        if explicit:
+            warn_legacy(api, explicit)
+        vals = {k: (legacy[k] if legacy[k] is not _UNSET else d)
+                for k, d in _LEGACY_DEFAULTS.items()}
+        spec = from_legacy(
+            num_stages=(policy.num_stages if transport == "pipeline" else 1),
+            **vals)
+    if parallel is not None and spec.stages > 1:
+        if transport == "simulated":
+            transport = "pipeline"
+        sp = spec.stage_policy()
+        if sp is not None:
+            if (policy.num_stages > 1 or policy.overrides
+                    or policy.boundary != NO_COMPRESSION):
+                raise ValueError(
+                    f"{api}: both the stage axis wire "
+                    f"({spec.stage.codec}+{spec.stage.feedback}) and a "
+                    f"compressing policy= ({policy.name}) were given — "
+                    "configure the stage boundary in ONE place")
+            policy = sp
+        elif policy.num_stages == 1:
+            policy = dataclasses.replace(policy, num_stages=spec.stages)
+        elif policy.num_stages != spec.stages:
+            raise ValueError(
+                f"{api}: policy.num_stages={policy.num_stages} != "
+                f"parallel stage size {spec.stages}")
+    return spec, policy, transport
+
+
+def _map_tensors(f, tree):
+    """``f`` over every tensor of nested dicts / lists / FeedbackStates."""
+    if isinstance(tree, dict):
+        return {k: _map_tensors(f, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tensors(f, v) for v in tree]
+    if isinstance(tree, FeedbackState):
+        return tree.map(f)
+    return f(tree)
+
+
+def _split_leading(tree, k: int):
+    """Reshape every tensor ``(N, ...) -> (k, N/k, ...)`` (a view): the
+    replica-lane split of DP.  Size-0 placeholders become ``(k, 0)``."""
+    return _map_tensors(
+        lambda a: a.reshape(k, a.shape[0] // k, *a.shape[1:]), tree)
 
 
 def _labels_and_mask(tokens):
@@ -39,7 +124,10 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
                        aux_weight: float = 0.01, remat: bool = True,
                        transport: str = "simulated",
                        pipeline_microbatches: Optional[int] = None,
-                       schedule: str = "gpipe", virtual_stages: int = 1):
+                       schedule: str = "gpipe", virtual_stages: int = 1,
+                       dp=_UNSET, dp_codec=_UNSET, dp_feedback=_UNSET,
+                       dp_k_frac=_UNSET,
+                       parallel: Optional[ParallelSpec] = None):
     """Returns ``step(params, opt_state, bstates, batch, ids) -> (params,
     opt_state, bstates, metrics)``.
 
@@ -55,16 +143,34 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
     is then ``[]`` for a feedback-free policy, else the
     ``init_feedback_state`` dict, whose buffers the step updates in
     place; ``metrics["wire"]`` holds the step's hops and bytes per
-    direction."""
+    direction.
+
+    ``dp > 1`` (``parallel=`` or the deprecated ``dp_*`` kwargs, which
+    warn with ``ParallelDeprecationWarning``) adds a data-parallel
+    dimension with the compressed gradient all-reduce: the step becomes
+    ``step(params, opt_state, bstates, batch, ids, dp_state) -> (params,
+    opt_state, bstates, dp_state, metrics)`` with ``dp_state`` from
+    ``train/loop.init_lm_dp_state``, and ``metrics["wire"]`` holds the
+    ring's ``dp_hops`` / ``dp_bytes``."""
     transformer.check_supported(cfg)
+    spec, policy, transport = _resolve_parallel(
+        "make_lm_train_step", parallel, policy, transport,
+        {"dp": dp, "dp_codec": dp_codec, "dp_feedback": dp_feedback,
+         "dp_k_frac": dp_k_frac})
     if transport == "pipeline":
+        if spec.dp > 1:
+            raise NotImplementedError(
+                "transport='pipeline' with dp > 1 (the pipeline x DP step) "
+                "is not yet ported to repro_torch")
         return _make_pipeline_lm_train_step(
             cfg, policy, opt, microbatches=pipeline_microbatches,
             schedule=schedule, virtual_stages=virtual_stages)
     if transport != "simulated":
         raise ValueError(f"unknown transport {transport!r}")
 
-    def step(params, opt_state, bstates, batch, ids):
+    def compute_grads(params, bstates, batch, ids):
+        """One replica's (grads, new bstates, metrics) over its batch,
+        from fresh leaf tensors (``p.grad`` never adds lanes together)."""
         params = tree_map(lambda p: p.detach().requires_grad_(True), params)
         labels, mask = _labels_and_mask(batch["tokens"])
         x, aux, new_fw, slots = transformer.forward_hidden(
@@ -73,15 +179,90 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
         total = loss + aux_weight * aux
         total.backward()
         grads = tree_map(lambda p: p.grad, params)
-        params, opt_state = apply_updates(opt, params, grads, opt_state)
         # as the reference's zip: one state per cut the caller gave
         new_states = [{"fw": f, "bw": slot.state}
                       for f, slot, _ in zip(new_fw, slots, bstates)]
         metrics = {"loss": loss.detach(), "aux": aux.detach(),
                    "total": total.detach()}
+        return grads, new_states, metrics
+
+    if spec.dp > 1:
+        d_ax = spec.data
+        return _make_dp_simulated_step(policy, opt, compute_grads, spec.dp,
+                                       d_ax.codec, d_ax.feedback,
+                                       d_ax.k_frac)
+
+    def step(params, opt_state, bstates, batch, ids):
+        grads, new_states, metrics = compute_grads(params, bstates, batch,
+                                                   ids)
+        params, opt_state = apply_updates(opt, params, grads, opt_state)
         return params, opt_state, new_states, metrics
 
     return step
+
+
+def _merge_lanes(orig: FeedbackState, lanes) -> FeedbackState:
+    """One direction's new state from its lanes' new states: the lanes'
+    rows concatenated (the reference's ``_merge_leading`` of the stacked
+    lanes).  AQ-SGD's lanes wrote their id-shard rows into views of
+    ``orig`` in place, so ``orig`` already is the new state."""
+    if get_mode(orig.mode).per_example:
+        return orig
+    return lanes[0].replace(
+        **{slot: (torch.cat([getattr(s, slot) for s in lanes])
+                  if getattr(orig, slot).numel() else getattr(orig, slot))
+           for slot in ("resid", "mirror", "agg")})
+
+
+def _make_dp_simulated_step(policy, opt, compute_grads, dp, dp_codec,
+                            dp_feedback, dp_k_frac):
+    """Data-parallel wrapper around the simulated-boundary gradient: ``dp``
+    lanes, one per contiguous batch shard (the reference's ``jax.vmap``,
+    written out as a loop), then one compressed all-reduce of the lanes'
+    gradients.  Global feedback buffers split by batch shard (views);
+    AQ-SGD's ``(num_samples, *feat)`` buffer splits BY EXAMPLE ID: lane r
+    owns rows ``[r*ns/dp, (r+1)*ns/dp)`` and addresses them with ids
+    localized by ``shard_ids``, writing them in place."""
+    aqsgd = [i for i in range(policy.num_boundaries)
+             if policy.at(i).feedback == "aqsgd"]
+    reduce_fn = make_grad_all_reduce(dp, dp_codec, k_frac=dp_k_frac,
+                                     feedback=dp_feedback, average=True)
+
+    def step_dp(params, opt_state, bstates, batch, ids, dp_state):
+        if ids.shape[0] % dp:
+            raise ValueError(f"batch {ids.shape[0]} is not divisible by "
+                             f"dp {dp}")
+        ids_sh = _split_leading(ids, dp)
+        if aqsgd and bstates:
+            ns = bstates[aqsgd[0]]["fw"].resid.shape[0]
+            ids_sh = torch.stack([shard_ids(ids_sh[r], r, ns, dp)
+                                  for r in range(dp)])
+        states_sh = _split_leading(bstates, dp)
+        batch_sh = _split_leading(batch, dp)
+        grads_dp, lane_states, lane_metrics = None, [], []
+        for r in range(dp):
+            lane = lambda t: _map_tensors(lambda a: a[r], t)  # noqa: E731
+            g, new_states, m = compute_grads(params, lane(states_sh),
+                                             lane(batch_sh), ids_sh[r])
+            if grads_dp is None:
+                grads_dp = tree_map(lambda a: a.new_empty((dp, *a.shape)),
+                                    g)
+            for buf, a in zip(tree_leaves(grads_dp), tree_leaves(g)):
+                buf[r].copy_(a)
+            lane_states.append(new_states)
+            lane_metrics.append(m)
+        grads, dp_state, wire = reduce_fn(grads_dp, dp_state)
+        params, opt_state = apply_updates(opt, params, grads, opt_state)
+        new_states = [{d: _merge_lanes(st[d], [ls[i][d] for ls in
+                                               lane_states])
+                       for d in ("fw", "bw")}
+                      for i, st in enumerate(bstates)]
+        metrics = {k: torch.stack([m[k] for m in lane_metrics]).mean()
+                   for k in lane_metrics[0]}
+        metrics["wire"] = wire
+        return params, opt_state, new_states, dp_state, metrics
+
+    return step_dp
 
 
 def _uniform_boundary(policy: CompressionPolicy) -> BoundaryPolicy:

@@ -28,9 +28,10 @@ as the reference leaves them to XLA.
 
 ``fuse_payload`` / ``unfuse_payload`` frame a payload into ONE contiguous
 uint8 hop buffer and back (the fused hops of the 1f1b and interleaved
-schedules), through ``kernels/framing.py`` for payloads of two or more
-leaves.  Leaves go in ``jax.tree.leaves`` order: dict keys sorted, nested
-dicts depth first.
+schedules, and each replica's buffer of the DP gradient reduce), through
+``kernels/framing.py`` for payloads of two or more leaves.  Leaves go in
+``jax.tree.leaves`` order: dict keys sorted, lists in order, nesting
+depth first.
 """
 from __future__ import annotations
 
@@ -304,18 +305,24 @@ def unpack_payload(payload: dict, shape, dtype=torch.bfloat16):
 
 
 def payload_leaves(payload) -> list:
-    """The leaves of a (nested) payload dict in ``jax.tree.leaves`` order:
-    keys sorted, nested dicts depth first."""
+    """The leaves of a (nested) payload in ``jax.tree.leaves`` order: dict
+    keys sorted, lists in order (the DP reduce's one payload per
+    parameter leaf), nesting depth first."""
     if isinstance(payload, dict):
         return [leaf for k in sorted(payload)
                 for leaf in payload_leaves(payload[k])]
+    if isinstance(payload, list):
+        return [leaf for p in payload for leaf in payload_leaves(p)]
     return [payload]
 
 
-def _unflatten(struct, leaves):
-    """Rebuild ``struct``'s nesting from an iterator over its leaves."""
+def tree_unflatten(struct, leaves):
+    """Rebuild ``struct``'s nesting around an iterator over its leaves in
+    :func:`payload_leaves` order (the inverse of ``payload_leaves``)."""
     if isinstance(struct, dict):
-        return {k: _unflatten(struct[k], leaves) for k in sorted(struct)}
+        return {k: tree_unflatten(struct[k], leaves) for k in sorted(struct)}
+    if isinstance(struct, list):
+        return [tree_unflatten(s, leaves) for s in struct]
     return next(leaves)
 
 
@@ -323,6 +330,8 @@ def payload_struct(payload):
     """The :class:`LeafStruct` tree of a packed payload."""
     if isinstance(payload, dict):
         return {k: payload_struct(v) for k, v in payload.items()}
+    if isinstance(payload, list):
+        return [payload_struct(p) for p in payload]
     return LeafStruct(tuple(payload.shape), payload.dtype)
 
 
@@ -380,5 +389,5 @@ def unfuse_payload(buf: torch.Tensor, struct):
     leaves = payload_leaves(struct)
     sizes = [_leaf_nbytes(s) for s in leaves]
     segs = unframe_parts(buf, sizes) if len(leaves) > 1 else [buf]
-    return _unflatten(struct, iter([_bytes_to_leaf(seg, s)
+    return tree_unflatten(struct, iter([_bytes_to_leaf(seg, s)
                                      for seg, s in zip(segs, leaves)]))

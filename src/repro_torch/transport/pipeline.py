@@ -121,6 +121,8 @@ def init_feedback_state(policy: BoundaryPolicy, feat_shape, *,
 
     def fbs(mode: str, direction: str) -> FeedbackState:
         return FeedbackState(resid=buf(mode, False), mirror=buf(mode, True),
+                             agg=torch.zeros((0,), dtype=dtype,
+                                             device=device),
                              scope="boundary", direction=direction,
                              mode=mode)
 
@@ -131,8 +133,9 @@ def init_feedback_state(policy: BoundaryPolicy, feat_shape, *,
 def _empty_state(num_stages: int, dtype, direction: str,
                  device=None) -> FeedbackState:
     z = torch.zeros((num_stages, 0), dtype=dtype, device=device)
-    return FeedbackState(resid=z, mirror=z, scope="boundary",
-                         direction=direction, mode="none")
+    return FeedbackState(resid=z, mirror=z,
+                         agg=torch.zeros((0,), dtype=dtype, device=device),
+                         scope="boundary", direction=direction, mode="none")
 
 
 # ---------------------------------------------------------------------------

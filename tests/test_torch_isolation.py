@@ -12,6 +12,7 @@ import torch
 
 from repro_torch import device as D
 from repro_torch.configs.registry import get
+from repro_torch.core.parallel import spec_from_cli
 from repro_torch.core.policy import POLICIES
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
@@ -88,6 +89,12 @@ def test_entry_points_without_device_ask_for_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="cuda"):
         run_lm_experiment(cfg, POLICIES["q4q8"](), epochs=1,
                           transport="pipeline", schedule="1f1b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ttrain.main(["--smoke", "--steps", "1", "--batch", "2",
+                     "--mesh", "data=2", "--wire", "data=q8"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_lm_experiment(cfg, POLICIES["none"](), epochs=1,
+                          parallel=spec_from_cli("data=2", "data=q4"))
 
 
 def test_cpu_tensors_take_the_plain_path():

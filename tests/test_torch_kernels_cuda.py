@@ -9,8 +9,9 @@ import pytest
 import torch
 
 from repro_torch import device as D
-from repro_torch.kernels import _build, framing, ops, pack4, quantize
-from repro_torch.kernels import tiling, topk_mask, topk_select
+from repro_torch.kernels import _build, dp_reduce, framing, ops, pack4
+from repro_torch.kernels import quantize, tiling, topk_mask, topk_select
+from repro_torch.transport import codecs, collectives
 
 pytestmark = pytest.mark.cuda
 
@@ -136,6 +137,8 @@ def _segments(gen, sizes):
     [1, 7, 0, 33, 4097, 2, 16, 15],      # odd sizes and an empty leaf
     [4097],                              # one segment
     [0, 4097],                           # one segment and an empty one
+    [3, 5, 4, 4] * 4 + [9],              # 17 segments: two launches
+    [1001, 4, 4] * 13,                   # a q8 DP payload: 39, three
 ])
 def test_framing_bit_exact(gen, sizes, monkeypatch):
     parts = _segments(gen, sizes)
@@ -160,6 +163,63 @@ def test_framing_one_segment_launches_and_copies(gen):
     assert buf.data_ptr() != seg.data_ptr() and torch.equal(buf, seg)
     assert torch.equal(back[1], seg) and back[0].numel() == 0
     assert _build.LAUNCHES == {"frame_parts": 1, "unframe_parts": 1}
+
+
+@pytest.mark.parametrize("n,launches", [(16, 1), (17, 2), (39, 3)])
+def test_framing_launches_once_per_16_segments(gen, n, launches):
+    parts = _segments(gen, [5 + i for i in range(n)])
+    _build.reset_launches()
+    buf = framing.frame_parts(parts + [parts[0][:0]])
+    back = framing.unframe_parts(buf, [p.numel() for p in parts] + [0])
+    assert torch.equal(buf, torch.cat(parts))
+    assert all(torch.equal(a, b) for a, b in zip(back, parts))
+    assert _build.LAUNCHES == {"frame_parts": launches,
+                               "unframe_parts": launches}
+
+
+# a ragged gradient tree: an odd leaf (misaligned meta), a rank-3 stack,
+# a constant leaf (one code), and a leaf of 3 tiles and a bit
+DP_SHAPES = [(7,), (5, 33), (2, 3, 17), (6,), (3 * 8192 + 5,)]
+
+
+def _dp_slots(gen, codec, dp, shapes):
+    rows = []
+    c = codecs.get_codec(codec)
+    for _ in range(dp):
+        leaves = [torch.randn(s, generator=gen, device="cuda") * 3
+                  for s in shapes]
+        leaves[3] = torch.full(shapes[3], 0.75, device="cuda")
+        rows.append(codecs.fuse_payload(
+            [collectives.pack_grad_leaf(c, a) for a in leaves]))
+    plans = dp_reduce.build_decode_plans(collectives.grad_payload_structs(
+        [codecs.LeafStruct(s, torch.float32) for s in shapes], codec),
+        shapes)
+    return torch.stack(rows), plans
+
+
+@pytest.mark.parametrize("dp", [1, 3, 4])
+@pytest.mark.parametrize("codec", ["q8", "q4"])
+def test_decode_sum_fused_bit_exact(gen, codec, dp, monkeypatch):
+    """Kernel == plain version == the unfused loop (unfuse -> unpack ->
+    rank-ordered add), bitwise, with one launch."""
+    slots, plans = _dp_slots(gen, codec, dp, DP_SHAPES)
+    assert any(p.meta_off % 4 for p in plans)
+    _build.reset_launches()
+    got, want = _kernel_and_plain(
+        lambda: dp_reduce.decode_sum_fused(slots, plans, dp), monkeypatch)
+    assert _build.LAUNCHES.get("decode_sum_fused") == 1
+    c = codecs.get_codec(codec)
+    struct = collectives.grad_payload_structs(
+        [codecs.LeafStruct(s, torch.float32) for s in DP_SHAPES], codec)
+    loop = [None] * len(DP_SHAPES)
+    for s in range(dp):
+        pls = codecs.unfuse_payload(slots[s], struct)
+        for i, shape in enumerate(DP_SHAPES):
+            m = collectives.unpack_grad_leaf(c, pls[i], shape)
+            loop[i] = m if loop[i] is None else loop[i] + m
+    for a, b, l, shape in zip(got, want, loop, DP_SHAPES):
+        assert a.shape == b.shape and torch.equal(a, b)
+        assert torch.equal(a.reshape(shape), l)
 
 
 def test_uint16_leaf_views_to_and_from_uint8(gen):

@@ -280,8 +280,9 @@ def test_launch_train_pipeline_cpu(argv, capsys):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--wire", "data=q8"], "--wire"),
-    (["--dp", "2"], "--dp"), (["--mesh", "data=2"], "--mesh"),
+    (["--wire", "data=q4@size>=1"], "--wire"),
+    (["--dp", "2", "--transport", "pipeline", "--stages", "2"], "--dp"),
+    (["--mesh", "tensor=2"], "--mesh"),
     (["--grad-accum", "2"], "--grad-accum"), (["--ckpt", "x.npz"], "--ckpt"),
     (["--resume", "x.npz"], "--resume"), (["--trace", "t.jsonl"], "--trace"),
     (["--policy", "q4@size>=1;none"], "rule-spec")])
