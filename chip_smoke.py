@@ -11,7 +11,11 @@ failure fatal:
      (one nvcc per source, all started together).  Deterministic
      algorithms are on for the whole run.
   2. every kernel against its plain PyTorch version on the card, bit-exact,
-     at the serving, training and pipeline shapes and edge cases (the q8
+     at the serving, training and pipeline shapes and edge cases (the
+     TopK select also on a pipeline microbatch, ties across its chunks,
+     zeros and -0.0, and every gradient leaf of a DP lane as (1, n) f32,
+     timed at the serving shapes, the microbatch, the two largest leaves
+     and the whole lane; the q8
      wire quantizer at a full-width microbatch in bf16 and f32; framing of
      the q4, q8-tiled, TopK and EF-mixed payloads of one and of odd-sized
      leaves, and of the 39-segment q8 DP gradient payload; the DP decode +
@@ -60,7 +64,9 @@ failure fatal:
      under the plain backend, and the smoke model's DP step on the card
      against the CPU; tokens/s and the reduce's share of the step (CUDA
      events) per run, a profile of one step.
-  7. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+  7. one ``{"kernels": [...]}`` line (launches summed over phases 3-6;
+     the select kernels timed at the 38.6 M-element DP leaf), then the
+     ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -121,6 +127,7 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 }
 SERVE_KERNELS = ("topk_threshold", "topk_compact", "pack4_wire",
                  "unpack4_wire")
+SELECT_KERNELS = ("topk_threshold", "topk_compact")
 TRAIN_KERNELS = ("quant_dequant", "topk_block")
 WIRE_KERNELS = ("quantize_wire", "frame_parts", "unframe_parts")
 # the pipeline phase: 4 stages, 4 microbatches of 8 -> 12 hops per
@@ -174,6 +181,12 @@ FRAMED = "q8-tiled backward hop (786432 + 384 B)"
 PREFILL = f"prefill ({BATCH}, {max(PROMPT_LENS)}*768)"
 DECODE = f"decode ({BATCH}, 768)"
 CUT = f"training cut ({TRAIN_BATCH}, {TRAIN_SEQ}*768) bf16"
+# the TopK DP codec's largest gradient leaves: wte (50257 x 768) and an
+# MLP stack (12 x 768 x 3072), one (1, n) f32 row each
+SEL_LEAF_N, SEL_LEAF2_N = 38597376, 28311552
+SEL_LEAF = f"DP leaf (1, {SEL_LEAF_N}) f32"
+SEL_LEAF2 = f"DP leaf (1, {SEL_LEAF2_N}) f32"
+SEL_LANE = "DP lane: 13 leaves, each (1, n) f32"
 
 # the DP phase: 4 lanes of 8 (global batch 32), seq 128, 4 stages (3
 # simulated cuts per lane), 13 parameter leaves, Sum n = 123,570,432
@@ -222,9 +235,10 @@ def log(*a):
 # timing
 # ---------------------------------------------------------------------------
 
-def call_ms(torch, fn, iters=50):
+def call_ms(torch, fn, iters=50, warm=True):
     """Per-call time of back-to-back calls, CUDA events (host included)."""
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -245,24 +259,27 @@ def device_events(prof):
             for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
 
 
-def device_ms(torch, fn, kernel=None, iters=20):
+def device_ms(torch, fn, kernel=None, iters=20, warm=True):
     """Device time per call of everything ``fn`` launches (torch.profiler),
-    and of the kernels whose name contains ``kernel``.  Raises where the
-    profiler sees no device time."""
+    and of the kernels whose name contains ``kernel``.  A profile that sees
+    no device time (CUPTI now and then drops a session's kernel records)
+    is taken again; raises where three in a row see none."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = device_events(prof)
-    total = sum(ms for ms, _ in events) / iters
-    if not total > 0:
-        raise AssertionError("torch.profiler saw no device time")
-    return total, sum(ms for ms, key in events
-                      if kernel and kernel in key) / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        total = sum(ms for ms, _ in events) / iters
+        if total > 0:
+            return total, sum(ms for ms, key in events
+                              if kernel and kernel in key) / iters
+    raise AssertionError("torch.profiler saw no device time three times")
 
 
 def bound_ms(nbytes, nops):
@@ -286,6 +303,10 @@ def kernel_inputs(torch):
 
     ties = torch.randint(-3, 4, (BATCH, D_MODEL), generator=gen,
                          device="cuda").float()
+    # zeros and -0.0 with a few values: the k-th magnitude is a zero
+    zeros = torch.zeros((2, 20485), device="cuda")
+    zeros[1, ::2] = -0.0
+    zeros[:, ::997] = randn(2, 21)
     return {
         DECODE: randn(BATCH, D_MODEL),
         PREFILL: randn(BATCH, max(PROMPT_LENS) * D_MODEL),
@@ -295,6 +316,9 @@ def kernel_inputs(torch):
                                         device="cuda"),
         "heavy ties (4, 768)": ties,
         "int32 index (2, 70001)": randn(2, 70001),
+        "heavy ties, many chunks (8, 98304)": torch.randint(
+            -3, 4, MB_ROWS, generator=gen, device="cuda").float(),
+        "zeros and -0.0 (2, 20485)": zeros,
     }
 
 
@@ -321,24 +345,65 @@ def max_err(torch, got, want):
     return 0.0
 
 
-def check_kernels(torch, D, pack4, topk, inputs):
+def check_select(torch, D, topk, x, k=None):
+    """Both select kernels on ``x`` against their plain versions:
+    bit-exact, exactly k indices per row, ascending."""
+    m, n = x.shape
+    k = select_k(n) if k is None else k
+    t_k, t_p = kernel_and_plain(torch, D, lambda: topk.topk_threshold(x, k))
+    max_err(torch, [t_k], [t_p])
+    s_k, s_p = kernel_and_plain(torch, D,
+                                lambda: topk.topk_compact(x, t_p, k))
+    max_err(torch, s_k, s_p)
+    idx = s_k[1]
+    assert idx.shape == (m, k) and bool(
+        (idx[:, 1:] > idx[:, :-1]).all()), "indices not ascending"
+
+
+def select_inputs(torch, shapes):
+    """The select's main-path tensors beyond serving: a pipeline
+    microbatch (bf16, as its hops send it; also in f32) and one DP lane's
+    13 gradient leaves of ``shapes``, each (1, n) f32 as
+    ``pack_grad_leaf`` passes it."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    mb = torch.randn(MB_ROWS, generator=gen, device="cuda")
+    lane = [torch.randn((1, math.prod(s)), generator=gen, device="cuda")
+            * 0.01 for s in shapes]
+    by_n = {x.shape[1]: x for x in lane}
+    return {WIRE: [mb.to(torch.bfloat16)], f"{WIRE[:-4]}f32": [mb],
+            SEL_LEAF: [by_n[SEL_LEAF_N]], SEL_LEAF2: [by_n[SEL_LEAF2_N]],
+            SEL_LANE: lane}
+
+
+def select_phase(torch, D, topk, inputs, shapes):
+    """Phase 2's select part: both kernels bit-exact against their plain
+    versions on the serving inputs (bf16 and f32), a pipeline microbatch
+    and every gradient leaf of a DP lane, then timed at the serving
+    prefill and decode, the microbatch, the two largest leaves and the
+    whole lane.  Returns {label: {name: row}}."""
+    for label, x32 in inputs.items():
+        for dt in (torch.bfloat16, torch.float32):
+            check_select(torch, D, topk, x32.to(dt))
+        log(f"# select kernels bit-exact vs plain: {label}")
+    sel = select_inputs(torch, shapes)
+    for label, xs in sel.items():
+        for x in xs:
+            check_select(torch, D, topk, x)
+        log(f"# select kernels bit-exact vs plain: {label}")
+    sel[PREFILL] = [inputs[PREFILL].to(torch.bfloat16)]
+    sel[DECODE] = [inputs[DECODE].to(torch.bfloat16)]
+    timed = {}
+    for label in (PREFILL, DECODE, WIRE, SEL_LEAF, SEL_LEAF2, SEL_LANE):
+        timed[label] = time_select(torch, D, topk, sel[label])
+        for name, row in timed[label].items():
+            log(f"# {name} {label}: " + json.dumps(row))
+    return timed
+
+
+def check_kernels(torch, D, pack4, inputs):
     err = dict.fromkeys(SERVE_KERNELS, 0.0)
     for label, x32 in inputs.items():
-        m, n = x32.shape
-        k = max(1, int(round(0.1 * n)))
-        for dt in (torch.bfloat16, torch.float32):
-            x = x32.to(dt)
-            t_k, t_p = kernel_and_plain(torch, D,
-                                        lambda: topk.topk_threshold(x, k))
-            err["topk_threshold"] = max(err["topk_threshold"],
-                                        max_err(torch, [t_k], [t_p]))
-            s_k, s_p = kernel_and_plain(
-                torch, D, lambda: topk.topk_compact(x, t_p, k))
-            err["topk_compact"] = max(err["topk_compact"],
-                                      max_err(torch, s_k, s_p))
-            idx = s_k[1]
-            assert idx.shape == (m, k) and bool(
-                (idx[:, 1:] > idx[:, :-1]).all()), "indices not ascending"
+        n = x32.shape[1]
         mn, sc = pack4.minmax_scale(x32)
         p_k, p_p = kernel_and_plain(torch, D,
                                     lambda: pack4.pack4_wire(x32, mn, sc))
@@ -348,65 +413,100 @@ def check_kernels(torch, D, pack4, topk, inputs):
             torch, D, lambda: pack4.unpack4_wire(p_p, mn, sc, n))
         err["unpack4_wire"] = max(err["unpack4_wire"],
                                   max_err(torch, [u_k], [u_p]))
-        log(f"# kernels bit-exact vs plain: {label}")
+        log(f"# q4 kernels bit-exact vs plain: {label}")
     return err
 
 
-def time_kernels(torch, D, pack4, topk, x32):
-    """name -> dict of times and bound at one main-path shape (bf16
-    activations for TopK, their f32 cast and per-row stats for q4, as the
-    codecs pass).  The library calls take the magnitudes precomputed."""
-    x = x32.to(torch.bfloat16)
-    m, n = x.shape
-    e = x.element_size()
-    k = max(1, int(round(0.1 * n)))
+def time_pack4(torch, D, pack4, x32):
+    """The q4 pair at one serving shape (the f32 cast and per-row stats,
+    as the codec passes them)."""
+    m, n = x32.shape
     h = (n + 1) // 2
-    thresh = topk.topk_threshold_plain(x, k)
-    mag = x.float().abs()
     mn, sc = pack4.minmax_scale(x32)
     packed = pack4.pack4_wire_plain(x32, mn, sc)
-    cases = {
+    return time_cases(torch, D, {
         # (wrapper call, its CUDA kernel's name, library call or None,
         #  bytes the function moves, float32 operations it needs: the
-        #  threshold one compare per |x| as a one-pass select, the compact
-        #  two compares and a count, the pack sub/div/round/clip and a
-        #  shift-or per pair, the unpack a mul and an add)
-        "topk_threshold": (lambda: topk.topk_threshold(x, k),
-                           "topk_threshold_kernel",
-                           lambda: torch.topk(mag, k, dim=1).values[:, -1:],
-                           m * n * e + m * 4, m * n),
-        "topk_compact": (lambda: topk.topk_compact(x, thresh, k),
-                         "topk_compact_kernel",
-                         lambda: torch.topk(mag, k, dim=1),
-                         m * n * e + m * 4 + m * k * (e + 4), 3 * m * n),
+        #  pack sub/div/round/clip and a shift-or per pair, the unpack a
+        #  mul and an add)
         "pack4_wire": (lambda: pack4.pack4_wire(x32, mn, sc), "pack4_kernel",
                        None, m * n * 4 + 8 * m + m * h, 6 * m * n),
         "unpack4_wire": (lambda: pack4.unpack4_wire(packed, mn, sc, n),
                          "unpack4_kernel", None,
                          m * h + 8 * m + m * n * 4, 2 * m * n),
-    }
-    return time_cases(torch, D, cases)
+    })
+
+
+def select_k(n):
+    """k of a TopK 10% codec on a row of n (``topk_count(0.1, n)``)."""
+    return max(1, int(round(0.1 * n)))
+
+
+def time_select(torch, D, topk, xs):
+    """``topk_threshold`` and ``topk_compact`` over the tensors ``xs``, one
+    call each with k = 10% of a row, as the codecs call them (a list of
+    (1, n) f32 leaves is one DP lane's select).  Bytes: each input read
+    once, the (m, 1) f32 threshold, and the compaction's (m, k) values and
+    int32 indices; operations: the threshold one compare per |x| as a
+    one-pass select, the compaction two compares and a count.  The
+    library yardstick is ``torch.topk`` on magnitudes computed beforehand
+    (its values' last column for the threshold)."""
+    ks = [select_k(x.shape[1]) for x in xs]
+    threshs = [topk.topk_threshold_plain(x, k) for x, k in zip(xs, ks)]
+    mags = [x.float().abs() for x in xs]
+    read = sum(x.numel() * x.element_size() + 4 * x.shape[0] for x in xs)
+    wrote = sum(x.shape[0] * k * (x.element_size() + 4)
+                for x, k in zip(xs, ks))
+    elems = sum(x.numel() for x in xs)
+    return time_cases(torch, D, {
+        "topk_threshold": (
+            lambda: [topk.topk_threshold(x, k) for x, k in zip(xs, ks)],
+            "topk_threshold",
+            lambda: [torch.topk(g, k, dim=1).values[:, -1:]
+                     for g, k in zip(mags, ks)], read, elems),
+        "topk_compact": (
+            lambda: [topk.topk_compact(x, t, k)
+                     for x, t, k in zip(xs, threshs, ks)],
+            "topk_compact",
+            lambda: [torch.topk(g, k, dim=1) for g, k in zip(mags, ks)],
+            read + wrote, 3 * elems),
+    })
 
 
 def time_cases(torch, D, cases):
-    """name -> times and bound of each ``(wrapper call, its CUDA kernel's
-    name, library call or None, bytes, float32 operations)``."""
+    """name -> times and bound of each ``(wrapper call, the name its CUDA
+    kernels contain, library call or None, bytes, float32 operations)``,
+    the plain version's too.  Calls that take long are timed over fewer
+    iterations (the plain compaction takes seconds on a DP leaf)."""
     rows = {}
     for name, (fn, kernel, lib, nbytes, nops) in cases.items():
-        D.KERNEL_BACKEND = "auto"
+        it = scaled_iters(torch, fn)
         row = dict(zip(("ms", "kernel_only_ms"),
-                       device_ms(torch, fn, kernel)))
-        row["call_ms"] = call_ms(torch, fn)
+                       device_ms(torch, fn, kernel, min(it, 20), warm=False)))
+        row["call_ms"] = call_ms(torch, fn, it, warm=False)
         D.KERNEL_BACKEND = "plain"
         try:
-            row["plain_ms"] = device_ms(torch, fn)[0]
-            row["plain_call_ms"] = call_ms(torch, fn, iters=10)
+            it = scaled_iters(torch, fn)
+            row["plain_ms"], _ = device_ms(torch, fn, iters=min(it, 20),
+                                           warm=False)
+            row["plain_call_ms"] = call_ms(torch, fn, min(it, 10), warm=False)
         finally:
             D.KERNEL_BACKEND = "auto"
-        row["library_ms"] = None if lib is None else device_ms(torch, lib)[0]
+        row["library_ms"] = None
+        if lib is not None:
+            row["library_ms"], _ = device_ms(
+                torch, lib, iters=min(scaled_iters(torch, lib), 20),
+                warm=False)
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, nops)
         rows[name] = row
     return rows
+
+
+def scaled_iters(torch, fn, most=50, budget_ms=300.0):
+    """Warms ``fn`` up; ``most`` iterations, or as many as fit in
+    ``budget_ms`` (at least 1) where one call takes long."""
+    return max(1, min(most, int(budget_ms / max(call_ms(torch, fn, 1),
+                                                1e-3))))
 
 
 def cut_inputs(torch):
@@ -1464,24 +1564,25 @@ def main() -> int:
 
     # -- phase 2 ------------------------------------------------------------
     inputs = kernel_inputs(torch)
-    err = check_kernels(torch, D, pack4, topk, inputs)
+    shapes = gpt2_leaf_shapes(torch)
+    timed = select_phase(torch, D, topk, inputs, shapes)
+    torch.cuda.empty_cache()
+    err = check_kernels(torch, D, pack4, inputs)
     cuts = cut_inputs(torch)
     err.update(check_cut_kernels(torch, D, ops, cuts))
-    timed = {}
     for label in (PREFILL, DECODE):
-        timed[label] = time_kernels(torch, D, pack4, topk, inputs[label])
-        for name, row in timed[label].items():
-            log(f"# {name} {label}: " + json.dumps(row))
+        timed[label].update(time_pack4(torch, D, pack4, inputs[label]))
+        for name in ("pack4_wire", "unpack4_wire"):
+            log(f"# {name} {label}: " + json.dumps(timed[label][name]))
     timed[CUT] = time_cut_kernels(torch, D, ops, cuts[CUT])
     for name, row in timed[CUT].items():
         log(f"# {name} {CUT}: " + json.dumps(row))
     err.update(check_wire_kernels(torch, D, quantize, framing, codecs,
                                   tiling))
-    timed[WIRE] = time_wire_kernels(torch, D, quantize, framing, codecs,
-                                    tiling)
-    for name, row in timed[WIRE].items():
+    wire = time_wire_kernels(torch, D, quantize, framing, codecs, tiling)
+    timed[WIRE].update(wire)
+    for name, row in wire.items():
         log(f"# {name} {row['shape']}: " + json.dumps(row))
-    shapes = gpt2_leaf_shapes(torch)
     err.update(check_dp_kernels(torch, D, codecs, collectives, framing,
                                 shapes))
     timed.update(time_dp_kernels(torch, D, codecs, collectives, shapes))
@@ -1490,30 +1591,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
-    # -- phase 3 ------------------------------------------------------------
-    launches = serve(torch, np, D, _build)
-    log(f"# phase 3 done at {time.perf_counter() - t0:.1f} s")
-
-    # -- phase 4 ------------------------------------------------------------
-    launches.update({k: v for k, v in train(torch, D, _build).items()
-                     if k in TRAIN_KERNELS})
-    log(f"# phase 4 done at {time.perf_counter() - t0:.1f} s")
-
-    # -- phase 5 ------------------------------------------------------------
-    launches.update({k: v for k, v in pipeline(torch, D, _build).items()
-                     if k in WIRE_KERNELS})
-    log(f"# phase 5 done at {time.perf_counter() - t0:.1f} s")
-
-    # -- phase 6 ------------------------------------------------------------
-    launches.update({k: v for k, v in data_parallel(torch, D, _build).items()
-                     if k in DP_KERNELS})
-    log(f"# phase 6 done at {time.perf_counter() - t0:.1f} s")
+    # -- phases 3-6: each main path, its counts set to 0 just before it and
+    # read just after; the kernels line sums them
+    paths = []
+    for phase, run in ((3, lambda: serve(torch, np, D, _build)),
+                       (4, lambda: train(torch, D, _build)),
+                       (5, lambda: pipeline(torch, D, _build)),
+                       (6, lambda: data_parallel(torch, D, _build))):
+        paths.append(run())
+        log(f"# phase {phase} done at {time.perf_counter() - t0:.1f} s")
+    launches = {k: sum(p[k] for p in paths) for k in KERNELS}
+    for k, v in launches.items():
+        if not v:
+            raise AssertionError(f"{k} was launched on no main path")
 
     # -- phase 7 ------------------------------------------------------------
     line = []
     for name, (src, replaces) in KERNELS.items():
         row = (timed[DPQ8] if name in DP_KERNELS else
-               timed[CUT if name in TRAIN_KERNELS else
+               timed[SEL_LEAF if name in SELECT_KERNELS else
+                     CUT if name in TRAIN_KERNELS else
                      WIRE if name in WIRE_KERNELS else PREFILL][name])
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],

@@ -2,14 +2,20 @@
 versions.
 
 Port of ``repro/kernels/topk_select.py``.  ``topk_threshold`` finds the
-exact k-th largest |x| per row by 31 bisection steps over its int32 bit
-pattern; ``topk_compact`` — the epilogue the TPU left to XLA — keeps
-exactly k entries per row (all above the threshold, then ties by LOWEST
-index, ``lax.top_k``'s rule) and writes their indices ascending with the
-gathered values.  The selected set equals ``lax.top_k``'s, so the
-scattered dense tensor is bit-identical.
+exact k-th largest |x| per row, the largest bit pattern t of |x| with
+count(bits >= t) >= k; ``topk_compact`` — the epilogue the TPU left to
+XLA — keeps exactly k entries per row (all above the threshold, then ties
+by LOWEST index, ``lax.top_k``'s rule) and writes their indices ascending
+with the gathered values.  The selected set equals ``lax.top_k``'s, so
+the scattered dense tensor is bit-identical.
 
-Bound on the H100: memory bytes (see the note in ``csrc/topk_select.cu``).
+Bound on the H100: memory bytes.  The kernels cut each row into
+:func:`select_grid` chunks so that rows from (4, 768) to a (1, 38.6 M)
+gradient leaf fill the card: the threshold is a radix select of 2-3 digit
+passes, one launch each after a zeroed scratch, and the compaction a count
+launch and a write launch; a row of one chunk takes one launch for each
+(see the note in ``csrc/topk_select.cu``).  The plain versions bisect the
+31 magnitude bits and cumsum / scatter, as the reference does.
 """
 from __future__ import annotations
 
@@ -20,11 +26,30 @@ from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
-    "topk_threshold_launch": (_build.P, _build.P, _build.I32)
-    + (_build.I64,) * 3 + (_build.P,),
-    "topk_compact_launch": (_build.P,) * 4 + (_build.I32,)
-    + (_build.I64,) * 3 + (_build.P,),
+    "topk_select_state_ints": (),
+    "topk_threshold_launch": (_build.P,) * 4 + (_build.I32,)
+    + (_build.I64,) * 5 + (_build.P,),
+    "topk_compact_launch": (_build.P,) * 5 + (_build.I32,)
+    + (_build.I64,) * 5 + (_build.P,),
 }
+# grid planning: at least two blocks for each of the H100's 132 SMs where
+# the rows are long enough, no chunk (but a row's last) under MIN_CHUNK
+TARGET_BLOCKS = 2 * 132
+MIN_CHUNK = 2048
+
+
+def select_grid(m: int, n: int):
+    """(chunks per row C, chunk length L) of the (C * m)-block grid.  Chunk
+    c of a row is [c L, min(n, (c + 1) L)): in index order, disjoint,
+    never empty, covering [0, n).  C = min(ceil(TARGET_BLOCKS / m), n //
+    MIN_CHUNK), or 1 where that is not above 1: C * m >= TARGET_BLOCKS
+    wherever n allows, and L >= MIN_CHUNK (L = ceil(n / C) gives exactly
+    C chunks, since n >= C * C; the last may be shorter)."""
+    want = min(-(-TARGET_BLOCKS // m), n // MIN_CHUNK)
+    if want <= 1:
+        return 1, n
+    length = -(-n // want)
+    return -(-n // length), length
 
 
 def _check(flat: torch.Tensor, k: int):
@@ -61,12 +86,21 @@ def topk_threshold(flat: torch.Tensor, k: int) -> torch.Tensor:
     _check(flat, k)
     flat = flat.contiguous()
     m, n = flat.shape
+    chunks, length = select_grid(m, n)
     thresh = torch.empty((m, 1), dtype=torch.float32, device=flat.device)
     lib = _build.library("topk_select", _SIGNATURES)
+    scratch = []
+    if chunks > 1:          # the passes' row histograms, tickets, prefixes
+        scratch.append(torch.zeros((m, lib.topk_select_state_ints()),
+                                   dtype=torch.int32, device=flat.device))
+        if flat.dtype == torch.float32:   # pass 1's candidates, <= n / 8
+            scratch.append(torch.empty((m, n // 8), dtype=torch.int32,
+                                       device=flat.device))
+    ptrs = [t.data_ptr() for t in scratch] + [None] * (2 - len(scratch))
     with torch.cuda.device(flat.device):
         _build.call(lib, "topk_threshold_launch", flat.data_ptr(),
-                    thresh.data_ptr(), _DTYPE_CODE[flat.dtype], m, n, k,
-                    torch.cuda.current_stream().cuda_stream)
+                    thresh.data_ptr(), *ptrs, _DTYPE_CODE[flat.dtype], m, n,
+                    k, length, chunks, torch.cuda.current_stream().cuda_stream)
     _build.count("topk_threshold")
     return thresh
 
@@ -102,13 +136,19 @@ def topk_compact(flat: torch.Tensor, thresh: torch.Tensor, k: int):
         raise ValueError(f"thresh must be ({m}, 1) float32, got "
                          f"{tuple(thresh.shape)} {thresh.dtype}")
     thresh = thresh.contiguous()
+    chunks, length = select_grid(m, n)
     vals = torch.empty((m, k), dtype=flat.dtype, device=flat.device)
     idx = torch.empty((m, k), dtype=torch.int32, device=flat.device)
+    counts = None           # each chunk's (above, equal) counts
+    if chunks > 1:
+        counts = torch.empty((m, chunks, 2), dtype=torch.int32,
+                             device=flat.device)
     lib = _build.library("topk_select", _SIGNATURES)
     with torch.cuda.device(flat.device):
         _build.call(lib, "topk_compact_launch", flat.data_ptr(),
-                    thresh.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                    _DTYPE_CODE[flat.dtype], m, n, k,
+                    thresh.data_ptr(), None if counts is None
+                    else counts.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                    _DTYPE_CODE[flat.dtype], m, n, k, length, chunks,
                     torch.cuda.current_stream().cuda_stream)
     _build.count("topk_compact")
     return vals, idx

@@ -45,6 +45,97 @@ def test_topk_kernels_bit_exact(gen, shape, dtype, monkeypatch):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+def _select_case(kind, gen):
+    """(x f32 on the card, k) of one of the select's edge cases: rows of
+    many chunks, ties whose quota runs out inside a chunk and across a
+    chunk boundary, constant, zero and -0.0 rows, k = 1 and k = n, int32
+    indices, odd rows starting off a 16-byte boundary and ending at their
+    storage's end, and a threshold bin whose candidates all lie in one
+    chunk."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    mc = topk_select.MIN_CHUNK
+    if kind == "3 chunks and 5":
+        return randn(3, 3 * mc + 5), None
+    if kind == "40 chunks and 5":
+        return randn(2, 40 * mc + 5), None
+    if kind == "tie run across a chunk boundary":
+        n = 3 * mc + 5
+        length = topk_select.select_grid(2, n)[1]
+        x = randn(2, n) * 0.1
+        x[:, length - 8:length + 8] = 2.0
+        x[1, length - 8:length + 8:2] = -2.0
+        x[:, [5, n // 2, n - 1]] = 5.0
+        return x, 3 + 10                   # 10 of the 16 ties
+    if kind == "heavy ties":
+        return torch.randint(-3, 4, (4, 128 * 768), generator=gen,
+                             device="cuda").float(), None
+    if kind == "constant":
+        return torch.full((2, 10 * mc), 3.25, device="cuda"), None
+    if kind == "zeros and -0.0":
+        x = torch.zeros((2, 20485), device="cuda")
+        x[1, ::2] = -0.0
+        x[:, ::997] = randn(2, 21)
+        return x, None
+    if kind == "k = 1":
+        return randn(2, 50000), 1
+    if kind == "k = n":
+        return randn(2, 50000), 50000
+    if kind == "int32 index (2, 70001)":
+        return randn(2, 70001), None
+    if kind == "one chunk's candidates":
+        n = 40 * mc + 5
+        length = topk_select.select_grid(2, n)[1]
+        x = randn(2, n) * 0.01
+        x[:, 3 * length:4 * length] = 1.0 + 0.001 * torch.rand(
+            (2, length), generator=gen, device="cuda")
+        return x, 1000                     # inside the chunk's one bin
+    assert kind == "misaligned start, odd n"
+    return randn(3 * 30001 + 1)[1:].view(3, 30001), None
+
+
+SELECT_CASES = ["3 chunks and 5", "40 chunks and 5",
+                "tie run across a chunk boundary", "heavy ties", "constant",
+                "zeros and -0.0", "k = 1", "k = n", "int32 index (2, 70001)",
+                "misaligned start, odd n", "one chunk's candidates"]
+
+
+def _select_bit_exact(x, k, monkeypatch):
+    """Both select kernels == their plain versions, bitwise, one counted
+    launch each; exactly k ascending indices a row."""
+    _build.reset_launches()
+    t_k, t_p = _kernel_and_plain(lambda: topk_select.topk_threshold(x, k),
+                                 monkeypatch)
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    got, want = _kernel_and_plain(
+        lambda: topk_select.topk_compact(x, t_p, k), monkeypatch)
+    assert _build.LAUNCHES == {"topk_threshold": 1, "topk_compact": 1}
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got[1].shape == (x.shape[0], k)
+    assert bool((got[1][:, 1:] > got[1][:, :-1]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", SELECT_CASES)
+def test_topk_select_edge_cases_bit_exact(gen, kind, dtype, monkeypatch):
+    x, k = _select_case(kind, gen)
+    if dtype != x.dtype:
+        x = x.to(dtype) if x.storage_offset() == 0 else \
+            torch.empty(x.numel() + 1, dtype=dtype,
+                        device="cuda")[1:].view(x.shape).copy_(x)
+    assert x.is_contiguous()
+    _select_bit_exact(x, max(1, round(0.1 * x.shape[1])) if k is None
+                      else k, monkeypatch)
+
+
+def test_topk_select_full_wte_leaf_bit_exact(gen, monkeypatch):
+    """One gpt2-small wte gradient leaf, (1, 38597376) f32, k = 10%."""
+    x = torch.randn((1, 38597376), generator=gen, device="cuda") * 0.01
+    assert topk_select.select_grid(1, x.shape[1])[0] == 264
+    _select_bit_exact(x, 3859738, monkeypatch)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_pack4_kernels_bit_exact(gen, shape, monkeypatch):
     x = torch.randn(shape, generator=gen, device="cuda")
