@@ -10,8 +10,11 @@ failure fatal:
   1. card name and power limit (nvidia-smi); build every ``csrc/*.cu``
      (one nvcc per source, all started together).  Deterministic
      algorithms are on for the whole run.
-  2. every kernel against its plain PyTorch version on the card, bit-exact,
-     at the serving, training and pipeline shapes and edge cases (the
+  2. every kernel against its plain PyTorch version on the card, bit-exact
+     (float outputs compared as integer bits, so NaN and -0.0 count), at
+     the serving, training and pipeline shapes and edge cases (the
+     training cut's kernels also at batch 256, on a fallback tile wider
+     than 2048, and on the cut holding a NaN, a +inf and a -inf; the
      TopK select also on a pipeline microbatch, ties across its chunks,
      zeros and -0.0, and every gradient leaf of a DP lane as (1, n) f32,
      timed at the serving shapes, the microbatch, the two largest leaves
@@ -24,7 +27,10 @@ failure fatal:
      constant leaf, also against the unfused loop); then, at the main
      paths' shapes, device time per call (torch.profiler) of the kernel,
      of its plain version and of the one torch call computing the same
-     function, beside the bytes-or-operations bound.
+     function, beside the bytes-or-operations bound, with the device ops
+     a call: the cut's kernels in bf16 and f32; the q4 pack pair on the
+     38.6 M-element DP leaf and the framing pair on the 39-segment q8 and
+     q4 DP payloads as well as at their serving and pipeline shapes.
   3. serve full-width gpt2-small (random weights from a seeded generator)
      with ``ServeEngine`` under the policies none, q4q8 and top10, launch
      counters set to 0 just before and read just after: each compressed
@@ -181,6 +187,7 @@ FRAMED = "q8-tiled backward hop (786432 + 384 B)"
 PREFILL = f"prefill ({BATCH}, {max(PROMPT_LENS)}*768)"
 DECODE = f"decode ({BATCH}, 768)"
 CUT = f"training cut ({TRAIN_BATCH}, {TRAIN_SEQ}*768) bf16"
+CUT32 = f"training cut ({TRAIN_BATCH}, {TRAIN_SEQ}*768) f32"
 # the TopK DP codec's largest gradient leaves: wte (50257 x 768) and an
 # MLP stack (12 x 768 x 3072), one (1, n) f32 row each
 SEL_LEAF_N, SEL_LEAF2_N = 38597376, 28311552
@@ -222,6 +229,8 @@ DP_RUNS = {
 DP_KERNELS = ("decode_sum_fused",)
 DPQ8 = f"DP decode dp={DP} q8, full-width gpt2-small payload"
 DPQ4 = f"DP decode dp={DP} q4, full-width gpt2-small payload"
+DPF8 = f"q8 DP payload, 39 segments ({DP_PAYLOAD['q8']} B)"
+DPF4 = f"q4 DP payload, 39 segments ({DP_PAYLOAD['q4']} B)"
 # a ragged gradient tree: an odd leaf (misaligned meta), a rank-3 stack,
 # a constant leaf (one code) and a leaf of 3 tiles and a bit
 RAGGED = [(7,), (5, 33), (2, 3, 17), (6,), (3 * 8192 + 5,)]
@@ -261,24 +270,41 @@ def device_events(prof):
 
 def device_ms(torch, fn, kernel=None, iters=20, warm=True):
     """Device time per call of everything ``fn`` launches (torch.profiler),
-    and of the kernels whose name contains ``kernel``.  A profile that sees
-    no device time (CUPTI now and then drops a session's kernel records)
-    is taken again; raises where three in a row see none."""
-    from torch.profiler import ProfilerActivity, profile
+    of the kernels whose name contains ``kernel``, and the number of
+    device ops (kernels, copies, memsets) a call.  Each device op's mean
+    duration counts as many times as it runs a call: its records over
+    ``iters``, rounded.  So a few lost or stray records change no count:
+    late in a long run CUPTI has dropped the first records of a profile
+    (14 of 20 calls seen, which divided by ``iters`` understated the time
+    by 30%), and a warm-up cycle before the counted one, which makes that
+    rarer, leaves one stray record in it.  A profile that sees no device
+    time is taken again; raises after three such."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
     if warm:
         fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = device_events(prof)
-        total = sum(ms for ms, _ in events) / iters
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        total = mine = 0.0
+        ops = 0
+        for ev in prof.key_averages():
+            runs = round(ev.count / iters)
+            if ev.device_type != DeviceType.CUDA or not runs:
+                continue
+            ms = ev.self_device_time_total / 1e3 / ev.count * runs
+            total += ms
+            mine += ms if kernel and kernel in ev.key else 0.0
+            ops += runs
         if total > 0:
-            return total, sum(ms for ms, key in events
-                              if kernel and kernel in key) / iters
+            return total, mine, ops
     raise AssertionError("torch.profiler saw no device time three times")
 
 
@@ -334,12 +360,21 @@ def kernel_and_plain(torch, D, fn):
     return got, want
 
 
+def bits(torch, t):
+    """A float tensor's bits as integers (``torch.equal`` fails on NaN and
+    takes -0.0 for 0.0); any other tensor as it is."""
+    if not t.is_floating_point():
+        return t
+    return t.view({8: torch.int64, 4: torch.int32,
+                   2: torch.int16}[t.element_size()])
+
+
 def max_err(torch, got, want):
     """0.0 when bit-exact; raises otherwise."""
     for a, b in zip(got, want):
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"{a.shape} {a.dtype} vs {b.shape} {b.dtype}")
-        if not torch.equal(a, b):
+        if not torch.equal(bits(torch, a), bits(torch, b)):
             d = (a.double() - b.double()).abs().max().item()
             raise AssertionError(f"kernel not bit-exact: max |diff| {d}")
     return 0.0
@@ -481,22 +516,22 @@ def time_cases(torch, D, cases):
     rows = {}
     for name, (fn, kernel, lib, nbytes, nops) in cases.items():
         it = scaled_iters(torch, fn)
-        row = dict(zip(("ms", "kernel_only_ms"),
+        row = dict(zip(("ms", "kernel_only_ms", "device_ops"),
                        device_ms(torch, fn, kernel, min(it, 20), warm=False)))
         row["call_ms"] = call_ms(torch, fn, it, warm=False)
         D.KERNEL_BACKEND = "plain"
         try:
             it = scaled_iters(torch, fn)
-            row["plain_ms"], _ = device_ms(torch, fn, iters=min(it, 20),
-                                           warm=False)
+            row["plain_ms"] = device_ms(torch, fn, iters=min(it, 20),
+                                       warm=False)[0]
             row["plain_call_ms"] = call_ms(torch, fn, min(it, 10), warm=False)
         finally:
             D.KERNEL_BACKEND = "auto"
         row["library_ms"] = None
         if lib is not None:
-            row["library_ms"], _ = device_ms(
+            row["library_ms"] = device_ms(
                 torch, lib, iters=min(scaled_iters(torch, lib), 20),
-                warm=False)
+                warm=False)[0]
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, nops)
         rows[name] = row
     return rows
@@ -511,8 +546,10 @@ def scaled_iters(torch, fn, most=50, budget_ms=300.0):
 
 def cut_inputs(torch):
     """The training cut's tensors: its shape in bf16 and f32, a shorter
-    sequence, m = 6 (row tile 2), the whole-tensor fallback tile, and a
-    constant, a half-zero and a heavily tied tensor."""
+    sequence, m = 6 (row tile 2), batch 256 (a (256, 2048) tile), the
+    whole-tensor fallback tiles (4, 767) and (2, 5001), a constant, a
+    half-zero and a heavily tied tensor, and the cut with a NaN, a +inf
+    and a -inf in three tiles, in bf16 and f32."""
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def randn(m, n):
@@ -521,10 +558,20 @@ def cut_inputs(torch):
     x = randn(*CUT_SHAPE)
     zero_rows = randn(4, 4096)
     zero_rows[::2] = 0.0
+    nonfinite = randn(*CUT_SHAPE)
+    nonfinite[0, 5] = float("nan")
+    nonfinite[4, 50000] = float("inf")
+    nonfinite[7, 98301] = -float("inf")
     bf16 = torch.bfloat16
     return {
         CUT: x.to(bf16),
-        f"training cut {CUT_SHAPE} f32": x,
+        CUT32: x,
+        "NaN, +inf, -inf in the cut, bf16": nonfinite.to(bf16),
+        "NaN, +inf, -inf in the cut, f32": nonfinite,
+        "batch 256 (256, 4096) bf16": randn(256, 4096).to(bf16),
+        "batch 256 (256, 4096) f32": randn(256, 4096),
+        "fallback tile wider than 2048 (2, 5001) bf16":
+            randn(2, 5001).to(bf16),
         "(4, 64*768) bf16": randn(4, 64 * D_MODEL).to(bf16),
         "m=6 (6, 4096) bf16": randn(6, 4096).to(bf16),
         "fallback tile (4, 767) bf16": randn(4, 767).to(bf16),
@@ -557,11 +604,12 @@ def check_cut_kernels(torch, D, ops, inputs):
 
 
 def time_cut_kernels(torch, D, ops, x):
-    """Both training-cut kernels at the cut's shape.  Each function reads
-    x once and writes its output once.  The quantizer needs about 9
-    float32 operations per element (min, max, sub, div, round, 2 clamps,
-    mul, add), the TopK mask 3 (abs, compare, select): the bisection's
-    24 passes are the kernel's cost, not the function's.  The library
+    """Both training-cut kernels at the cut's shape (bf16 or f32).  Each
+    function reads x once and writes its output once.  The quantizer
+    needs about 9 float32 operations per element (min, max, sub, div,
+    round, 2 clamps, mul, add), the TopK mask 3 (abs, compare, select):
+    the threshold's select and bisection are the kernel's cost, not the
+    function's.  The library
     yardstick of the TopK mask is the EXACT per-(row, tile) k-th largest
     magnitude (``ref.topk_exact_block_ref``'s threshold, not the
     bisection's bits) from ``torch.topk`` on precomputed magnitudes; the
@@ -777,17 +825,20 @@ def check_dp_kernels(torch, D, codecs, collectives, framing, shapes):
     return {"decode_sum_fused": err}
 
 
-def time_dp_kernels(torch, D, codecs, collectives, shapes):
+def time_dp_kernels(torch, D, codecs, collectives, framing, shapes):
     """``decode_sum_fused`` at dp = 4 on the full-width payload.  The
     function reads each source's code bytes once (dp * nbytes, the meta
     included) and writes Sum n float32; 2 dp float32 operations an
     element (a multiply and an add per source).  No one torch call
-    decodes and sums."""
+    decodes and sums.  Also the framing pair on one replica's 39-segment
+    payload (labels ``DPF8`` / ``DPF4``), as the ring frames and unframes
+    it: each byte read once and written once, against ``torch.cat`` and
+    ``torch.split_with_sizes_copy``."""
     from repro_torch.kernels import dp_reduce
     rows = {}
-    for label, codec in ((DPQ8, "q8"), (DPQ4, "q4")):
-        bank, plans, _, _ = dp_bank(torch, codecs, collectives, codec,
-                                    shapes, 6)
+    for label, flabel, codec in ((DPQ8, DPF8, "q8"), (DPQ4, DPF4, "q4")):
+        bank, plans, _, leaves = dp_bank(torch, codecs, collectives, codec,
+                                         shapes, 6)
         if bank.shape[1] != DP_PAYLOAD[codec]:
             raise AssertionError(f"{codec} DP payload {bank.shape[1]} B, "
                                  f"expected {DP_PAYLOAD[codec]}")
@@ -798,7 +849,16 @@ def time_dp_kernels(torch, D, codecs, collectives, shapes):
             2 * DP * total)})["decode_sum_fused"]
         rows[label]["shape"] = label
         rows[label]["library"] = "none: no one torch call decodes and sums"
-        del bank
+        buf, sizes = bank[-1], [a.numel() for a in leaves]
+        rows[flabel] = time_cases(torch, D, {
+            "frame_parts": (lambda: framing.frame_parts(leaves),
+                            "framing_kernel", lambda: torch.cat(leaves),
+                            2 * buf.numel(), 0),
+            "unframe_parts": (lambda: framing.unframe_parts(buf, sizes),
+                              "framing_kernel",
+                              lambda: torch.split_with_sizes_copy(buf, sizes),
+                              2 * buf.numel(), 0)})
+        del bank, buf, leaves
     return rows
 
 
@@ -1574,9 +1634,10 @@ def main() -> int:
         timed[label].update(time_pack4(torch, D, pack4, inputs[label]))
         for name in ("pack4_wire", "unpack4_wire"):
             log(f"# {name} {label}: " + json.dumps(timed[label][name]))
-    timed[CUT] = time_cut_kernels(torch, D, ops, cuts[CUT])
-    for name, row in timed[CUT].items():
-        log(f"# {name} {CUT}: " + json.dumps(row))
+    for label in (CUT, CUT32):
+        timed[label] = time_cut_kernels(torch, D, ops, cuts[label])
+        for name, row in timed[label].items():
+            log(f"# {name} {label}: " + json.dumps(row))
     err.update(check_wire_kernels(torch, D, quantize, framing, codecs,
                                   tiling))
     wire = time_wire_kernels(torch, D, quantize, framing, codecs, tiling)
@@ -1585,9 +1646,19 @@ def main() -> int:
         log(f"# {name} {row['shape']}: " + json.dumps(row))
     err.update(check_dp_kernels(torch, D, codecs, collectives, framing,
                                 shapes))
-    timed.update(time_dp_kernels(torch, D, codecs, collectives, shapes))
+    timed.update(time_dp_kernels(torch, D, codecs, collectives, framing,
+                                 shapes))
     for label in (DPQ8, DPQ4):
         log(f"# decode_sum_fused {label}: " + json.dumps(timed[label]))
+    for label in (DPF8, DPF4):
+        for name, row in timed[label].items():
+            log(f"# {name} {label}: " + json.dumps(row))
+    leaf = torch.randn((1, SEL_LEAF_N), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(8))
+    timed[SEL_LEAF].update(time_pack4(torch, D, pack4, leaf * 0.01))
+    for name in ("pack4_wire", "unpack4_wire"):
+        log(f"# {name} {SEL_LEAF}: " + json.dumps(timed[SEL_LEAF][name]))
+    del leaf
     torch.cuda.empty_cache()
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 

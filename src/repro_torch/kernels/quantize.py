@@ -6,7 +6,7 @@ of a quantizing stage cut in training; :func:`quantize_wire` is the sender
 side of the per-tile q8 wire format of the real pipeline (uint8 codes and a
 ``(gm, 2*gn)`` float32 meta array holding each tile's min and scale), and
 :func:`dequantize_wire` its receiver side, torch ops as the reference's
-jnp.  In :func:`quant_dequant`  Each ``(bm, bn)`` tile of the
+jnp.  In :func:`quant_dequant` each ``(bm, bn)`` tile of the
 ``(M, N)`` input gets its own min/max scale; codes are
 ``clamp(round((x - min) / scale), 0, levels)`` and the result is
 ``codes * scale + min`` in the input type.
@@ -18,7 +18,10 @@ division by a constant), which moves codes at rounding boundaries in the
 tiles where the two scales differ.  The kernel and :func:`quant_dequant_plain`
 agree bitwise with each other and with the eager oracle.
 
-Bound on the H100: memory bytes (see the note in ``csrc/quantize.cu``).
+Bound on the H100: memory bytes.  The :func:`quant_dequant` kernel runs
+each tile on a cluster of up to 8 blocks that exchange their partial
+min/max through distributed shared memory; min and max propagate NaN, as
+the plain version does (see the note in ``csrc/quantize.cu``).
 """
 from __future__ import annotations
 
@@ -46,9 +49,11 @@ def _tiles(flat: torch.Tensor, bits: int, block):
         raise ValueError(f"bits must be in 1..8, got {bits}")
     m, n = flat.shape
     bm, bn = min(block[0], m), min(block[1], n)
-    if bm < 1 or bn < 1 or m % bm or n % bn or m // bm >= 1 << 16:
+    if (bm < 1 or bn < 1 or m % bm or n % bn or m // bm >= 1 << 16
+            or bn >= 1 << 31 or 8 * (n // bn) >= 1 << 31):
         raise ValueError(f"block {(bm, bn)} does not tile {(m, n)} "
-                         "(or makes 65536 row tiles or more)")
+                         "(or makes 65536 row tiles or more, or is too "
+                         "wide for the launch grid)")
     return bm, bn
 
 

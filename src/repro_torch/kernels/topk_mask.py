@@ -5,11 +5,17 @@ Port of ``repro/kernels/topk_mask.py::topk_block``, the C(x) of a TopK
 stage cut in training.  Each row of each ``bn``-wide tile keeps the
 entries with ``|x| >= lo``, where ``lo`` comes from 24 float32 bisection
 steps towards the ``k``-th largest magnitude, ``k = ceil(k_frac * bn)``:
-at least ``k`` entries, every tie at ``lo`` included.  The kernel and
-:func:`topk_block_plain` repeat the TPU kernel's arithmetic step for step
-and agree bitwise with it and with ``kernels/ref.py::topk_block_ref``.
+at least ``k`` entries, every tie at ``lo`` included.
+:func:`topk_block_plain` repeats the TPU kernel's arithmetic step for step
+and agrees bitwise with it and with ``kernels/ref.py::topk_block_ref``.
 
-Bound on the H100: memory bytes (see the note in ``csrc/topk_mask.cu``).
+The kernel takes the same ``lo`` by another road: a bisection step's
+count ``#(|x| >= mid) > k`` holds exactly when the (row, tile) has a
+(k+1)-th largest non-NaN magnitude ``a`` and ``mid <= a``, so it finds
+``a`` by a radix select over the magnitudes' bits and runs the 24 steps
+as scalar arithmetic (``tests/test_torch_topk_mask.py`` holds that
+identity to :func:`topk_block_plain`).  Bound on the H100: memory bytes
+(see the note in ``csrc/topk_mask.cu``).
 """
 from __future__ import annotations
 

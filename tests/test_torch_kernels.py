@@ -142,6 +142,54 @@ def test_topk_block_plain_is_the_kernel(shape, kind, dtype):
             assert_bits(got, t)
 
 
+def int_bits(a):
+    """Tensor or JAX array -> numpy integer view of its bits (int32 for
+    float32, int16 for bfloat16): ``torch.equal`` fails on NaN."""
+    if isinstance(a, torch.Tensor):
+        return a.view(torch.int32 if a.dtype == torch.float32
+                      else torch.int16).numpy()
+    return np.asarray(a).view(np.int32 if a.dtype == jnp.float32
+                              else np.int16)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("bad", [np.nan, np.inf, -np.inf])
+def test_plain_versions_carry_nan_and_inf_as_the_reference(bad, dtype):
+    """One NaN or +-inf in one (8, 256) tile: the quantizer makes that
+    whole tile NaN (the min, max or scale is NaN or inf) and leaves the
+    others finite; the TopK mask drops a NaN and keeps the rest of its
+    row's tile (the bisection's hi is NaN, so lo stays 0), and keeps an
+    inf.  Bits compared as integers.  One exception, in bfloat16 only:
+    where the reference's quantizer output is NaN the port's must be NaN
+    too, but the NaN's bits differ (ATen's float32 -> bfloat16
+    conversion on the CPU writes 0xFFFF, XLA's 0x7FC0 with the sign)."""
+    x = make_input((8, 512), "randn")
+    x[3, 100] = bad
+    t, j = both(x, dtype)
+    block = (8, 256)
+    for bits in (4, 8):
+        got = TQ.quant_dequant_plain(t, bits, block)
+        want = JREF.quant_dequant_ref(j, bits, block=block)
+        nan = np.isnan(to_np(want))
+        assert nan[:, :256].all() and not nan[:, 256:].any()
+        np.testing.assert_array_equal(np.isnan(to_np(got)), nan)
+        if dtype == "float32":
+            np.testing.assert_array_equal(int_bits(got), int_bits(want))
+        else:
+            np.testing.assert_array_equal(int_bits(got)[~nan],
+                                          int_bits(want)[~nan])
+    for k_frac in (0.1, 0.3):
+        got = TK.topk_block_plain(t, k_frac, block)
+        np.testing.assert_array_equal(
+            int_bits(got),
+            int_bits(JREF.topk_block_ref(j, k_frac, block=block)))
+        kept = to_np(got)[3, :256] != 0
+        if np.isnan(bad):
+            assert kept.sum() == 255 and not kept[100]
+        else:
+            assert kept[100] and to_np(got)[3, 100] == bad
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_quant_dequant_against_the_jitted_reference(seed):
     x = np.random.RandomState(seed).randn(8, 4096).astype(np.float32)

@@ -148,12 +148,17 @@ def test_pack4_kernels_bit_exact(gen, shape, monkeypatch):
     assert torch.equal(got, want)
 
 
-# the training cut's shapes: (8, 128*768), (4, 64*768), m = 6, and the
-# whole-tensor fallback tile (4, 767)
-CUT_SHAPES = [(8, 128 * 768), (4, 64 * 768), (6, 4096), (4, 767)]
+# the training cut's shapes: (8, 128*768), (4, 64*768), m = 6, batch 256
+# (a (256, 2048) tile, more than a cluster holds in registers), and the
+# whole-tensor fallback tiles (4, 767) and (2, 5001) (wider than 2048)
+CUT_SHAPES = [(8, 128 * 768), (4, 64 * 768), (6, 4096), (256, 4096),
+              (4, 767), (2, 5001)]
 
 
-def _cut_inputs(gen, shape, dtype):
+def _cut_inputs(gen, shape, dtype, nonfinite=True):
+    """Random, constant, half-zero and heavily tied tensors; with
+    ``nonfinite``, also one holding a NaN, a +inf and a -inf (in three
+    tiles where the shape has three)."""
     m, n = shape
     yield torch.randn(shape, generator=gen, device="cuda").to(dtype)
     yield torch.full(shape, 3.25, device="cuda").to(dtype)
@@ -162,20 +167,50 @@ def _cut_inputs(gen, shape, dtype):
     yield z.to(dtype)
     yield torch.randint(-3, 4, shape, generator=gen,
                         device="cuda").to(dtype)   # heavy ties
+    if nonfinite:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        x[0, 5] = float("nan")
+        x[m // 2, n // 2] = float("inf")
+        x[m - 1, n - 3] = -float("inf")
+        yield x.to(dtype)
+
+
+def _bits(t):
+    """The integer view of a float tensor's bits: ``torch.equal`` fails
+    on NaN and takes -0.0 for 0.0."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+CUT_OPS = {"quant_dequant": lambda x: [ops.quant_dequant_op(x, bits)
+                                        for bits in (4, 8)],
+           "topk_block": lambda x: [ops.topk_block_op(x, k_frac)
+                                    for k_frac in (0.1, 0.3)]}
+
+
+@pytest.mark.parametrize("kernel", list(CUT_OPS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CUT_SHAPES)
+def test_cut_kernels_bit_exact(gen, shape, dtype, kernel, monkeypatch):
+    for i, x in enumerate(_cut_inputs(gen, shape, dtype)):
+        got, want = _kernel_and_plain(lambda: CUT_OPS[kernel](x),
+                                      monkeypatch)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            assert torch.equal(_bits(a), _bits(b)), f"input {i}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", CUT_SHAPES)
-def test_cut_kernels_bit_exact(gen, shape, dtype, monkeypatch):
-    for x in _cut_inputs(gen, shape, dtype):
-        for bits in (4, 8):
-            got, want = _kernel_and_plain(
-                lambda: ops.quant_dequant_op(x, bits), monkeypatch)
-            assert got.dtype == want.dtype and torch.equal(got, want)
-        for k_frac in (0.1, 0.3):
-            got, want = _kernel_and_plain(
-                lambda: ops.topk_block_op(x, k_frac), monkeypatch)
-            assert got.dtype == want.dtype and torch.equal(got, want)
+def test_cut_kernels_bit_exact_off_16_byte_alignment(gen, dtype,
+                                                     monkeypatch):
+    """A cut tensor one element into its storage: the kernels take
+    single elements instead of 16-byte vectors, with the same bits."""
+    store = torch.randn(8 * 4096 + 1, generator=gen, device="cuda")
+    x = store.to(dtype)[1:].view(8, 4096)
+    assert x.data_ptr() % 16
+    for fn in CUT_OPS.values():
+        got, want = _kernel_and_plain(lambda: fn(x), monkeypatch)
+        for a, b in zip(got, want):
+            assert torch.equal(_bits(a), _bits(b))
 
 
 def test_each_wrapper_counts_one_launch(gen, monkeypatch):
@@ -207,7 +242,9 @@ WIRE_SHAPES = [(8, 128 * 768), (16, 4096), (8, 1024)]
 @pytest.mark.parametrize("shape", WIRE_SHAPES)
 def test_quantize_wire_bit_exact(gen, shape, dtype, monkeypatch):
     block = tiling.wire_tiling(shape)
-    for x in _cut_inputs(gen, shape, dtype):
+    # no NaN: the plain version's uint8 code of a NaN is undefined, and the
+    # kernel's min / max still drop NaN (ROADMAP.md, faults)
+    for x in _cut_inputs(gen, shape, dtype, nonfinite=False):
         got, want = _kernel_and_plain(
             lambda: quantize.quantize_wire(x, 8, block), monkeypatch)
         for a, b in zip(got, want):
