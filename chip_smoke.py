@@ -21,16 +21,19 @@ failure fatal:
      and the whole lane; the q8
      wire quantizer at a full-width microbatch in bf16 and f32; framing of
      the q4, q8-tiled, TopK and EF-mixed payloads of one and of odd-sized
-     leaves, and of the 39-segment q8 DP gradient payload; the DP decode +
-     sum at dp 1, 3 and 4, q8 and q4, on the full-width gpt2-small
-     gradient payload and on a ragged tree with misaligned meta and a
-     constant leaf, also against the unfused loop); then, at the main
-     paths' shapes, device time per call (torch.profiler) of the kernel,
-     of its plain version and of the one torch call computing the same
-     function, beside the bytes-or-operations bound, with the device ops
-     a call: the cut's kernels in bf16 and f32; the q4 pack pair on the
-     38.6 M-element DP leaf and the framing pair on the 39-segment q8 and
-     q4 DP payloads as well as at their serving and pipeline shapes.
+     leaves, and of the 39-segment q8 / q4, the 26-segment TopK and the
+     13-segment raw DP gradient payloads, one launch a call; the DP
+     decode + sum at dp 1, 3 and 4, q8 and q4, on the full-width
+     gpt2-small gradient payload and on a ragged tree with misaligned
+     meta and a constant leaf, also against the unfused loop); then, at
+     the main paths' shapes, device time per call (torch.profiler) of the
+     kernel, of its plain version and of the one torch call computing the
+     same function, beside the bytes-or-operations bound, with the device
+     ops a call (a row whose profiles lost records is printed as LOST):
+     the cut's kernels in bf16 and f32; the q4 pack pair on the 38.6
+     M-element DP leaf, the decode at dp = 4 on the q8 and q4 payloads,
+     and the framing pair on the four DP payloads as well as at their
+     serving and pipeline shapes.
   3. serve full-width gpt2-small (random weights from a seeded generator)
      with ``ServeEngine`` under the policies none, q4q8 and top10, launch
      counters set to 0 just before and read just after: each compressed
@@ -65,7 +68,8 @@ failure fatal:
      q4q8), (topk 0.1, none, q4q8) and (q8, none, AQ-SGD + TopK 10%) with
      ``synthetic_stream(dp=4)``'s ids; launch counters set to 0 just before
      and read just after.  Holds exact launches per step (one
-     ``decode_sum_fused`` per q8/q4 step), the ring's bytes ==
+     ``decode_sum_fused`` per q8/q4 step, one framing launch a replica's
+     payload), the ring's bytes ==
      ``dp_wire_report`` x dp(dp-1) hops, falling losses, the same losses
      under the plain backend, and the smoke model's DP step on the card
      against the CPU; tokens/s and the reduce's share of the step (CUDA
@@ -201,9 +205,10 @@ DP, DP_BATCH, DP_SEQ, DP_STEPS, DP_STAGES = 4, 32, 128, 3, 4
 DP_SAMPLES = 64               # AQ-SGD: 16 rows a lane, step 3 revisits them
 LEAVES = 13
 # bytes of one replica's fused gradient buffer (one ring hop)
-DP_PAYLOAD = {"q8": 123570536, "q4": 61785320}
+DP_PAYLOAD = {"q8": 123570536, "q4": 61785320, "topk": 74134592,
+              "none": 247217664}
 _DP = DP * LEAVES             # one pack / select per leaf and replica
-_Q_RING = dict(frame_parts=3 * DP, decode_sum_fused=1)   # 39 segments
+_Q_RING = dict(frame_parts=DP, decode_sum_fused=1)   # 39 segments, 1 launch
 # run -> (DP codec, DP feedback, k_frac, launch/train --policy,
 #         --feedback, launches per step)
 DP_RUNS = {
@@ -221,8 +226,8 @@ DP_RUNS = {
                                unpack4_wire=_DP, **_Q_RING)),
     "topk/q4q8": ("topk", "none", 0.1, "q4q8", "none",
                   _per_step(quant_dequant=6 * DP, topk_threshold=_DP,
-                            topk_compact=_DP, frame_parts=2 * DP,
-                            unframe_parts=2 * DP)),
+                            topk_compact=_DP, frame_parts=DP,
+                            unframe_parts=DP)),
     "q8/aqsgd": ("q8", "none", 0.1, "none", "aqsgd",
                  _per_step(topk_block=6 * DP, **_Q_RING)),
 }
@@ -231,6 +236,8 @@ DPQ8 = f"DP decode dp={DP} q8, full-width gpt2-small payload"
 DPQ4 = f"DP decode dp={DP} q4, full-width gpt2-small payload"
 DPF8 = f"q8 DP payload, 39 segments ({DP_PAYLOAD['q8']} B)"
 DPF4 = f"q4 DP payload, 39 segments ({DP_PAYLOAD['q4']} B)"
+DPFT = f"TopK DP payload, 26 segments ({DP_PAYLOAD['topk']} B)"
+DPFN = f"raw DP payload, 13 segments ({DP_PAYLOAD['none']} B)"
 # a ragged gradient tree: an odd leaf (misaligned meta), a rank-3 stack,
 # a constant leaf (one code) and a leaf of 3 tiles and a bit
 RAGGED = [(7,), (5, 33), (2, 3, 17), (6,), (3 * 8192 + 5,)]
@@ -238,6 +245,7 @@ RAGGED = [(7,), (5, 33), (2, 3, 17), (6,), (3 * 8192 + 5,)]
 
 def log(*a):
     print(*a, flush=True)
+
 
 
 # ---------------------------------------------------------------------------
@@ -268,23 +276,32 @@ def device_events(prof):
             for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
 
 
-def device_ms(torch, fn, kernel=None, iters=20, warm=True):
+def device_ms(torch, fn, kernel=None, iters=20, warm=True, profiles=1):
     """Device time per call of everything ``fn`` launches (torch.profiler),
-    of the kernels whose name contains ``kernel``, and the number of
-    device ops (kernels, copies, memsets) a call.  Each device op's mean
-    duration counts as many times as it runs a call: its records over
-    ``iters``, rounded.  So a few lost or stray records change no count:
-    late in a long run CUPTI has dropped the first records of a profile
-    (14 of 20 calls seen, which divided by ``iters`` understated the time
-    by 30%), and a warm-up cycle before the counted one, which makes that
-    rarer, leaves one stray record in it.  A profile that sees no device
-    time is taken again; raises after three such."""
+    of the kernels whose name contains ``kernel``, the number of device
+    ops (kernels, copies, memsets) a call, and whether records were lost.
+    Each device op's mean duration counts as many times as it runs a
+    call: its records over ``iters``, rounded.  So a few lost or stray
+    records change no count: late in a long run CUPTI has dropped the
+    first records of a profile (14 of 20 calls seen, which divided by
+    ``iters`` understated the time by 30%), and a warm-up cycle before the
+    counted one, which makes that rarer, leaves one stray record in it.
+    But CUPTI has also dropped most of an op's records (1 device op a
+    call recorded of 4), which rounds the op away.  So the call is
+    profiled ``profiles`` times and the profile with the most device ops
+    a call is kept; while that is fewer than the wrapper launches a call
+    (``_build.LAUNCHES``, counted over the profiled calls) it is profiled
+    again, up to 3 more times, and is reported lost if still short.  A
+    profile that sees no device time counts as short."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.kernels import _build
     if warm:
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    best, launched = None, 0
+    for attempt in range(profiles + 3):
+        before = sum(_build.LAUNCHES.values())
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
@@ -293,6 +310,8 @@ def device_ms(torch, fn, kernel=None, iters=20, warm=True):
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
+        launched = max(launched, round((sum(_build.LAUNCHES.values())
+                                        - before) / (2 * iters)))
         total = mine = 0.0
         ops = 0
         for ev in prof.key_averages():
@@ -303,9 +322,15 @@ def device_ms(torch, fn, kernel=None, iters=20, warm=True):
             total += ms
             mine += ms if kernel and kernel in ev.key else 0.0
             ops += runs
-        if total > 0:
-            return total, mine, ops
-    raise AssertionError("torch.profiler saw no device time three times")
+        if total > 0 and (best is None or ops > best[2]):
+            best = (total, mine, ops)
+        if (attempt + 1 >= profiles and best is not None
+                and best[2] >= launched):
+            return best + (False,)
+    if best is None:
+        raise AssertionError(f"torch.profiler saw no device time in "
+                             f"{profiles + 3} profiles")
+    return best + (True,)
 
 
 def bound_ms(nbytes, nops):
@@ -516,22 +541,25 @@ def time_cases(torch, D, cases):
     rows = {}
     for name, (fn, kernel, lib, nbytes, nops) in cases.items():
         it = scaled_iters(torch, fn)
-        row = dict(zip(("ms", "kernel_only_ms", "device_ops"),
-                       device_ms(torch, fn, kernel, min(it, 20), warm=False)))
+        row = dict(zip(("ms", "kernel_only_ms", "device_ops", "lost"),
+                       device_ms(torch, fn, kernel, min(it, 20), warm=False,
+                                 profiles=2)))
         row["call_ms"] = call_ms(torch, fn, it, warm=False)
         D.KERNEL_BACKEND = "plain"
         try:
             it = scaled_iters(torch, fn)
-            row["plain_ms"] = device_ms(torch, fn, iters=min(it, 20),
-                                       warm=False)[0]
+            row["plain_ms"], _, _, lost = device_ms(
+                torch, fn, iters=min(it, 20), warm=False)
             row["plain_call_ms"] = call_ms(torch, fn, min(it, 10), warm=False)
         finally:
             D.KERNEL_BACKEND = "auto"
         row["library_ms"] = None
         if lib is not None:
-            row["library_ms"] = device_ms(
+            row["library_ms"], _, _, lost_lib = device_ms(
                 torch, lib, iters=min(scaled_iters(torch, lib), 20),
-                warm=False)[0]
+                warm=False)
+            lost = lost or lost_lib
+        row["lost"] = row["lost"] or lost
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, nops)
         rows[name] = row
     return rows
@@ -746,9 +774,10 @@ def time_wire_kernels(torch, D, quantize, framing, codecs, tiling):
     return rows
 
 
-def gpt2_leaf_shapes(torch):
+def gpt2_leaves(torch):
     """The 13 parameter leaf shapes of full-width gpt2-small, in
-    ``tree_leaves`` order (Sum n = 123,570,432)."""
+    ``tree_leaves`` order (Sum n = 123,570,432), and their dtypes (bf16,
+    the layer norms' f32)."""
     from repro_torch.configs.registry import get
     from repro_torch.models import transformer
     from repro_torch.optim.optimizers import tree_leaves
@@ -756,26 +785,37 @@ def gpt2_leaf_shapes(torch):
         torch.Generator(device="cuda").manual_seed(0), get("gpt2-small"))
     shapes = [tuple(a.shape) for a in tree_leaves(params)]
     assert len(shapes) == LEAVES, shapes
-    return shapes
+    return shapes, [a.dtype for a in tree_leaves(params)]
+
+
+def replica_payload(torch, codecs, collectives, codec, shapes, gen,
+                    dtypes=None):
+    """One replica's gradient payload, packed from seeded f32 gradients of
+    ``shapes`` (cast to ``dtypes``, as the raw codec sends the leaves in
+    their own dtype; leaf 3 of the ragged tree constant), and its flat
+    uint8 leaf segments as the ring frames them."""
+    c = codecs.get_codec(codec)
+    payload = []
+    for i, s in enumerate(shapes):
+        g = torch.randn(s, generator=gen, device="cuda") * 0.01
+        if shapes is RAGGED and i == 3:
+            g = torch.full(s, 0.75, device="cuda")
+        if dtypes is not None:
+            g = g.to(dtypes[i])
+        payload.append(collectives.pack_grad_leaf(c, g))
+    return payload, [a.reshape(-1).view(torch.uint8)
+                     for a in codecs.payload_leaves(payload)]
 
 
 def dp_bank(torch, codecs, collectives, codec, shapes, seed):
-    """(dp, nbytes) uint8 bank of ``DP`` replicas' fused gradient buffers
-    packed from seeded f32 gradients of ``shapes`` (leaf 3 of the ragged
-    tree constant), its decode plans and payload structs."""
+    """(dp, nbytes) uint8 bank of ``DP`` replicas' fused gradient buffers,
+    its decode plans, payload structs and the last replica's segments."""
     from repro_torch.kernels import dp_reduce
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    c = codecs.get_codec(codec)
     rows = []
     for _ in range(DP):
-        payload = []
-        for i, s in enumerate(shapes):
-            g = torch.randn(s, generator=gen, device="cuda") * 0.01
-            if shapes is RAGGED and i == 3:
-                g = torch.full(s, 0.75, device="cuda")
-            payload.append(collectives.pack_grad_leaf(c, g))
-        leaves = [a.reshape(-1).view(torch.uint8)
-                  for a in codecs.payload_leaves(payload)]
+        payload, leaves = replica_payload(torch, codecs, collectives, codec,
+                                          shapes, gen)
         buf = codecs.fuse_payload(payload)
         if not torch.equal(buf, torch.cat(leaves)):
             raise AssertionError(f"{codec} DP payload: framing != torch.cat")
@@ -785,12 +825,15 @@ def dp_bank(torch, codecs, collectives, codec, shapes, seed):
     return torch.stack(rows), plans, structs, leaves
 
 
-def check_dp_kernels(torch, D, codecs, collectives, framing, shapes):
+def check_dp_kernels(torch, D, codecs, collectives, framing, shapes,
+                     dtypes):
     """The DP decode + sum against its plain version and against the
     unfused loop (unfuse -> unpack -> rank-ordered add), bit-exact, at
     dp 1, 3 and 4, on the full-width payload and the ragged tree; framing
-    of the 39-segment q8 payload against torch.cat and slices."""
-    from repro_torch.kernels import dp_reduce
+    of the 39-segment q8 / q4 payloads, the 26-segment TopK and the
+    13-segment raw payload against torch.cat and slices, one launch a
+    call."""
+    from repro_torch.kernels import _build, dp_reduce
     err = 0.0
     for label, leaf_shapes in (("full-width gpt2-small", shapes),
                                ("ragged", RAGGED)):
@@ -822,18 +865,38 @@ def check_dp_kernels(torch, D, codecs, collectives, framing, shapes):
                 log(f"# decode_sum_fused bit-exact vs plain and the unfused "
                     f"loop: {label} {codec} dp={dp} ({len(sizes)} segments)")
             del bank, leaves
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for codec, segments in (("topk", 2 * LEAVES), ("none", LEAVES)):
+        _, leaves = replica_payload(torch, codecs, collectives, codec,
+                                    shapes, gen, dtypes)
+        sizes = [a.numel() for a in leaves]
+        assert len(sizes) == segments, sizes
+        _build.reset_launches()
+        buf = framing.frame_parts(leaves)
+        segs = framing.unframe_parts(buf, sizes)
+        torch.cuda.synchronize()
+        if _build.LAUNCHES != {"frame_parts": 1, "unframe_parts": 1}:
+            raise AssertionError(f"{codec} DP payload framed in "
+                                 f"{_build.LAUNCHES} launches, not 1 each")
+        max_err(torch, [buf], [torch.cat(leaves)])
+        max_err(torch, segs, leaves)
+        log(f"# framing bit-exact vs torch.cat and slices, one launch "
+            f"each: {codec} DP payload ({segments} segments, {buf.numel()} B)")
+        del leaves, buf, segs
     return {"decode_sum_fused": err}
 
 
-def time_dp_kernels(torch, D, codecs, collectives, framing, shapes):
+def time_dp_kernels(torch, D, codecs, collectives, framing, shapes,
+                    dtypes):
     """``decode_sum_fused`` at dp = 4 on the full-width payload.  The
     function reads each source's code bytes once (dp * nbytes, the meta
     included) and writes Sum n float32; 2 dp float32 operations an
     element (a multiply and an add per source).  No one torch call
-    decodes and sums.  Also the framing pair on one replica's 39-segment
-    payload (labels ``DPF8`` / ``DPF4``), as the ring frames and unframes
-    it: each byte read once and written once, against ``torch.cat`` and
-    ``torch.split_with_sizes_copy``."""
+    decodes and sums.  Also the framing pair on one replica's payload, as
+    the ring frames and unframes it: the 39-segment q8 and q4 payloads
+    (labels ``DPF8`` / ``DPF4``, unframed from the bank's row, 8 bytes off
+    16-byte alignment), the 26-segment TopK (``DPFT``) and the 13-segment
+    raw payload (``DPFN``)."""
     from repro_torch.kernels import dp_reduce
     rows = {}
     for label, flabel, codec in ((DPQ8, DPF8, "q8"), (DPQ4, DPF4, "q4")):
@@ -850,16 +913,32 @@ def time_dp_kernels(torch, D, codecs, collectives, framing, shapes):
         rows[label]["shape"] = label
         rows[label]["library"] = "none: no one torch call decodes and sums"
         buf, sizes = bank[-1], [a.numel() for a in leaves]
-        rows[flabel] = time_cases(torch, D, {
-            "frame_parts": (lambda: framing.frame_parts(leaves),
-                            "framing_kernel", lambda: torch.cat(leaves),
-                            2 * buf.numel(), 0),
-            "unframe_parts": (lambda: framing.unframe_parts(buf, sizes),
-                              "framing_kernel",
-                              lambda: torch.split_with_sizes_copy(buf, sizes),
-                              2 * buf.numel(), 0)})
+        rows[flabel] = framing_cases(torch, D, framing, leaves, buf, sizes)
         del bank, buf, leaves
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for label, codec in ((DPFT, "topk"), (DPFN, "none")):
+        _, leaves = replica_payload(torch, codecs, collectives, codec,
+                                    shapes, gen, dtypes)
+        buf, sizes = torch.cat(leaves), [a.numel() for a in leaves]
+        if buf.numel() != DP_PAYLOAD[codec]:
+            raise AssertionError(f"{codec} DP payload {buf.numel()} B, "
+                                 f"expected {DP_PAYLOAD[codec]}")
+        rows[label] = framing_cases(torch, D, framing, leaves, buf, sizes)
+        del buf, leaves
     return rows
+
+
+def framing_cases(torch, D, framing, leaves, buf, sizes):
+    """The framing pair on one payload: each byte read once and written
+    once, against ``torch.cat`` and ``torch.split_with_sizes_copy``."""
+    return time_cases(torch, D, {
+        "frame_parts": (lambda: framing.frame_parts(leaves),
+                        "framing_kernel", lambda: torch.cat(leaves),
+                        2 * buf.numel(), 0),
+        "unframe_parts": (lambda: framing.unframe_parts(buf, sizes),
+                          "framing_kernel",
+                          lambda: torch.split_with_sizes_copy(buf, sizes),
+                          2 * buf.numel(), 0)})
 
 
 # ---------------------------------------------------------------------------
@@ -1624,7 +1703,7 @@ def main() -> int:
 
     # -- phase 2 ------------------------------------------------------------
     inputs = kernel_inputs(torch)
-    shapes = gpt2_leaf_shapes(torch)
+    shapes, dtypes = gpt2_leaves(torch)
     timed = select_phase(torch, D, topk, inputs, shapes)
     torch.cuda.empty_cache()
     err = check_kernels(torch, D, pack4, inputs)
@@ -1645,12 +1724,12 @@ def main() -> int:
     for name, row in wire.items():
         log(f"# {name} {row['shape']}: " + json.dumps(row))
     err.update(check_dp_kernels(torch, D, codecs, collectives, framing,
-                                shapes))
+                                shapes, dtypes))
     timed.update(time_dp_kernels(torch, D, codecs, collectives, framing,
-                                 shapes))
+                                 shapes, dtypes))
     for label in (DPQ8, DPQ4):
         log(f"# decode_sum_fused {label}: " + json.dumps(timed[label]))
-    for label in (DPF8, DPF4):
+    for label in (DPF8, DPF4, DPFT, DPFN):
         for name, row in timed[label].items():
             log(f"# {name} {label}: " + json.dumps(row))
     leaf = torch.randn((1, SEL_LEAF_N), device="cuda",
@@ -1660,6 +1739,13 @@ def main() -> int:
         log(f"# {name} {SEL_LEAF}: " + json.dumps(timed[SEL_LEAF][name]))
     del leaf
     torch.cuda.empty_cache()
+    for label, rows in timed.items():
+        for name, row in ({"decode_sum_fused": rows} if "ms" in rows
+                          else rows).items():
+            if row["lost"]:
+                log(f"# LOST {name} {label}: its profiles recorded "
+                    f"{row['device_ops']} device ops a call, fewer than "
+                    f"the launches; its times are not to be used")
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
     # -- phases 3-6: each main path, its counts set to 0 just before it and

@@ -56,9 +56,12 @@
 // every tile, and with 48 tiles, all in flight at once, nothing overlaps
 // them.
 //
-// min and max propagate NaN, as the plain version and the reference do:
-// a tile holding a NaN dequantizes to NaN everywhere (fminf / fmaxf would
-// drop the NaN and hide it behind a finite tile).
+// In both kernels min and max propagate NaN, as the plain version and the
+// reference do: a tile holding a NaN dequantizes to NaN everywhere, and
+// its wire meta is (NaN, 1) (span NaN, so the scale falls back to 1), the
+// min being the input's NaN, bits and all (a tile whose min came out NaN
+// is read again for it: min.NaN gives the canonical NaN); fminf / fmaxf
+// would drop the NaN and hide it behind a finite tile.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,29 +91,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Min and max over the block; every thread gets both.  ws: 2 * kWarps.
-__device__ void block_minmax(float* lo, float* hi, float* ws) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float a = *lo, b = *hi;
-  for (int o = 16; o > 0; o >>= 1) {
-    a = fminf(a, __shfl_xor_sync(kFull, a, o));
-    b = fmaxf(b, __shfl_xor_sync(kFull, b, o));
-  }
-  if (lane == 0) {
-    ws[warp] = a;
-    ws[kWarps + warp] = b;
-  }
-  __syncthreads();
-  a = ws[0];
-  b = ws[kWarps];
-  for (int w = 1; w < kWarps; ++w) {
-    a = fminf(a, ws[w]);
-    b = fmaxf(b, ws[kWarps + w]);
-  }
-  *lo = a;
-  *hi = b;
-}
-
 // NaN-propagating min / max (PTX min.NaN / max.NaN, sm_80+): a NaN in
 // either operand is the result.
 __device__ __forceinline__ float min_nan(float a, float b) {
@@ -122,6 +102,30 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   float r;
   asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
+}
+
+// Min and max over the block, NaN-propagating; every thread gets both.
+// ws: 2 * kWarps.
+__device__ void block_minmax(float* lo, float* hi, float* ws) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float a = *lo, b = *hi;
+  for (int o = 16; o > 0; o >>= 1) {
+    a = min_nan(a, __shfl_xor_sync(kFull, a, o));
+    b = max_nan(b, __shfl_xor_sync(kFull, b, o));
+  }
+  if (lane == 0) {
+    ws[warp] = a;
+    ws[kWarps + warp] = b;
+  }
+  __syncthreads();
+  a = ws[0];
+  b = ws[kWarps];
+  for (int w = 1; w < kWarps; ++w) {
+    a = min_nan(a, ws[w]);
+    b = max_nan(b, ws[kWarps + w]);
+  }
+  *lo = a;
+  *hi = b;
 }
 
 // V consecutive elements, one 16-byte access when V * sizeof(T) == 16.
@@ -357,10 +361,22 @@ quantize_wire_kernel(const T* __restrict__ x, unsigned char* __restrict__ codes,
   for (int r = 0; r < bm; ++r)
     for (int c = threadIdx.x; c < bn; c += kThreads) {
       const float v = to_f32(xt[r * n + c]);
-      lo = fminf(lo, v);
-      hi = fmaxf(hi, v);
+      lo = min_nan(lo, v);
+      hi = max_nan(hi, v);
     }
   block_minmax(&lo, &hi, ws);
+  // A NaN in the tile: its meta min is that NaN, bits and all, as torch's
+  // amin keeps it (min.NaN gives the canonical NaN), so read the tile again.
+  if (lo != lo) {
+    __syncthreads();
+    for (int r = 0; r < bm; ++r)
+      for (int c = threadIdx.x; c < bn; c += kThreads) {
+        const float v = to_f32(xt[r * n + c]);
+        if (v != v) ws[0] = v;
+      }
+    __syncthreads();
+    lo = ws[0];
+  }
 
   const float span = __fsub_rn(hi, lo);
   const float scale = span > 0.0f ? __fdiv_rn(span, levels) : 1.0f;

@@ -69,15 +69,19 @@ def _lib_path(name: str) -> Path:
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile the named sources (default: all) that are missing or older
-    than their source, one ``nvcc`` per source, all started together.
+    than their source or a shared header (``csrc/*.cuh``), one ``nvcc`` per
+    source, all started together.
     Returns each compiled source's ptxas report; raises on any failure."""
     srcs = sources()
     names = list(srcs) if names is None else list(names)
+    headers = max((h.stat().st_mtime for h in CSRC.glob("*.cuh")),
+                  default=0.0)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         src, out = srcs[name], _lib_path(name)
-        if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+        if (out.exists() and out.stat().st_mtime
+                >= max(src.stat().st_mtime, headers)):
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(

@@ -35,7 +35,9 @@ DECODE_MAX_BYTES = 4 * 1024 * 1024
 
 _Q8_KEYS = frozenset(("codes", "min", "scale"))
 _Q4_KEYS = frozenset(("codes4", "min", "scale"))
-_TILE = 8192                # elements per tile, as kTile in the kernel
+_TILE = 256 * 16           # elements per tile: kThreads runs of kRun
+_SMEM_MAX = 232448          # shared memory a block can use (kMaxSmem)
+_STAGE = 256 * 20 * 4       # the kernel's staging rows (kThreads x kRow)
 MAX_DP = 4096
 _SIGNATURES = {
     "decode_sum_launch": (_build.P, _build.I64, _build.I32, _build.P,
@@ -179,6 +181,10 @@ def decode_sum_fused(slots: torch.Tensor, plans: Sequence[LeafPlan],
     if not D.use_kernel(slots):
         return decode_sum_fused_plain(slots, plans, dp)
     _check(slots, plans, dp)
+    if _STAGE + len(plans) * (48 + 8 * dp) > _SMEM_MAX:
+        raise ValueError(f"{len(plans)} leaves at dp={dp}: the leaf table "
+                         f"and (min, scale) pairs exceed the kernel's "
+                         f"{_SMEM_MAX} bytes of shared memory")
     slots = slots.contiguous()
     total = sum(p.n for p in plans)
     flat = torch.empty((total,), dtype=torch.float32, device=slots.device)

@@ -13,13 +13,15 @@ per leaf, so that a dtype view of a segment starts at storage offset 0
 (``Tensor.view(dtype)`` needs an offset that is a multiple of the item
 size).  The plain versions are ``torch.cat`` and slices copied out.
 
-Launches.  The kernel takes a by-value table of at most ``MAX_PARTS`` =
-16 segments, so a wrapper launches it once per group of 16 non-empty
-segments, all writing into (or reading from) the one buffer: a payload of
-1-16 live segments is one launch, a DP gradient payload of gpt2-small (39
-segments under q8/q4, 26 under TopK) is three or two.
-``LAUNCHES["frame_parts"]`` / ``["unframe_parts"]`` count KERNEL LAUNCHES,
-not wrapper calls (:func:`launch_groups` gives the grouping).
+Launches.  The kernel takes its segment table by value, up to
+``MAX_PARTS`` = 240 non-empty segments (the C side's capacity classes of
+4, 16, 64 and 240 keep a small payload's parameter block small), so a
+wrapper call is ONE launch for every payload the port frames: a hop's 2-4
+segments, a DP gradient payload of gpt2-small (39 segments under q8/q4,
+26 under TopK, 13 raw).  Beyond 240 it launches once per group of 240,
+all writing into (or reading from) the one buffer (:func:`launch_groups`
+gives the grouping).  ``LAUNCHES["frame_parts"]`` / ``["unframe_parts"]``
+count KERNEL LAUNCHES, not wrapper calls.
 
 The reference frames only buffers of up to ``FRAME_MAX_BYTES`` (4 MB, a
 TPU VMEM limit that decides when its kernel runs, not what the bytes
@@ -39,13 +41,11 @@ import torch
 from repro_torch import device as D
 from repro_torch.kernels import _build
 
-MAX_PARTS = 16
+MAX_PARTS = 240            # as kMaxParts in the kernel
 _TABLE = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    "frame_parts_launch": (_build.P, _TABLE, _TABLE, _TABLE, _build.I32,
-                           _build.P),
-    "unframe_parts_launch": (_build.P, _TABLE, _TABLE, _TABLE, _build.I32,
-                             _build.P),
+    "frame_parts_launch": (_build.P, _TABLE, _TABLE, _build.I32, _build.P),
+    "unframe_parts_launch": (_build.P, _TABLE, _TABLE, _build.I32, _build.P),
 }
 
 
@@ -63,9 +63,31 @@ def _offsets(sizes: Sequence[int]) -> List[int]:
 
 def launch_groups(sizes: Sequence[int]) -> List[List[int]]:
     """The segment indices each kernel launch copies: the non-empty
-    segments in order, in groups of at most ``MAX_PARTS``."""
+    segments in order, in groups of at most ``MAX_PARTS`` (one group for
+    any payload of up to 240 non-empty segments)."""
     live = [i for i, nb in enumerate(sizes) if nb]
     return [live[g:g + MAX_PARTS] for g in range(0, len(live), MAX_PARTS)]
+
+
+def launch_tables(ptrs: Sequence[int], sizes: Sequence[int]):
+    """What each kernel launch is given, one entry per group of
+    :func:`launch_groups`: the group's leaf pointers and its n + 1
+    ascending byte offsets in the buffer (the last is the group's end)."""
+    offs = _offsets(sizes)
+    return [([ptrs[i] for i in g], [offs[i] for i in g]
+             + [offs[g[-1]] + sizes[g[-1]]]) for g in launch_groups(sizes)]
+
+
+def _launch(fn: str, buf: torch.Tensor, segs, sizes, counter: str):
+    tables = launch_tables([s.data_ptr() for s in segs], sizes)
+    if not tables:
+        return
+    lib = _build.library("framing", _SIGNATURES)
+    with torch.cuda.device(buf.device):
+        for ptrs, offs in tables:
+            _build.call(lib, fn, buf.data_ptr(), _table(ptrs), _table(offs),
+                        len(ptrs), torch.cuda.current_stream().cuda_stream)
+            _build.count(counter)
 
 
 def _check_parts(parts):
@@ -84,30 +106,19 @@ def frame_parts_plain(parts: List[torch.Tensor]) -> torch.Tensor:
 
 
 def frame_parts(parts: List[torch.Tensor]) -> torch.Tensor:
-    """Concatenate flat uint8 leaf segments into one hop buffer, one
-    launch per group of ``MAX_PARTS`` non-empty segments: byte-identical
-    to ``torch.cat(parts)``, and like it always a fresh tensor.  With no
-    non-empty segment the buffer is empty and nothing is launched."""
+    """Concatenate flat uint8 leaf segments into one hop buffer in one
+    launch (one per group of ``MAX_PARTS`` non-empty segments beyond 240):
+    byte-identical to ``torch.cat(parts)``, and like it always a fresh
+    tensor.  With no non-empty segment the buffer is empty and nothing is
+    launched."""
     if not parts or not D.use_kernel(parts[0]):
         return frame_parts_plain(parts)
     _check_parts(parts)
     parts = [p.contiguous() for p in parts]
     sizes = [p.numel() for p in parts]
-    offs = _offsets(sizes)
     buf = torch.empty((sum(sizes),), dtype=torch.uint8,
                       device=parts[0].device)
-    groups = launch_groups(sizes)
-    if not groups:
-        return buf
-    lib = _build.library("framing", _SIGNATURES)
-    with torch.cuda.device(buf.device):
-        for g in groups:
-            _build.call(lib, "frame_parts_launch", buf.data_ptr(),
-                        _table([parts[i].data_ptr() for i in g]),
-                        _table([offs[i] for i in g]),
-                        _table([sizes[i] for i in g]), len(g),
-                        torch.cuda.current_stream().cuda_stream)
-            _build.count("frame_parts")
+    _launch("frame_parts_launch", buf, parts, sizes, "frame_parts")
     return buf
 
 
@@ -131,26 +142,14 @@ def unframe_parts_plain(buf: torch.Tensor,
 def unframe_parts(buf: torch.Tensor,
                   sizes: Sequence[int]) -> List[torch.Tensor]:
     """Inverse of :func:`frame_parts`: the hop buffer's segments of the
-    given byte ``sizes``, each in a fresh flat uint8 tensor (one launch
-    per group of ``MAX_PARTS`` non-empty segments; none when every
-    segment is empty)."""
+    given byte ``sizes``, each in a fresh flat uint8 tensor at storage
+    offset 0 (one launch, as :func:`frame_parts`; none when every segment
+    is empty)."""
     if not D.use_kernel(buf):
         return unframe_parts_plain(buf, sizes)
     _check_buf(buf, sizes)
     buf = buf.contiguous()
-    offs = _offsets(sizes)
     out = [torch.empty((nb,), dtype=torch.uint8, device=buf.device)
            for nb in sizes]
-    groups = launch_groups(sizes)
-    if not groups:
-        return out
-    lib = _build.library("framing", _SIGNATURES)
-    with torch.cuda.device(buf.device):
-        for g in groups:
-            _build.call(lib, "unframe_parts_launch", buf.data_ptr(),
-                        _table([out[i].data_ptr() for i in g]),
-                        _table([offs[i] for i in g]),
-                        _table([sizes[i] for i in g]), len(g),
-                        torch.cuda.current_stream().cuda_stream)
-            _build.count("unframe_parts")
+    _launch("unframe_parts_launch", buf, out, sizes, "unframe_parts")
     return out

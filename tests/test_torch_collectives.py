@@ -320,16 +320,19 @@ def test_fused_round_trip_and_both_decode_paths(codec, monkeypatch):
         assert torch.equal(fused[0][k], loop[0][k])
 
 
-@pytest.mark.parametrize("n,groups", [(1, 1), (16, 1), (17, 2), (39, 3)])
+@pytest.mark.parametrize("n,groups", [(1, 1), (16, 1), (17, 1), (39, 1),
+                                      (240, 1), (241, 2)])
 def test_framing_launch_groups(n, groups):
-    """The framing wrappers launch once per group of 16 non-empty
-    segments (the kernel's by-value table), so a DP payload of any
-    number of leaves frames: the q8/q4 gradient payload of gpt2-small has
-    39 segments, TopK 26.  Empty segments launch nothing."""
+    """The framing wrappers launch once a call for up to 240 non-empty
+    segments (the kernel's by-value table), and once per group of 240
+    beyond: the q8/q4 gradient payload of gpt2-small (39 segments), TopK
+    (26) and raw (13) are one launch each.  Empty segments launch
+    nothing."""
     sizes = [3 + i for i in range(n)]
     sizes.insert(n // 2, 0)
     plan = framing.launch_groups(sizes)
-    assert len(plan) == groups and all(len(g) <= 16 for g in plan)
+    assert len(plan) == groups
+    assert all(len(g) <= framing.MAX_PARTS for g in plan)
     assert [i for g in plan for i in g] == [i for i, nb in enumerate(sizes)
                                             if nb]
     parts = [torch.full((nb,), i % 256, dtype=torch.uint8)

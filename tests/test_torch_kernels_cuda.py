@@ -242,14 +242,40 @@ WIRE_SHAPES = [(8, 128 * 768), (16, 4096), (8, 1024)]
 @pytest.mark.parametrize("shape", WIRE_SHAPES)
 def test_quantize_wire_bit_exact(gen, shape, dtype, monkeypatch):
     block = tiling.wire_tiling(shape)
-    # no NaN: the plain version's uint8 code of a NaN is undefined, and the
-    # kernel's min / max still drop NaN (ROADMAP.md, faults)
+    # no NaN here: the plain version's uint8 code of a NaN is undefined
+    # (test_quantize_wire_carries_nan_and_inf compares where it is not)
     for x in _cut_inputs(gen, shape, dtype, nonfinite=False):
         got, want = _kernel_and_plain(
             lambda: quantize.quantize_wire(x, 8, block), monkeypatch)
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and a.shape == b.shape
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_wire_carries_nan_and_inf(gen, dtype, monkeypatch):
+    """A NaN in a tile makes its meta (NaN, 1) and +inf / -inf make its
+    scale inf, as in the plain version: meta compared as integer bits,
+    and the codes wherever they are defined ((x - min) / scale not NaN;
+    a NaN's uint8 code is undefined on both sides)."""
+    x = torch.randn((16, 10240), generator=gen, device="cuda")
+    x[3, 100] = float("nan")
+    x[5, 2048 + 7] = float("inf")
+    x[9, 4096 + 2000] = -float("inf")
+    x[0, 6144] = float("inf")
+    x[15, 8191] = -float("inf")
+    x = x.to(dtype)
+    block = tiling.wire_tiling(tuple(x.shape))
+    (codes, meta), (pcodes, pmeta) = _kernel_and_plain(
+        lambda: quantize.quantize_wire(x, 8, block), monkeypatch)
+    assert torch.equal(_bits(meta), _bits(pmeta))
+    assert torch.isnan(meta[0, 0]) and meta[0, 1] == 1.0
+    bm, bn = block
+    mins = meta[:, 0::2].repeat_interleave(bm, 0).repeat_interleave(bn, 1)
+    scales = meta[:, 1::2].repeat_interleave(bm, 0).repeat_interleave(bn, 1)
+    ok = ~torch.isnan((x.float() - mins) / scales)
+    assert not ok[:, :2048].any() and ok[:, 8192:].all()
+    assert torch.equal(codes[ok], pcodes[ok])
 
 
 def _segments(gen, sizes):
@@ -265,22 +291,54 @@ def _segments(gen, sizes):
     [1, 7, 0, 33, 4097, 2, 16, 15],      # odd sizes and an empty leaf
     [4097],                              # one segment
     [0, 4097],                           # one segment and an empty one
-    [3, 5, 4, 4] * 4 + [9],              # 17 segments: two launches
-    [1001, 4, 4] * 13,                   # a q8 DP payload: 39, three
+    [3, 5, 4, 4] * 4 + [9],              # 17 segments
+    [1001, 4, 4] * 13,                   # a q8 DP payload: 39
+    [1001, 4] * 13,                      # a TopK DP payload: 26
+    [1001 + 16 * i for i in range(13)],  # a raw DP payload: 13
+    [3 + i % 7 for i in range(241)],     # 241: two launches
 ])
 def test_framing_bit_exact(gen, sizes, monkeypatch):
     parts = _segments(gen, sizes)
     # a misaligned view too: the segment starts one byte into its storage
     parts[0] = torch.cat([parts[0][:1], parts[0]])[1:]
+    launches = len(framing.launch_groups(sizes))
+    assert launches == (2 if len(sizes) > framing.MAX_PARTS else 1)
+    _build.reset_launches()
     got, want = _kernel_and_plain(lambda: framing.frame_parts(parts),
                                   monkeypatch)
     assert torch.equal(got, want) and torch.equal(got, torch.cat(parts))
     got, want = _kernel_and_plain(lambda: framing.unframe_parts(want, sizes),
                                   monkeypatch)
+    assert _build.LAUNCHES == {"frame_parts": launches,
+                               "unframe_parts": launches}
     for a, b, p in zip(got, want, parts):
         assert a.storage_offset() == 0
         assert torch.equal(a, b) and torch.equal(a, p)
         assert a.data_ptr() != p.data_ptr() or not p.numel()
+
+
+@pytest.mark.parametrize("src", range(16))
+def test_framing_bit_exact_at_every_alignment(gen, src, monkeypatch):
+    """Every pair of source and destination offsets modulo 16, both ways:
+    a leaf viewed ``src`` bytes into its storage lands at buffer offset
+    ``dst`` (after a leaf of ``dst`` bytes), beside a leaf 8 bytes off
+    (a DP payload's (min, scale) pair); the buffer is unframed from a
+    view ``dst`` bytes into its storage."""
+    for dst in range(16):
+        store = _segments(gen, [src + 40000])[0]
+        parts = [_segments(gen, [dst])[0], store[src:], store[:8],
+                 _segments(gen, [4100])[0][8:]]
+        sizes = [p.numel() for p in parts]
+        got, want = _kernel_and_plain(lambda: framing.frame_parts(parts),
+                                      monkeypatch)
+        assert torch.equal(got, want) and torch.equal(got, torch.cat(parts))
+        view = torch.cat([got[:dst], got])[dst:]
+        assert view.data_ptr() % 16 == dst
+        back, plain = _kernel_and_plain(
+            lambda: framing.unframe_parts(view, sizes), monkeypatch)
+        for a, b, p in zip(back, plain, parts):
+            assert a.storage_offset() == 0 and a.data_ptr() % 16 == 0
+            assert torch.equal(a, b) and torch.equal(a, p)
 
 
 def test_framing_one_segment_launches_and_copies(gen):
@@ -293,9 +351,12 @@ def test_framing_one_segment_launches_and_copies(gen):
     assert _build.LAUNCHES == {"frame_parts": 1, "unframe_parts": 1}
 
 
-@pytest.mark.parametrize("n,launches", [(16, 1), (17, 2), (39, 3)])
+@pytest.mark.parametrize("n,launches", [(16, 1), (17, 1), (39, 1),
+                                        (241, 2)])
 def test_framing_launches_once_per_16_segments(gen, n, launches):
-    parts = _segments(gen, [5 + i for i in range(n)])
+    """One launch a call up to ``framing.MAX_PARTS`` (240) non-empty
+    segments, one per group of 240 beyond."""
+    parts = _segments(gen, [5 + i % 300 for i in range(n)])
     _build.reset_launches()
     buf = framing.frame_parts(parts + [parts[0][:0]])
     back = framing.unframe_parts(buf, [p.numel() for p in parts] + [0])
@@ -310,7 +371,10 @@ def test_framing_launches_once_per_16_segments(gen, n, launches):
 DP_SHAPES = [(7,), (5, 33), (2, 3, 17), (6,), (3 * 8192 + 5,)]
 
 
-def _dp_slots(gen, codec, dp, shapes):
+def _dp_slots(gen, codec, dp, shapes, row_mod=None):
+    """(dp, row_bytes) slots of seeded packed payloads; ``row_mod``
+    "8 mod 16" or "odd" pads each row with random bytes so that row_bytes
+    is so (the bank's rows then start at every alignment)."""
     rows = []
     c = codecs.get_codec(codec)
     for _ in range(dp):
@@ -319,19 +383,34 @@ def _dp_slots(gen, codec, dp, shapes):
         leaves[3] = torch.full(shapes[3], 0.75, device="cuda")
         rows.append(codecs.fuse_payload(
             [collectives.pack_grad_leaf(c, a) for a in leaves]))
+    width = rows[0].numel()
+    pad = {None: 0, "8 mod 16": (8 - width) % 16,
+           "odd": 1 - width % 2}[row_mod]
+    slots = torch.stack(rows)
+    if pad:
+        slots = torch.cat([slots, torch.randint(
+            0, 256, (dp, pad), generator=gen, device="cuda",
+            dtype=torch.uint8)], dim=1)
     plans = dp_reduce.build_decode_plans(collectives.grad_payload_structs(
         [codecs.LeafStruct(s, torch.float32) for s in shapes], codec),
         shapes)
-    return torch.stack(rows), plans
+    return slots, plans
 
 
-@pytest.mark.parametrize("dp", [1, 3, 4])
+@pytest.mark.parametrize("row_mod", [None, "8 mod 16", "odd"])
+@pytest.mark.parametrize("dp", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("codec", ["q8", "q4"])
-def test_decode_sum_fused_bit_exact(gen, codec, dp, monkeypatch):
+def test_decode_sum_fused_bit_exact(gen, codec, dp, row_mod, monkeypatch):
     """Kernel == plain version == the unfused loop (unfuse -> unpack ->
-    rank-ordered add), bitwise, with one launch."""
-    slots, plans = _dp_slots(gen, codec, dp, DP_SHAPES)
-    assert any(p.meta_off % 4 for p in plans)
+    rank-ordered add), bitwise, with one launch: dp 1-5 (dp 5 takes two
+    batches of loads), rows of every alignment, a q4 leaf of odd n and
+    leaves shorter than a thread's run, meta at odd offsets."""
+    slots, plans = _dp_slots(gen, codec, dp, DP_SHAPES, row_mod)
+    assert any(p.meta_off % 2 for p in plans)
+    if row_mod == "8 mod 16":
+        assert slots.shape[1] % 16 == 8
+    elif row_mod == "odd":
+        assert slots.shape[1] % 2 == 1
     _build.reset_launches()
     got, want = _kernel_and_plain(
         lambda: dp_reduce.decode_sum_fused(slots, plans, dp), monkeypatch)
@@ -340,14 +419,16 @@ def test_decode_sum_fused_bit_exact(gen, codec, dp, monkeypatch):
     struct = collectives.grad_payload_structs(
         [codecs.LeafStruct(s, torch.float32) for s in DP_SHAPES], codec)
     loop = [None] * len(DP_SHAPES)
+    width = plans[-1].meta_off + 8
     for s in range(dp):
-        pls = codecs.unfuse_payload(slots[s], struct)
+        pls = codecs.unfuse_payload(slots[s, :width].contiguous(), struct)
         for i, shape in enumerate(DP_SHAPES):
             m = collectives.unpack_grad_leaf(c, pls[i], shape)
             loop[i] = m if loop[i] is None else loop[i] + m
     for a, b, l, shape in zip(got, want, loop, DP_SHAPES):
-        assert a.shape == b.shape and torch.equal(a, b)
-        assert torch.equal(a.reshape(shape), l)
+        assert a.shape == b.shape
+        assert torch.equal(_bits(a), _bits(b))
+        assert torch.equal(_bits(a.reshape(shape)), _bits(l))
 
 
 def test_uint16_leaf_views_to_and_from_uint8(gen):

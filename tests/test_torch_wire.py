@@ -129,6 +129,52 @@ def test_quantize_wire_plain_is_the_eager_oracle(shape, kind, dtype):
     assert codes.dtype == torch.uint8 and meta.dtype == torch.float32
 
 
+def nonfinite_wire_input():
+    """(16, 10240) f32, five (16, 2048) wire tiles: a NaN in tile 0, +inf
+    in tile 1, -inf in tile 2, +inf and -inf in tile 3, tile 4 finite."""
+    x = _inputs((16, 10240), seed=3)
+    x[3, 100] = np.nan
+    x[5, 2048 + 7] = np.inf
+    x[9, 4096 + 2000] = -np.inf
+    x[0, 6144] = np.inf
+    x[15, 8191] = -np.inf
+    return x
+
+
+def finite_codes(x, meta, block):
+    """Where ``(x - min) / scale`` of each element's tile is not NaN: the
+    codes there are defined (a NaN's uint8 code is not, on either side)."""
+    m, n = x.shape
+    bm, bn = block
+    mins = np.repeat(np.repeat(meta[:, 0::2], bm, 0), bn, 1)
+    scales = np.repeat(np.repeat(meta[:, 1::2], bm, 0), bn, 1)
+    with np.errstate(invalid="ignore"):
+        return ~np.isnan((x.astype(np.float32) - mins) / scales)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_wire_plain_meta_carries_nan_and_inf_as_the_reference(
+        dtype):
+    """A tile holding a NaN has meta (NaN, 1): its min and max are NaN,
+    its span is NaN and not > 0, so its scale falls back to 1.  +inf or
+    -inf make the span inf and the scale inf.  The plain version's meta
+    equals the eager oracle's bit for bit, and so do its codes wherever
+    they are defined."""
+    x = nonfinite_wire_input()
+    t, j = _both(x, dtype)
+    block = TT.wire_tiling(x.shape)
+    codes, meta = TQ.quantize_wire(t, 8, block)
+    jcodes, jmeta = JREF.quantize_wire_ref(j, 8, block)
+    _assert_bits(meta, jmeta)
+    m = meta.numpy()
+    assert np.isnan(m[0, 0]) and m[0, 1] == 1.0
+    assert np.isinf(m[0, 3]) and np.isinf(m[0, 5]) and np.isinf(m[0, 7])
+    assert np.isfinite(m[0, 8:]).all()
+    ok = finite_codes(t.float().numpy(), m, block)
+    assert not ok[:, :2048].any() and ok[:, 8192:].all()
+    np.testing.assert_array_equal(codes.numpy()[ok], np.asarray(jcodes)[ok])
+
+
 @pytest.mark.parametrize("shape,kind", WIRE_CASES)
 def test_quantize_wire_within_one_code_of_the_interpret_kernel(shape, kind):
     """The Pallas kernel in interpret mode scales by ``span * f32(1/255)``:
