@@ -30,10 +30,15 @@ failure fatal:
      kernel, of its plain version and of the one torch call computing the
      same function, beside the bytes-or-operations bound, with the device
      ops a call (a row whose profiles lost records is printed as LOST):
-     the cut's kernels in bf16 and f32; the q4 pack pair on the 38.6
-     M-element DP leaf, the decode at dp = 4 on the q8 and q4 payloads,
-     and the framing pair on the four DP payloads as well as at their
-     serving and pipeline shapes.
+     the cut's kernels in bf16 and f32; the q4 pack pair at serving
+     prefill and decode, at the pipeline hop with the codec's expanded
+     per-tensor pair (one device op a call), on each distinct gradient
+     leaf size and over a whole DP lane (13 leaves in turn, one row;
+     checked bit-exact on every leaf, the hop and its edge cases: odd n
+     and h, views at element and byte offsets 1-3, many short rows, exact
+     ties, NaN and +-inf, constant rows), the decode at dp = 4 on the q8
+     and q4 payloads, and the framing pair on the four DP payloads as
+     well as at their serving and pipeline shapes.
   3. serve full-width gpt2-small (random weights from a seeded generator)
      with ``ServeEngine`` under the policies none, q4q8 and top10, launch
      counters set to 0 just before and read just after: each compressed
@@ -198,6 +203,7 @@ SEL_LEAF_N, SEL_LEAF2_N = 38597376, 28311552
 SEL_LEAF = f"DP leaf (1, {SEL_LEAF_N}) f32"
 SEL_LEAF2 = f"DP leaf (1, {SEL_LEAF2_N}) f32"
 SEL_LANE = "DP lane: 13 leaves, each (1, n) f32"
+HOP4 = f"pipeline hop {MB_ROWS} f32, the codec's expanded pair"
 
 # the DP phase: 4 lanes of 8 (global batch 32), seq 128, 4 stages (3
 # simulated cuts per lane), 13 parameter leaves, Sum n = 123,570,432
@@ -463,38 +469,133 @@ def select_phase(torch, D, topk, inputs, shapes):
 def check_kernels(torch, D, pack4, inputs):
     err = dict.fromkeys(SERVE_KERNELS, 0.0)
     for label, x32 in inputs.items():
-        n = x32.shape[1]
-        mn, sc = pack4.minmax_scale(x32)
-        p_k, p_p = kernel_and_plain(torch, D,
-                                    lambda: pack4.pack4_wire(x32, mn, sc))
-        err["pack4_wire"] = max(err["pack4_wire"],
-                                max_err(torch, [p_k], [p_p]))
-        u_k, u_p = kernel_and_plain(
-            torch, D, lambda: pack4.unpack4_wire(p_p, mn, sc, n))
-        err["unpack4_wire"] = max(err["unpack4_wire"],
-                                  max_err(torch, [u_k], [u_p]))
+        got = check_q4(torch, D, pack4, x32, *pack4.minmax_scale(x32))
+        for name, e in zip(("pack4_wire", "unpack4_wire"), got):
+            err[name] = max(err[name], e)
         log(f"# q4 kernels bit-exact vs plain: {label}")
     return err
 
 
-def time_pack4(torch, D, pack4, x32):
-    """The q4 pair at one serving shape (the f32 cast and per-row stats,
-    as the codec passes them)."""
-    m, n = x32.shape
-    h = (n + 1) // 2
-    mn, sc = pack4.minmax_scale(x32)
-    packed = pack4.pack4_wire_plain(x32, mn, sc)
+def per_tensor_pair(pack4, x):
+    """The codec's statistics of ``x`` (``transport/codecs.py``): one
+    (min, scale) pair over the tensor, expanded over its rows (stride
+    0)."""
+    mn, sc = (v.reshape(()) for v in pack4.minmax_scale(x.reshape(1, -1)))
+    return mn.expand(x.shape[0]), sc.expand(x.shape[0])
+
+
+def time_pack4(torch, D, pack4, x32, per_tensor=False):
+    """The q4 pair on one f32 tensor or a list of them (a DP lane's
+    leaves, one call each in turn), with per-row statistics (serving) or
+    the codec's expanded per-tensor pair (the pipeline hop, the DP
+    leaves)."""
+    xs = x32 if isinstance(x32, list) else [x32]
+    stats = [per_tensor_pair(pack4, x) if per_tensor
+             else pack4.minmax_scale(x) for x in xs]
+    packed = [pack4.pack4_wire_plain(x, mn, sc)
+              for x, (mn, sc) in zip(xs, stats)]
+    elems = sum(x.numel() for x in xs)
+    nbytes = sum(x.numel() * 4 + 8 * (1 if per_tensor else x.shape[0])
+                 + p.numel() for x, p in zip(xs, packed))
     return time_cases(torch, D, {
         # (wrapper call, its CUDA kernel's name, library call or None,
         #  bytes the function moves, float32 operations it needs: the
         #  pack sub/div/round/clip and a shift-or per pair, the unpack a
         #  mul and an add)
-        "pack4_wire": (lambda: pack4.pack4_wire(x32, mn, sc), "pack4_kernel",
-                       None, m * n * 4 + 8 * m + m * h, 6 * m * n),
-        "unpack4_wire": (lambda: pack4.unpack4_wire(packed, mn, sc, n),
-                         "unpack4_kernel", None,
-                         m * h + 8 * m + m * n * 4, 2 * m * n),
+        "pack4_wire": (lambda: [pack4.pack4_wire(x, mn, sc)
+                                for x, (mn, sc) in zip(xs, stats)],
+                       "pack4_kernel", None, nbytes, 6 * elems),
+        "unpack4_wire": (lambda: [pack4.unpack4_wire(p, mn, sc, x.shape[1])
+                                  for x, p, (mn, sc)
+                                  in zip(xs, packed, stats)],
+                         "unpack4_kernel", None, nbytes, 2 * elems),
     })
+
+
+def q4_cases(torch, pack4):
+    """The q4 pair's edge cases: label -> (x f32, min, scale, the packed
+    bytes the unpack reads or None for the plain version's): odd n and odd
+    h, x at element offsets 1-3 (rows 4-byte aligned), packed bytes at
+    byte offsets 1-3, many short rows, exact ties (min 0, max 7.5, scale
+    0.5: every odd element on a half-integer, the IEEE division's
+    elements), NaN and +-inf with finite statistics and with their rows'
+    own ((NaN, 1), (min, inf), (-inf, inf)), and constant rows."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def own(x, packed=None):
+        return (x, *pack4.minmax_scale(x), packed)
+    cases = {f"n = {n} (5, {n})": own(randn(5, n)) for n in (1001, 1002)}
+    for off in (1, 2, 3):
+        x = randn(3 * 1001 + 3)[off:off + 3 * 1001].view(3, 1001)
+        cases[f"x at element offset {off} (3, 1001)"] = own(x)
+        y = randn(5, 2006)
+        p = pack4.pack4_wire_plain(y, *pack4.minmax_scale(y)).reshape(-1)
+        buf = torch.zeros(p.numel() + 3, dtype=torch.uint8, device="cuda")
+        buf[off:off + p.numel()] = p
+        cases[f"packed at byte offset {off} (5, 1003)"] = own(
+            y, buf[off:off + p.numel()].view(5, 1003))
+    cases["many short rows (4096, 33)"] = own(randn(4096, 33))
+    j = torch.arange(8 * 4096 + 7, device="cuda") % 31
+    cases["exact ties (3, 32775)"] = own(
+        (j * 0.25).float().reshape(1, -1).repeat(3, 1))
+    x = randn(6, 4101)
+    x[0, 17] = x[4, 7] = float("nan")
+    x[1, 4100] = x[3, 1000] = x[4, 8] = float("inf")
+    x[2, 0] = x[3, 1001] = -float("inf")
+    clean = torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+    cases["NaN and +-inf, finite statistics (6, 4101)"] = (
+        x, *pack4.minmax_scale(clean), None)
+    cases["NaN and +-inf, their rows' statistics (6, 4101)"] = own(x)
+    const = torch.full((4, 4099), 3.25, device="cuda")
+    const[1] = -0.0
+    cases["constant rows (4, 4099)"] = own(const)
+    return cases
+
+
+def check_q4(torch, D, pack4, x, mn, sc, packed=None):
+    """Both q4 kernels against their plain versions, bit-exact (the
+    unpacked floats as integer bits); ``packed`` (default: the plain
+    version's bytes) is what the unpack reads.  Returns each kernel's
+    max |error| (0.0; raises otherwise)."""
+    p_k, p_p = kernel_and_plain(torch, D, lambda: pack4.pack4_wire(x, mn, sc))
+    src = p_p if packed is None else packed
+    u_k, u_p = kernel_and_plain(
+        torch, D, lambda: pack4.unpack4_wire(src, mn, sc, x.shape[1]))
+    return max_err(torch, [p_k], [p_p]), max_err(torch, [u_k], [u_p])
+
+
+def q4_phase(torch, D, pack4, shapes):
+    """Phase 2's q4 part beyond serving: the pair bit-exact on its edge
+    cases, at the pipeline hop with the codec's expanded pair and on
+    every gradient leaf of a DP lane ((1, n) f32, the expanded pair of
+    one), then timed at the hop, at each distinct leaf size and over the
+    whole lane.  Returns {label: {name: row}}."""
+    for label, case in q4_cases(torch, pack4).items():
+        check_q4(torch, D, pack4, *case)
+        log(f"# q4 kernels bit-exact vs plain: {label}")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    hop = torch.randn(MB_ROWS, generator=gen, device="cuda")
+    lane = [torch.randn((1, math.prod(s)), generator=gen, device="cuda")
+            * 0.01 for s in shapes]
+    for label, xs in ((HOP4, [hop]), (SEL_LANE, lane)):
+        for x in xs:
+            check_q4(torch, D, pack4, x, *per_tensor_pair(pack4, x))
+        log(f"# q4 kernels bit-exact vs plain: {label}")
+    timed = {HOP4: time_pack4(torch, D, pack4, hop, per_tensor=True)}
+    by_n = {x.shape[1]: x for x in lane}
+    for n, x in by_n.items():
+        label = f"DP leaf (1, {n}) f32"
+        timed[label] = time_pack4(torch, D, pack4, x, per_tensor=True)
+        for row in timed[label].values():
+            row["leaves"] = sum(x.shape[1] == n for x in lane)
+    timed[SEL_LANE] = time_pack4(torch, D, pack4, lane, per_tensor=True)
+    for label, rows in timed.items():
+        for name, row in rows.items():
+            log(f"# {name} {label}: " + json.dumps(row))
+    return timed
 
 
 def select_k(n):
@@ -1732,12 +1833,8 @@ def main() -> int:
     for label in (DPF8, DPF4, DPFT, DPFN):
         for name, row in timed[label].items():
             log(f"# {name} {label}: " + json.dumps(row))
-    leaf = torch.randn((1, SEL_LEAF_N), device="cuda",
-                       generator=torch.Generator(device="cuda").manual_seed(8))
-    timed[SEL_LEAF].update(time_pack4(torch, D, pack4, leaf * 0.01))
-    for name in ("pack4_wire", "unpack4_wire"):
-        log(f"# {name} {SEL_LEAF}: " + json.dumps(timed[SEL_LEAF][name]))
-    del leaf
+    for label, rows in q4_phase(torch, D, pack4, shapes).items():
+        timed.setdefault(label, {}).update(rows)
     torch.cuda.empty_cache()
     for label, rows in timed.items():
         for name, row in ({"decode_sum_fused": rows} if "ms" in rows

@@ -16,8 +16,14 @@ the dequant is ``codes*scale+min`` without FMA contraction, bit-identical
 to the plain version.
 
 Bound on the H100: memory bytes (see the note in ``csrc/pack4.cu``).
+The statistics are read in place with a row stride of 0 or 1
+(:func:`stat_stride`), so the codec's expanded per-tensor pair costs no
+copy: each wrapper call is one device op.  :func:`geometry` sizes both
+kernels' launch.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -25,10 +31,13 @@ from repro_torch import device as D
 from repro_torch.kernels import _build
 
 LEVELS = 15.0
-_SIGNATURES = {
-    "pack4_wire_launch": (_build.P,) * 4 + (_build.I64,) * 2 + (_build.P,),
-    "unpack4_wire_launch": (_build.P,) * 4 + (_build.I64,) * 2 + (_build.P,),
-}
+_ARGS = ((_build.P,) * 4 + (_build.I64,) * 4 + (_build.I32,) * 3
+         + (_build.P,))
+_SIGNATURES = {"pack4_wire_launch": _ARGS, "unpack4_wire_launch": _ARGS}
+UNIT = 8             # elements (4 packed bytes) a kernel unit
+MAX_THREADS = 256    # a block's threads at most (csrc/pack4.cu kMaxThreads)
+MAX_UNITS = 4        # units a thread at most
+_SMS = {}            # device index -> streaming multiprocessors
 
 
 def minmax_scale(flat: torch.Tensor):
@@ -48,6 +57,51 @@ def _check_stats(m, mn, sc):
         if v.shape != (m,) or v.dtype != torch.float32:
             raise ValueError(f"min/scale must be ({m},) float32, got "
                              f"{tuple(v.shape)} {v.dtype}")
+
+
+def stat_stride(v: torch.Tensor):
+    """``(tensor, stride)`` through which the kernels read a per-row
+    statistic ``v`` of shape ``(m,)``: row r's value is
+    ``tensor[r * stride]``.  The codec's expanded per-tensor pair (stride
+    0) and a contiguous ``(m,)`` tensor (stride 1) are read in place, as is
+    any one-row tensor (stride 0); any other stride is copied."""
+    if v.stride(0) in (0, 1):
+        return v, v.stride(0)
+    if v.shape[0] <= 1:
+        return v, 0
+    return v.contiguous(), 1
+
+
+@functools.lru_cache(maxsize=256)
+def geometry(m: int, n: int, sms: int):
+    """``(units a thread, threads a block, blocks a row)`` of both kernels
+    on an ``(m, n)`` tensor.  A block works ``units * threads`` consecutive
+    units (8 elements each) of one row; a row's body holds at most
+    ``n // 8``.  Units a thread halve from 4, then threads from 256 down to
+    64, while the grid would not fill ``sms`` SMs twice over; a row shorter
+    than a block takes a block of as many warps as its units need."""
+    units = n // UNIT
+    per, threads = MAX_UNITS, MAX_THREADS
+
+    def blocks():
+        return m * max(1, -(-units // (per * threads)))
+    while per > 1 and blocks() < 2 * sms:
+        per //= 2
+    while threads > 64 and blocks() < 2 * sms:
+        threads //= 2
+    threads = min(threads, max(32, 32 * -(-units // (32 * per))))
+    chunks = max(1, -(-units // (per * threads)))
+    if n >= 1 << 31 or m * chunks >= 1 << 31:
+        raise ValueError(f"({m}, {n}) is beyond the q4 kernels' 32-bit "
+                         f"row and grid indices")
+    return per, threads, chunks
+
+
+def _sm_count(device) -> int:
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device.index]
 
 
 def _check_pack(flat, mn, sc):
@@ -76,14 +130,16 @@ def pack4_wire(flat: torch.Tensor, mn: torch.Tensor,
     if not D.use_kernel(flat):
         return pack4_wire_plain(flat, mn, sc)
     _check_pack(flat, mn, sc)
-    flat, mn, sc = flat.contiguous(), mn.contiguous(), sc.contiguous()
+    flat = flat.contiguous()
+    (mn, ms), (sc, ss) = stat_stride(mn), stat_stride(sc)
     m, n = flat.shape
     packed = torch.empty((m, (n + 1) // 2), dtype=torch.uint8,
                          device=flat.device)
     lib = _build.library("pack4", _SIGNATURES)
     with torch.cuda.device(flat.device):
         _build.call(lib, "pack4_wire_launch", flat.data_ptr(), mn.data_ptr(),
-                    sc.data_ptr(), packed.data_ptr(), m, n,
+                    sc.data_ptr(), packed.data_ptr(), m, n, ms, ss,
+                    *geometry(m, n, _sm_count(flat.device)),
                     torch.cuda.current_stream().cuda_stream)
     _build.count("pack4_wire")
     return packed
@@ -115,13 +171,15 @@ def unpack4_wire(packed: torch.Tensor, mn: torch.Tensor, sc: torch.Tensor,
     if not D.use_kernel(packed):
         return unpack4_wire_plain(packed, mn, sc, n)
     _check_unpack(packed, mn, sc, n)
-    packed, mn, sc = packed.contiguous(), mn.contiguous(), sc.contiguous()
+    packed = packed.contiguous()
+    (mn, ms), (sc, ss) = stat_stride(mn), stat_stride(sc)
     m = packed.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=packed.device)
     lib = _build.library("pack4", _SIGNATURES)
     with torch.cuda.device(packed.device):
         _build.call(lib, "unpack4_wire_launch", packed.data_ptr(),
-                    mn.data_ptr(), sc.data_ptr(), out.data_ptr(), m, n,
+                    mn.data_ptr(), sc.data_ptr(), out.data_ptr(), m, n, ms,
+                    ss, *geometry(m, n, _sm_count(packed.device)),
                     torch.cuda.current_stream().cuda_stream)
     _build.count("unpack4_wire")
     return out

@@ -148,6 +148,144 @@ def test_pack4_kernels_bit_exact(gen, shape, monkeypatch):
     assert torch.equal(got, want)
 
 
+# the q4 pair's main-path shapes: serving decode and prefill (per-request
+# statistics), the pipeline hop (the codec's per-tensor pair expanded over
+# the rows) and every distinct gradient leaf size of gpt2-small as the DP
+# codec packs it, (1, n) f32: wte, a layer norm, an attention stack, a
+# bias stack, an MLP stack
+GPT2_LEAF_N = (38597376, 768, 7077888, 9216, 28311552)
+Q4_PATH_SHAPES = {"decode (4, 768)": ((4, 768), False),
+                  "prefill (4, 49152)": ((4, 64 * 768), False),
+                  "hop (8, 98304)": ((8, 128 * 768), True),
+                  **{f"leaf (1, {n})": ((1, n), True) for n in GPT2_LEAF_N}}
+
+
+def _q4_pair_bit_exact(x, mn, sc, monkeypatch, packed=None):
+    """Both kernels against their plain versions: the packed bytes, and
+    the unpacked floats as integer bits (NaN and -0.0 count).  ``packed``
+    (default: the plain version's bytes) is what the unpack reads."""
+    n = x.shape[1]
+    got, want = _kernel_and_plain(lambda: pack4.pack4_wire(x, mn, sc),
+                                  monkeypatch)
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    assert torch.equal(got, want)
+    src = want if packed is None else packed
+    got, want = _kernel_and_plain(lambda: pack4.unpack4_wire(src, mn, sc, n),
+                                  monkeypatch)
+    assert got.shape == want.shape and torch.equal(_bits(got), _bits(want))
+
+
+def _per_tensor(x):
+    """The codec's statistics: one pair over the tensor, expanded."""
+    mn, sc = (v.reshape(()) for v in pack4.minmax_scale(x.reshape(1, -1)))
+    return mn.expand(x.shape[0]), sc.expand(x.shape[0])
+
+
+@pytest.mark.parametrize("label", list(Q4_PATH_SHAPES))
+def test_q4_pair_bit_exact_at_path_shapes(gen, label, monkeypatch):
+    shape, per_tensor = Q4_PATH_SHAPES[label]
+    x = torch.randn(shape, generator=gen, device="cuda") * 0.01
+    mn, sc = _per_tensor(x) if per_tensor else pack4.minmax_scale(x)
+    _q4_pair_bit_exact(x, mn, sc, monkeypatch)
+
+
+def _q4_case(kind, gen):
+    """(x, min, scale, packed or None) of one of the q4 pair's edge
+    cases."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    if kind.startswith("n = "):                   # short and odd rows
+        m, n = (int(v) for v in kind[4:].split(" x "))
+        x = randn(m, n)
+        return (x, *pack4.minmax_scale(x), None)
+    if kind.startswith("x at element offset "):   # f32 rows 4-byte aligned
+        off = int(kind[-1])
+        x = randn(3 * 1001 + 3)[off:off + 3 * 1001].view(3, 1001)
+        return (x, *pack4.minmax_scale(x), None)
+    if kind.startswith("packed at byte offset "):  # any byte
+        off = int(kind[-1])
+        x = randn(5, 2 * 1003)
+        mn, sc = pack4.minmax_scale(x)
+        p = pack4.pack4_wire_plain(x, mn, sc).reshape(-1)
+        buf = torch.zeros(p.numel() + 3, dtype=torch.uint8, device="cuda")
+        buf[off:off + p.numel()] = p
+        return x, mn, sc, buf[off:off + p.numel()].view(5, 1003)
+    if kind == "many short rows (4096, 33)":
+        x = randn(4096, 33)
+        return (x, *pack4.minmax_scale(x), None)
+    if kind == "constant rows":                    # span 0 -> scale 1
+        x = torch.full((4, 4099), 3.25, device="cuda")
+        x[1] = -0.0
+        return (x, *pack4.minmax_scale(x), None)
+    if kind == "exact ties":
+        # min 0, max 7.5, scale 0.5: (x - min) / scale = j / 2 lies on a
+        # half-integer at every odd j, the IEEE division's elements
+        j = torch.arange(8 * 4096 + 7, device="cuda") % 31
+        x = (j * 0.25).float().reshape(1, -1).repeat(3, 1)
+        mn, sc = pack4.minmax_scale(x)
+        assert (mn == 0).all() and (sc == 0.5).all()
+        return x, mn, sc, None
+    if kind.startswith("NaN and +-inf"):
+        x = randn(6, 4101)
+        x[0, 17] = float("nan")
+        x[1, 4100] = float("inf")
+        x[2, 0] = -float("inf")
+        x[3, 1000:1002] = torch.tensor([float("inf"), -float("inf")])
+        x[4, 7] = float("nan")
+        x[4, 8] = float("inf")
+        if kind.endswith("finite statistics"):
+            clean = torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+            return (x, *pack4.minmax_scale(clean), None)
+        # rows' own statistics: (NaN, 1), (min, inf), (-inf, inf)
+        return (x, *pack4.minmax_scale(x), None)
+    if kind == "stride-0 pair (8, 4097)":
+        x = randn(8, 4097)
+        return (x, *_per_tensor(x), None)
+    raise ValueError(kind)
+
+
+Q4_CASES = (["n = 1 x 1", "n = 2 x 3", "n = 3 x 7", "n = 2 x 8",
+             "n = 3 x 15", "n = 2 x 16", "n = 2 x 17", "n = 5 x 1001",
+             "n = 5 x 1002", "n = 7 x 4098"]
+            + [f"x at element offset {k}" for k in (1, 2, 3)]
+            + [f"packed at byte offset {k}" for k in (1, 2, 3)]
+            + ["many short rows (4096, 33)", "constant rows", "exact ties",
+               "NaN and +-inf, finite statistics",
+               "NaN and +-inf, their own statistics",
+               "stride-0 pair (8, 4097)"])
+
+
+@pytest.mark.parametrize("kind", Q4_CASES)
+def test_q4_pair_bit_exact_on_edge_cases(gen, kind, monkeypatch):
+    x, mn, sc, packed = _q4_case(kind, gen)
+    _q4_pair_bit_exact(x, mn, sc, monkeypatch, packed)
+
+
+@pytest.mark.parametrize("which", ["pack4", "unpack4"])
+def test_q4_expanded_pair_runs_one_device_op(gen, which):
+    """With the codec's per-tensor pair expanded over the rows (stride 0)
+    a call is the kernel alone: no copy of the pair."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn((8, 128 * 768), generator=gen, device="cuda")
+    mn, sc = _per_tensor(x)
+    assert mn.stride() == (0,)
+    packed = pack4.pack4_wire(x, mn, sc)
+    call = ((lambda: pack4.pack4_wire(x, mn, sc)) if which == "pack4" else
+            (lambda: pack4.unpack4_wire(packed, mn, sc, x.shape[1])))
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    ops = {ev.key: ev.count for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA}
+    assert len(ops) == 1 and f"{which}_kernel" in next(iter(ops)), ops
+    assert next(iter(ops.values())) == 10, ops
+
+
 # the training cut's shapes: (8, 128*768), (4, 64*768), m = 6, batch 256
 # (a (256, 2048) tile, more than a cluster holds in registers), and the
 # whole-tensor fallback tiles (4, 767) and (2, 5001) (wider than 2048)
