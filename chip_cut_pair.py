@@ -13,11 +13,11 @@ yardstick's time), so that only the kernels differ:
 
   cut   the training cut's kernels (``quant_dequant``, ``topk_block``) on
         the cut (8, 128*768) from a seeded generator, in bf16 and f32;
-  wire  ``quantize_wire`` and the framing pair at the pipeline hop
-        (786,432 + 384 B), the framing pair on the q8, q4, TopK and raw DP
-        gradient payloads of gpt2-small, and ``decode_sum_fused`` at
-        dp = 4 on the q8 and q4 payloads: ``chip_smoke.py`` phase 2's
-        inputs.
+  wire  ``quantize_wire`` at the pipeline hop (8, 128*768) in bf16 and
+        f32, the framing pair on the hop's payload (786,432 + 384 B) and
+        on the q8, q4, TopK and raw DP gradient payloads of gpt2-small,
+        and ``decode_sum_fused`` at dp = 4 on the q8 and q4 payloads:
+        ``chip_smoke.py`` phase 2's inputs.
   q4    the q4 pair (``pack4_wire``, ``unpack4_wire``) on the 38.6
         M-element DP leaf and every other distinct leaf size of
         gpt2-small, at the pipeline hop (8, 128*768) f32 with the codec's
@@ -66,10 +66,9 @@ def time_one(root: Path, groups) -> None:
                  smoke.time_cut_kernels(torch, D, ops, x.to(dtype)))
     shapes, dtypes = smoke.gpt2_leaves(torch)
     if "wire" in groups:
-        rows = smoke.time_wire_kernels(torch, D, quantize, framing, codecs,
-                                       tiling)
-        emit(root, smoke.WIRE, {"quantize_wire": rows.pop("quantize_wire")})
-        emit(root, smoke.FRAMED, rows)
+        for label, rows in smoke.time_wire_kernels(
+                torch, D, quantize, framing, codecs, tiling).items():
+            emit(root, label, rows)
         timed = smoke.time_dp_kernels(torch, D, codecs, collectives,
                                       framing, shapes, dtypes)
         for label, rows in timed.items():

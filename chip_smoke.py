@@ -18,8 +18,11 @@ failure fatal:
      TopK select also on a pipeline microbatch, ties across its chunks,
      zeros and -0.0, and every gradient leaf of a DP lane as (1, n) f32,
      timed at the serving shapes, the microbatch, the two largest leaves
-     and the whole lane; the q8
-     wire quantizer at a full-width microbatch in bf16 and f32; framing of
+     and the whole lane; the q8 wire quantizer at a full-width
+     microbatch in bf16 and f32, a 256-row microbatch (a (256, 2048)
+     tile, read twice) and a NaN of its own payload bits in the first
+     and the last block of a tile's cluster (the meta keeps those bits;
+     a NaN tile's codes 0); framing of
      the q4, q8-tiled, TopK and EF-mixed payloads of one and of odd-sized
      leaves, and of the 39-segment q8 / q4, the 26-segment TopK and the
      13-segment raw DP gradient payloads, one launch a call; the DP
@@ -30,7 +33,8 @@ failure fatal:
      kernel, of its plain version and of the one torch call computing the
      same function, beside the bytes-or-operations bound, with the device
      ops a call (a row whose profiles lost records is printed as LOST):
-     the cut's kernels in bf16 and f32; the q4 pack pair at serving
+     the cut's kernels in bf16 and f32; the q8 wire quantizer at the
+     pipeline hop in bf16 and f32; the q4 pack pair at serving
      prefill and decode, at the pipeline hop with the codec's expanded
      per-tensor pair (one device op a call), on each distinct gradient
      leaf size and over a whole DP lane (13 leaves in turn, one row;
@@ -192,6 +196,7 @@ PIPE_RUNS = {
 }
 MB_ROWS = (PIPE_BATCH // PIPE_MB, PIPE_SEQ * D_MODEL)
 WIRE = f"pipeline microbatch {MB_ROWS} bf16"
+WIRE32 = f"pipeline microbatch {MB_ROWS} f32"
 FRAMED = "q8-tiled backward hop (786432 + 384 B)"
 PREFILL = f"prefill ({BATCH}, {max(PROMPT_LENS)}*768)"
 DECODE = f"decode ({BATCH}, 768)"
@@ -436,7 +441,7 @@ def select_inputs(torch, shapes):
     lane = [torch.randn((1, math.prod(s)), generator=gen, device="cuda")
             * 0.01 for s in shapes]
     by_n = {x.shape[1]: x for x in lane}
-    return {WIRE: [mb.to(torch.bfloat16)], f"{WIRE[:-4]}f32": [mb],
+    return {WIRE: [mb.to(torch.bfloat16)], WIRE32: [mb],
             SEL_LEAF: [by_n[SEL_LEAF_N]], SEL_LEAF2: [by_n[SEL_LEAF2_N]],
             SEL_LANE: lane}
 
@@ -785,9 +790,36 @@ def wire_payload_parts(torch, codecs, x):
     return out
 
 
+def nan_payload_cases(torch, quantize, tiling, x):
+    """The microbatch ``x`` (f32) with a NaN of its own payload bits in the
+    first block of the first tile's cluster, in its last block, and one in
+    each (the meta keeps the larger bit pattern as a signed integer), in
+    bf16 and f32: label -> (tensor, its first tile's meta min's bits)."""
+    block = tiling.wire_tiling(tuple(x.shape))
+    cases = {}
+    for dtype, ints, elem, pay in (
+            (torch.float32, torch.int32, 4, (0x7FC00123, 0x7FC00456)),
+            (torch.bfloat16, torch.int16, 2, (0x7FC1, 0x7FC3))):
+        g = quantize.geometry(x.shape[1], *block, elem, True)
+        row_units = block[1] // g.v
+        # unit u of a tile is read by block (u // THREADS) % cluster
+        at = [max(u for u in range(block[0] * row_units)
+                  if u // quantize.THREADS % g.cluster == r) * g.v
+              for r in (0, g.cluster - 1)]
+        for name, spots in (("first block", [0]), ("last block", [1]),
+                            ("both blocks", [0, 1])):
+            t = x.to(dtype, copy=True)
+            for k in spots:
+                t.view(ints)[at[k] // block[1], at[k] % block[1]] = pay[k]
+            cases[f"NaN payload, {name}, {MB_ROWS} {8 * elem}-bit"] = (
+                t, pay[max(spots)] << 32 - 8 * elem)
+    return cases
+
+
 def check_wire_kernels(torch, D, quantize, framing, codecs, tiling):
     """The q8 wire quantizer and the framing pair against their plain
-    versions: bit-exact."""
+    versions: bit-exact (a NaN tile's codes, undefined in the plain
+    version, are the kernel's 0)."""
     err = dict.fromkeys(WIRE_KERNELS, 0.0)
     gen = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn(MB_ROWS, generator=gen, device="cuda")
@@ -796,6 +828,9 @@ def check_wire_kernels(torch, D, quantize, framing, codecs, tiling):
     cases = {
         f"{MB_ROWS} bf16": x.to(torch.bfloat16),
         f"{MB_ROWS} f32": x,
+        "256-row microbatch (256, 98304) bf16": torch.randn(
+            (256, 128 * D_MODEL), generator=gen,
+            device="cuda").to(torch.bfloat16),
         "(16, 4096) f32": torch.randn((16, 4096), generator=gen,
                                       device="cuda"),
         "constant (8, 4096) bf16": torch.full((8, 4096), 3.25, device="cuda",
@@ -809,6 +844,24 @@ def check_wire_kernels(torch, D, quantize, framing, codecs, tiling):
         err["quantize_wire"] = max(err["quantize_wire"],
                                    max_err(torch, got, want))
         log(f"# quantize_wire bit-exact vs plain: {label} tile {block}")
+    del cases
+    for label, (t, nan_bits) in nan_payload_cases(torch, quantize, tiling,
+                                                  x).items():
+        block = tiling.wire_tiling(tuple(t.shape))
+        (codes, meta), (pcodes, pmeta) = kernel_and_plain(
+            torch, D, lambda: quantize.quantize_wire(t, 8, block))
+        max_err(torch, [meta], [pmeta])
+        got = bits(torch, meta)[0, 0].item() & 0xFFFFFFFF
+        if got != nan_bits or meta[0, 1].item() != 1.0:
+            raise AssertionError(f"{label}: meta min bits {got:#x}, scale "
+                                 f"{meta[0, 1].item()}; want {nan_bits:#x}, 1")
+        defined = torch.ones_like(codes, dtype=torch.bool)
+        defined[:, :block[1]] = False          # the NaN tile's codes
+        max_err(torch, [codes[defined]], [pcodes[defined]])
+        if codes[~defined].any():
+            raise AssertionError(f"{label}: a NaN tile's code is not 0")
+        log(f"# quantize_wire bit-exact vs plain: {label}, meta min "
+            f"{got:#x}")
     xb = x.to(torch.bfloat16).reshape(MB_SHAPE)
     for label, parts in wire_payload_parts(torch, codecs, xb).items():
         sizes = [p.numel() for p in parts]
@@ -835,15 +888,17 @@ def check_wire_kernels(torch, D, quantize, framing, codecs, tiling):
 
 def time_wire_kernels(torch, D, quantize, framing, codecs, tiling):
     """The wire kernels at the pipeline's shapes: the q8 quantizer on a
-    full-width microbatch in bf16 (reads 2 B, writes 1 B an element plus
-    the meta; about 7 float32 operations an element: min, max, sub, div,
-    round, two clamps), the framing pair on the q8-tiled backward hop
-    (each byte read once and written once).  Library yardsticks:
-    ``torch.cat`` frames, ``torch.split_with_sizes_copy`` unframes into
-    fresh tensors; a per-tile quantizer has no one-call torch
-    equivalent."""
+    full-width microbatch in bf16 and in f32 (reads 2 or 4 B and writes 1
+    B an element, plus the meta; about 7 float32 operations an element:
+    min, max, sub, div, round, two clamps), the framing pair on the
+    q8-tiled backward hop (each byte read once and written once).
+    Library yardsticks: ``torch.cat`` frames,
+    ``torch.split_with_sizes_copy`` unframes into fresh tensors; a
+    per-tile quantizer has no one-call torch equivalent.  Returns
+    {label: {name: row}}."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    x = torch.randn(MB_ROWS, generator=gen, device="cuda").to(torch.bfloat16)
+    x32 = torch.randn(MB_ROWS, generator=gen, device="cuda")
+    x = x32.to(torch.bfloat16)
     m, n = x.shape
     block = tiling.wire_tiling((m, n))
     meta_bytes = 4 * 2 * (m // block[0]) * (n // block[1])
@@ -853,25 +908,29 @@ def time_wire_kernels(torch, D, quantize, framing, codecs, tiling):
     sizes = [p.numel() for p in parts]
     buf = torch.cat(parts)
     total = buf.numel()
-    rows = time_cases(torch, D, {
-        "quantize_wire": (lambda: quantize.quantize_wire(x, 8, block),
-                          "quantize_wire_kernel", None,
-                          m * n * (x.element_size() + 1) + meta_bytes,
-                          7 * m * n),
-        "frame_parts": (lambda: framing.frame_parts(parts), "framing_kernel",
-                        lambda: torch.cat(parts), 2 * total, 0),
-        "unframe_parts": (lambda: framing.unframe_parts(buf, sizes),
-                          "framing_kernel",
-                          lambda: torch.split_with_sizes_copy(buf, sizes),
-                          2 * total, 0),
-    })
-    rows["quantize_wire"]["shape"] = WIRE
-    rows["frame_parts"]["shape"] = rows["unframe_parts"]["shape"] = FRAMED
-    rows["quantize_wire"]["library"] = ("none: no one torch call quantizes "
-                                        "per tile")
-    rows["frame_parts"]["library"] = "torch.cat(parts)"
-    rows["unframe_parts"]["library"] = ("torch.split_with_sizes_copy("
-                                        "buf, sizes)")
+
+    def quantizer(t):
+        return {"quantize_wire": (lambda: quantize.quantize_wire(t, 8, block),
+                                  "quantize_wire_kernel", None,
+                                  m * n * (t.element_size() + 1)
+                                  + meta_bytes, 7 * m * n)}
+    rows = {WIRE: time_cases(torch, D, quantizer(x)),
+            WIRE32: time_cases(torch, D, quantizer(x32)),
+            FRAMED: time_cases(torch, D, {
+                "frame_parts": (lambda: framing.frame_parts(parts),
+                                "framing_kernel", lambda: torch.cat(parts),
+                                2 * total, 0),
+                "unframe_parts": (
+                    lambda: framing.unframe_parts(buf, sizes),
+                    "framing_kernel",
+                    lambda: torch.split_with_sizes_copy(buf, sizes),
+                    2 * total, 0)})}
+    for label in (WIRE, WIRE32):
+        rows[label]["quantize_wire"]["library"] = (
+            "none: no one torch call quantizes per tile")
+    rows[FRAMED]["frame_parts"]["library"] = "torch.cat(parts)"
+    rows[FRAMED]["unframe_parts"]["library"] = ("torch.split_with_sizes_copy("
+                                                "buf, sizes)")
     return rows
 
 
@@ -1821,9 +1880,10 @@ def main() -> int:
     err.update(check_wire_kernels(torch, D, quantize, framing, codecs,
                                   tiling))
     wire = time_wire_kernels(torch, D, quantize, framing, codecs, tiling)
-    timed[WIRE].update(wire)
-    for name, row in wire.items():
-        log(f"# {name} {row['shape']}: " + json.dumps(row))
+    for label, rows in wire.items():
+        timed.setdefault(label, {}).update(rows)
+        for name, row in rows.items():
+            log(f"# {name} {label}: " + json.dumps(row))
     err.update(check_dp_kernels(torch, D, codecs, collectives, framing,
                                 shapes, dtypes))
     timed.update(time_dp_kernels(torch, D, codecs, collectives, framing,
@@ -1865,7 +1925,8 @@ def main() -> int:
         row = (timed[DPQ8] if name in DP_KERNELS else
                timed[SEL_LEAF if name in SELECT_KERNELS else
                      CUT if name in TRAIN_KERNELS else
-                     WIRE if name in WIRE_KERNELS else PREFILL][name])
+                     WIRE if name == "quantize_wire" else
+                     FRAMED if name in WIRE_KERNELS else PREFILL][name])
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err[name], "ms": row["ms"],

@@ -1,5 +1,5 @@
 // Min-max quantization codes without a division where that is provably
-// exact, shared by the byte-producing quantizers (pack4.cu).
+// exact, shared by the quantizers (pack4.cu, quantize.cu).
 //
 // The code of x under (mn, scale) is clamp(rint(fl(d / scale)), 0, levels)
 // with d = fl(x - mn): IEEE division, round half to even, as the plain
@@ -69,4 +69,18 @@ __device__ __forceinline__ void qcodes(const float* x, float mn, float scale,
 // byte of the result (exact: q1 * 16 + q0 < 2**8, then 2**23 + it).
 __device__ __forceinline__ uint32_t qcode_pair(float q0, float q1) {
   return __float_as_uint(__fadd_rn(__fmaf_rn(q1, 16.0f, q0), 8388608.0f));
+}
+
+// An 8-bit code held as a float, in the low byte of the result (exact:
+// 2**23 + q, q < 2**8; a -0.0 code gives 0).
+__device__ __forceinline__ uint32_t qcode_byte(float q) {
+  return __float_as_uint(__fadd_rn(q, 8388608.0f));
+}
+
+// Four 8-bit codes as one word, q[0] in the low byte, gathered by byte
+// permutes.
+__device__ __forceinline__ uint32_t qcode_word(const float* q) {
+  return __byte_perm(__byte_perm(qcode_byte(q[0]), qcode_byte(q[1]), 0x0040),
+                     __byte_perm(qcode_byte(q[2]), qcode_byte(q[3]), 0x0040),
+                     0x5410);
 }

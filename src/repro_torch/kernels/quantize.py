@@ -18,12 +18,17 @@ division by a constant), which moves codes at rounding boundaries in the
 tiles where the two scales differ.  The kernel and :func:`quant_dequant_plain`
 agree bitwise with each other and with the eager oracle.
 
-Bound on the H100: memory bytes.  The :func:`quant_dequant` kernel runs
-each tile on a cluster of up to 8 blocks that exchange their partial
-min/max through distributed shared memory; min and max propagate NaN, as
-the plain version does (see the note in ``csrc/quantize.cu``).
+Bound on the H100: memory bytes.  Both kernels run each tile on a
+cluster of up to 8 blocks that exchange their partial min/max through
+distributed shared memory (:func:`geometry` sizes the launch); min and max
+propagate NaN, as the plain versions do, and a wire tile holding a NaN
+carries the input's NaN, bits and all, in its meta (see the note in
+``csrc/quantize.cu``).
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,12 +36,54 @@ from repro_torch import device as D
 from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_GEOMETRY = (_build.I64,) * 4 + (_build.I32,) * 3 + (_build.P,)
 _SIGNATURES = {
     "quant_dequant_launch": (_build.P, _build.P, _build.I32, _build.I32)
-    + (_build.I64,) * 4 + (_build.P,),
+    + _GEOMETRY,
     "quantize_wire_launch": (_build.P, _build.P, _build.P, _build.I32,
-                             _build.I32) + (_build.I64,) * 4 + (_build.P,),
+                             _build.I32) + _GEOMETRY,
 }
+THREADS = 256        # a block's threads (csrc/quantize.cu kThreads)
+MAX_CLUSTER = 8      # blocks a tile at most (the portable cluster size)
+PER_THREAD = 2       # 16-byte units a thread aims at
+HELD = (1, 2, 4, 8)  # units a thread can hold in registers
+
+
+class Geometry(NamedTuple):
+    """A launch of either kernel: ``v`` elements a unit (16 bytes, or 1),
+    ``cluster`` blocks a tile, ``per`` units a thread at most, ``held``
+    the units a thread holds in registers (``per`` rounded up to one of
+    ``HELD``; 0: more than 8, read again from L2 for the second pass)."""
+    v: int
+    cluster: int
+    per: int
+    held: int
+
+
+@functools.lru_cache(maxsize=256)
+def geometry(n: int, bm: int, bn: int, elem: int, aligned: bool) -> Geometry:
+    """The launch on an ``(m, n)`` tensor of ``elem``-byte elements in
+    ``(bm, bn)`` tiles.  Units are 16-byte vectors where ``n``, ``bn`` and
+    both pointers (``aligned``) allow them, single elements otherwise.  A
+    tile's cluster has one block for every ``PER_THREAD * THREADS`` units,
+    at most ``MAX_CLUSTER``; block ``r`` of it works units ``r * THREADS +
+    t + j * cluster * THREADS``, thread ``t``, ``j < per``."""
+    v = 16 // elem
+    if not (aligned and n % v == 0 and bn % v == 0):
+        v = 1
+    units = bm * (bn // v)
+    cluster = min(MAX_CLUSTER, -(-units // (PER_THREAD * THREADS)))
+    per = -(-units // (cluster * THREADS))
+    held = next((r for r in HELD if per <= r), 0)
+    return Geometry(v, cluster, per, held)
+
+
+def _launch_geometry(flat: torch.Tensor, out: torch.Tensor, bm: int,
+                     bn: int):
+    """(v, cluster, held) of a launch reading ``flat``, writing ``out``."""
+    aligned = (flat.data_ptr() | out.data_ptr()) % 16 == 0
+    g = geometry(flat.shape[1], bm, bn, flat.element_size(), aligned)
+    return g.v, g.cluster, g.held
 
 
 def _tiles(flat: torch.Tensor, bits: int, block):
@@ -57,9 +104,14 @@ def _tiles(flat: torch.Tensor, bits: int, block):
     return bm, bn
 
 
-def _tile_codes(flat: torch.Tensor, bits: int, bm: int, bn: int):
+def _tile_codes(flat: torch.Tensor, bits: int, bm: int, bn: int,
+                nan_bits: bool = False):
     """Per-tile ``(codes, min, scale)`` of ``flat`` as float32 tensors of
-    shape (gm, bm, gn, bn), (gm, 1, gn, 1), (gm, 1, gn, 1)."""
+    shape (gm, bm, gn, bn), (gm, 1, gn, 1), (gm, 1, gn, 1).  With
+    ``nan_bits`` a tile's NaN min is a NaN of the tile, bits and all (of
+    several, the largest bit pattern as a signed integer), as the
+    reference's min keeps the input's NaN: torch's ``amin`` on the CPU
+    gives the canonical one."""
     m, n = flat.shape
     levels = (1 << bits) - 1
     t = flat.reshape(m // bm, bm, n // bn, bn).to(torch.float32)
@@ -70,6 +122,11 @@ def _tile_codes(flat: torch.Tensor, bits: int, bm: int, bn: int):
     scale = torch.where(span > 0, span / torch.full_like(span, levels),
                         torch.ones_like(span))
     codes = torch.clamp(torch.round((t - xmin) / scale), 0, levels)
+    if nan_bits:
+        low = torch.iinfo(torch.int32).min
+        own = torch.where(torch.isnan(t), t.view(torch.int32), low).amax(
+            dim=(1, 3), keepdim=True)
+        xmin = torch.where(torch.isnan(xmin), own.view(torch.float32), xmin)
     return codes, xmin, scale
 
 
@@ -96,7 +153,8 @@ def quant_dequant(flat: torch.Tensor, bits: int,
     with torch.cuda.device(flat.device):
         _build.call(lib, "quant_dequant_launch", flat.data_ptr(),
                     out.data_ptr(), _DTYPE_CODE[flat.dtype], bits, m, n, bm,
-                    bn, torch.cuda.current_stream().cuda_stream)
+                    bn, *_launch_geometry(flat, out, bm, bn),
+                    torch.cuda.current_stream().cuda_stream)
     _build.count("quant_dequant")
     return out
 
@@ -106,7 +164,7 @@ def quantize_wire_plain(flat: torch.Tensor, bits: int, block=(256, 256)):
     ``repro/kernels/ref.py::quantize_wire_ref``)."""
     bm, bn = _tiles(flat, bits, block)
     m, n = flat.shape
-    codes, xmin, scale = _tile_codes(flat, bits, bm, bn)
+    codes, xmin, scale = _tile_codes(flat, bits, bm, bn, nan_bits=True)
     meta = torch.stack([xmin.reshape(m // bm, n // bn),
                         scale.reshape(m // bm, n // bn)], dim=-1)
     return (codes.to(torch.uint8).reshape(m, n),
@@ -131,6 +189,7 @@ def quantize_wire(flat: torch.Tensor, bits: int, block=(256, 256)):
         _build.call(lib, "quantize_wire_launch", flat.data_ptr(),
                     codes.data_ptr(), meta.data_ptr(),
                     _DTYPE_CODE[flat.dtype], bits, m, n, bm, bn,
+                    *_launch_geometry(flat, codes, bm, bn),
                     torch.cuda.current_stream().cuda_stream)
     _build.count("quantize_wire")
     return codes, meta

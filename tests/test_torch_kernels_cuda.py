@@ -416,6 +416,128 @@ def test_quantize_wire_carries_nan_and_inf(gen, dtype, monkeypatch):
     assert torch.equal(codes[ok], pcodes[ok])
 
 
+def _cluster_element(shape, block, elem, rank):
+    """(row, col) of the last element of the first tile that block
+    ``rank`` of the tile's cluster reads: unit u (``v`` elements) belongs
+    to block (u // THREADS) % cluster (``csrc/quantize.cu``)."""
+    g = quantize.geometry(shape[1], *block, elem, True)
+    row_units = block[1] // g.v
+    u = max(u for u in range(block[0] * row_units)
+            if u // quantize.THREADS % g.cluster == rank)
+    return u // row_units, u % row_units * g.v + g.v - 1
+
+
+def _with_nan(x, at, payload):
+    """x with the NaN of bit pattern ``payload`` (x's width) at ``at``."""
+    x = x.clone()
+    ints = x.view(torch.int32 if x.element_size() == 4 else torch.int16)
+    ints[at] = payload - (1 << 8 * x.element_size() if payload >> (
+        8 * x.element_size() - 1) else 0)
+    return x
+
+
+def _wire_case(kind, dtype, gen):
+    """(x, block) of a quantize_wire edge case."""
+    if kind == "256-row microbatch":   # a (256, 2048) tile, read twice
+        x = torch.randn((256, 128 * 768), generator=gen, device="cuda")
+        return x.to(dtype), None
+    if kind == "view at offset 1":     # one element a unit
+        store = torch.randn(8 * 4096 + 1, generator=gen, device="cuda")
+        x = store.to(dtype)[1:].view(8, 4096)
+        assert x.data_ptr() % 16
+        return x, None
+    if kind == "n 1004, block (8, 502)":
+        x = torch.randn((8, 1004), generator=gen, device="cuda")
+        return x.to(dtype), (8, 502)
+    if kind == "constant":
+        return torch.full((8, 4096), 3.25, device="cuda", dtype=dtype), None
+    if kind == "exact ties":   # min 0, max 127.5: scale 0.5, x = j / 4
+        x = torch.arange(8 * 4096, device="cuda") % 256 * 0.25
+        x = x.view(8, 4096)
+        x[:, ::1024] = 127.5
+        return x.to(dtype), None
+    x = torch.randn((8, 128 * 768), generator=gen, device="cuda").to(dtype)
+    if kind == "+-inf":
+        x[0, 5] = float("inf")
+        x[7, 98301] = -float("inf")
+        return x, None
+    # a NaN with its own payload bits in the first or last block of a hop
+    # tile's cluster, or one in each
+    block = tiling.wire_tiling(tuple(x.shape))
+    first, last = ((0x7FC00123, 0xFFC00123) if dtype == torch.float32
+                   else (0x7FC1, 0xFFC1))
+    clusters = quantize.geometry(x.shape[1], *block, x.element_size(),
+                                 True).cluster
+    if kind in ("NaN payload, first block", "NaN payloads, both"):
+        x = _with_nan(x, _cluster_element(x.shape, block, x.element_size(),
+                                          0), first)
+    if kind in ("NaN payload, last block", "NaN payloads, both"):
+        x = _with_nan(x, _cluster_element(x.shape, block, x.element_size(),
+                                          clusters - 1), last)
+    return x, None
+
+
+WIRE_CASES = ["256-row microbatch", "view at offset 1",
+              "n 1004, block (8, 502)", "constant", "exact ties", "+-inf",
+              "NaN payload, first block", "NaN payload, last block",
+              "NaN payloads, both"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", WIRE_CASES)
+def test_quantize_wire_bit_exact_on_edge_cases(gen, kind, dtype,
+                                               monkeypatch):
+    """The cluster kernel against the plain version: meta as integer bits
+    (a NaN's own payload included), codes wherever defined and 0 where
+    (x - min) / scale is NaN."""
+    x, block = _wire_case(kind, dtype, gen)
+    block = block or tiling.wire_tiling(tuple(x.shape))
+    (codes, meta), (pcodes, pmeta) = _kernel_and_plain(
+        lambda: quantize.quantize_wire(x, 8, block), monkeypatch)
+    assert codes.dtype == torch.uint8 and codes.shape == x.shape
+    assert meta.dtype == torch.float32 and meta.shape == pmeta.shape
+    assert torch.equal(_bits(meta), _bits(pmeta))
+    bm, bn = block
+    mins = meta[:, 0::2].repeat_interleave(bm, 0).repeat_interleave(bn, 1)
+    scales = meta[:, 1::2].repeat_interleave(bm, 0).repeat_interleave(bn, 1)
+    ok = ~torch.isnan((x.float() - mins) / scales)
+    assert torch.equal(codes[ok], pcodes[ok])
+    assert not codes[~ok].any()
+    if "NaN" in kind:
+        assert torch.isnan(meta[0, 0]) and meta[0, 1] == 1.0
+        assert torch.isfinite(meta[:, 2:]).all()
+    if kind == "NaN payload, first block" and dtype == torch.float32:
+        assert _bits(meta)[0, 0].item() == 0x7FC00123
+    if kind == "constant":
+        assert (meta[:, 1] == 1.0).all() and not codes.any()
+
+
+def test_quantize_wire_runs_one_device_op_at_the_hop(gen):
+    """At the pipeline hop (8, 128*768) bf16 a call is the kernel alone:
+    the wrapper counts one launch a call, and a profile of 20 calls
+    records that kernel and no other device op, at most once a call.
+    Late in a long process CUPTI drops a profile's first records (8 of
+    10 seen), so the profile need not record every call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn((8, 128 * 768), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    block = tiling.wire_tiling(tuple(x.shape))
+    quantize.quantize_wire(x, 8, block)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            quantize.quantize_wire(x, 8, block)
+        torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"quantize_wire": 20}
+    ops = {ev.key: ev.count for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA}
+    assert len(ops) == 1 and "quantize_wire_kernel" in next(iter(ops)), ops
+    assert 10 <= next(iter(ops.values())) <= 20, ops
+
+
 def _segments(gen, sizes):
     return [torch.randint(0, 256, (nb,), generator=gen, device="cuda",
                           dtype=torch.uint8) for nb in sizes]
