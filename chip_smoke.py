@@ -83,7 +83,26 @@ failure fatal:
      under the plain backend, and the smoke model's DP step on the card
      against the CPU; tokens/s and the reduce's share of the step (CUDA
      events) per run, a profile of one step.
-  7. one ``{"kernels": [...]}`` line (launches summed over phases 3-6;
+  7. the paper's CNN experiment on the card (launch counters set to 0
+     just before and read just after): ResNet18 (width 64, 2 blocks a
+     stage, 4 stages, 3 cuts of (100, 65,536), (100, 32,768) and (100,
+     16,384) f32) on ``ImageClassData()``, batch 100, the reference's
+     default SGD, 4 simulated-cut steps under none, q4q8, top10, EF21 and
+     AQ-SGD (exact launches per step, finite losses, images/s; that SGD
+     raises a full-width ResNet18's loss over its first steps, so no
+     falling check); the homogeneous pipeline CNN (width 64, 4
+     stages of 2 blocks, batch 128 as 4 microbatches of 32) 3 steps under
+     gpipe q4q8, gpipe top10 and 1f1b q4q8 (exact launches and wire bytes
+     == ``wire_telemetry`` x hops per step, 1f1b == gpipe bitwise); the
+     top10 model evaluated on the 500 test images with compression on (3
+     launches a batch) and off (0); ``run_cnn_experiment`` for 1 epoch
+     per transport (acc_on, acc_off, seconds, exact launches); the same
+     losses under the plain backend for every run; one step of a width-8
+     CNN card vs CPU with the convs in TF32 (the default, which the line
+     "# cnn precision" states) and in float32; a profile of one step per
+     policy.  Phase 2 holds the cut kernels at the three cut shapes and
+     the hop kernels at the (32, 65,536) f32 hop bit-exact and times them.
+  8. one ``{"kernels": [...]}`` line (launches summed over phases 3-7;
      the select kernels timed at the 38.6 M-element DP leaf), then the
      ``{"ok": true, ...}`` line.
 """
@@ -249,6 +268,50 @@ DPF8 = f"q8 DP payload, 39 segments ({DP_PAYLOAD['q8']} B)"
 DPF4 = f"q4 DP payload, 39 segments ({DP_PAYLOAD['q4']} B)"
 DPFT = f"TopK DP payload, 26 segments ({DP_PAYLOAD['topk']} B)"
 DPFN = f"raw DP payload, 13 segments ({DP_PAYLOAD['none']} B)"
+# the CNN phase: ResNet18 (width 64, 2 blocks a stage, 4 stages, 3 cuts)
+# on ImageClassData() (2000 train, 500 test 32x32 images), batch 100
+CNN_WIDTH, CNN_BATCH, CNN_STEPS, CNN_TRAIN, CNN_TEST = 64, 100, 4, 2000, 500
+CNN_CUT_LABELS = {(CNN_BATCH, 32 * 32 * CNN_WIDTH >> s):
+                  f"CNN cut ({CNN_BATCH}, {32 * 32 * CNN_WIDTH >> s}) f32"
+                  for s in range(3)}
+# policy -> the kernel its cuts launch, launches per step (fw and bw at 3
+# cuts; EF21 and AQ-SGD compress one message a direction)
+CNN_POLICIES = {"none": (None, 0), "q4q8": ("quant_dequant", 6),
+                "top10": ("topk_block", 6), "ef21": ("topk_block", 6),
+                "aqsgd": ("topk_block", 6)}
+# the homogeneous pipeline CNN: width 64, 4 stages of 2 blocks, batch 128
+# as 4 microbatches of 32 -> 12 hops a direction a step, each (32, 32, 32,
+# 64) f32
+CNN_PIPE_BATCH, CNN_PIPE_MB, CNN_PIPE_STAGES, CNN_PIPE_STEPS = 128, 4, 4, 3
+CNN_HOP = (CNN_PIPE_BATCH // CNN_PIPE_MB, 32 * 32 * CNN_WIDTH)
+CNN_HOP_LABEL = f"CNN pipeline hop {CNN_HOP} f32"
+CNN_FRAMED = "CNN q8-tiled backward hop (2097152 + 256 B)"
+CNN_FRAMED4 = "CNN q4 forward hop (1048576 + 4 + 4 B)"
+# the pipeline CNN's compressed eval runs the cut quantizer on a whole test
+# batch of 128 (a (128, 2048) tile)
+CNN_EVAL_CUT = (CNN_PIPE_BATCH, 32 * 32 * CNN_WIDTH)
+CNN_EVAL_LABEL = f"CNN pipeline eval cut {CNN_EVAL_CUT} f32"
+CNN_PAYLOAD = {"q4": 1048584, "q8_tiled": 2097408, "top10": 838912}
+# run -> (launches per step, (fw, bw) payload of one microbatch)
+CNN_PIPE_RUNS = {
+    "gpipe/q4q8": (_per_step(**_Q4Q8), ("q4", "q8_tiled")),
+    "gpipe/top10": (_per_step(**_TOPK), ("top10", "top10")),
+    "1f1b/q4q8": (_per_step(**_Q4Q8, **_FRAMED), ("q4", "q8_tiled")),
+}
+# one smoke CNN step, card vs CPU: TF32 keeps 10 mantissa bits of each
+# conv input (unit roundoff 2**-11); float32 convs differ from the CPU's
+# only in summation order.  The loss and the updated params absolutely;
+# the gradient as (the whole tree, each leaf) relative to its norm.  TF32
+# leaves about 1% in the whole gradient and more in leaves whose sum
+# cancels (a GroupNorm bias before the next GroupNorm); float32 holds
+# every conv and GroupNorm backward leaf by leaf
+CNN_TF32_ATOL, CNN_F32_ATOL = 2e-3, 1e-4
+CNN_TF32_GRAD_RTOL, CNN_F32_GRAD_RTOL = (5e-2, 0.25), (1e-5, 1e-4)
+# pipeline runs whose loss must fall over their steps: the reference's
+# default SGD raises the loss of every other full-width run here over its
+# first steps (tests/test_torch_cnn_train.py holds the port's first steps
+# at width 32 to the reference's)
+CNN_FALLING = ("gpipe/top10",)
 # a ragged gradient tree: an odd leaf (misaligned meta), a rank-3 stack,
 # a constant leaf (one code) and a leaf of 3 tiles and a bit
 RAGGED = [(7,), (5, 33), (2, 3, 17), (6,), (3 * 8192 + 5,)]
@@ -737,8 +800,10 @@ def check_cut_kernels(torch, D, ops, inputs):
     return err
 
 
-def time_cut_kernels(torch, D, ops, x):
-    """Both training-cut kernels at the cut's shape (bf16 or f32).  Each
+def time_cut_kernels(torch, D, ops, x,
+                     names=("quant_dequant", "topk_block")):
+    """The training-cut kernels ``names`` (both by default) at the cut's
+    shape (bf16 or f32).  Each
     function reads x once and writes its output once.  The quantizer
     needs about 9 float32 operations per element (min, max, sub, div,
     round, 2 clamps, mul, add), the TopK mask 3 (abs, compare, select):
@@ -753,7 +818,7 @@ def time_cut_kernels(torch, D, ops, x):
     bn = 2048                                   # lane_block(128 * 768)
     k = math.ceil(0.1 * bn)
     mag = x.float().abs().view(m * n // bn, bn)
-    return time_cases(torch, D, {
+    cases = {
         "quant_dequant": (lambda: ops.quant_dequant_op(x, 4),
                           "quant_dequant_kernel", None, 2 * m * n * e,
                           9 * m * n),
@@ -761,7 +826,8 @@ def time_cut_kernels(torch, D, ops, x):
                        "topk_block_kernel",
                        lambda: torch.topk(mag, k, dim=1).values[:, -1:],
                        2 * m * n * e, 3 * m * n),
-    })
+    }
+    return time_cases(torch, D, {name: cases[name] for name in names})
 
 
 def wire_payload_parts(torch, codecs, x):
@@ -899,38 +965,43 @@ def time_wire_kernels(torch, D, quantize, framing, codecs, tiling):
     gen = torch.Generator(device="cuda").manual_seed(4)
     x32 = torch.randn(MB_ROWS, generator=gen, device="cuda")
     x = x32.to(torch.bfloat16)
-    m, n = x.shape
+    return {WIRE: time_quantize_wire(torch, D, quantize, tiling, x),
+            WIRE32: time_quantize_wire(torch, D, quantize, tiling, x32),
+            FRAMED: time_hop_framing(torch, D, framing, codecs, x)}
+
+
+def time_quantize_wire(torch, D, quantize, tiling, t):
+    """The q8 wire quantizer on one hop tensor (its wire tile)."""
+    m, n = t.shape
     block = tiling.wire_tiling((m, n))
     meta_bytes = 4 * 2 * (m // block[0]) * (n // block[1])
-    pl = codecs.get_codec("q8").pack(x)
-    parts = [a.reshape(-1).view(torch.uint8)
-             for a in codecs.payload_leaves(pl)]
-    sizes = [p.numel() for p in parts]
-    buf = torch.cat(parts)
-    total = buf.numel()
+    rows = time_cases(torch, D, {
+        "quantize_wire": (lambda: quantize.quantize_wire(t, 8, block),
+                          "quantize_wire_kernel", None,
+                          m * n * (t.element_size() + 1) + meta_bytes,
+                          7 * m * n)})
+    rows["quantize_wire"]["library"] = (
+        "none: no one torch call quantizes per tile")
+    return rows
 
-    def quantizer(t):
-        return {"quantize_wire": (lambda: quantize.quantize_wire(t, 8, block),
-                                  "quantize_wire_kernel", None,
-                                  m * n * (t.element_size() + 1)
-                                  + meta_bytes, 7 * m * n)}
-    rows = {WIRE: time_cases(torch, D, quantizer(x)),
-            WIRE32: time_cases(torch, D, quantizer(x32)),
-            FRAMED: time_cases(torch, D, {
-                "frame_parts": (lambda: framing.frame_parts(parts),
-                                "framing_kernel", lambda: torch.cat(parts),
-                                2 * total, 0),
-                "unframe_parts": (
-                    lambda: framing.unframe_parts(buf, sizes),
-                    "framing_kernel",
-                    lambda: torch.split_with_sizes_copy(buf, sizes),
-                    2 * total, 0)})}
-    for label in (WIRE, WIRE32):
-        rows[label]["quantize_wire"]["library"] = (
-            "none: no one torch call quantizes per tile")
-    rows[FRAMED]["frame_parts"]["library"] = "torch.cat(parts)"
-    rows[FRAMED]["unframe_parts"]["library"] = ("torch.split_with_sizes_copy("
-                                                "buf, sizes)")
+
+def hop_payload_parts(torch, codecs, x, codec="q8"):
+    """Flat uint8 leaf segments of ``codec``'s payload of hop tensor ``x``,
+    as ``fuse_payload`` frames them."""
+    return [a.reshape(-1).view(torch.uint8) for a in
+            codecs.payload_leaves(codecs.get_codec(codec).pack(x))]
+
+
+def time_hop_framing(torch, D, framing, codecs, x, codec="q8"):
+    """The framing pair on ``codec``'s payload of hop tensor ``x`` (the
+    q8-tiled one by default)."""
+    parts = hop_payload_parts(torch, codecs, x, codec)
+    buf = torch.cat(parts)
+    rows = framing_cases(torch, D, framing, parts, buf,
+                         [p.numel() for p in parts])
+    rows["frame_parts"]["library"] = "torch.cat(parts)"
+    rows["unframe_parts"]["library"] = ("torch.split_with_sizes_copy("
+                                        "buf, sizes)")
     return rows
 
 
@@ -1819,10 +1890,443 @@ def check_dp_against_cpu(torch, transformer, get):
             f"vs {losses['cpu']}, max gap {gap} (<= {tol})")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the paper's CNN experiment (ResNet18 through compressed cuts)
+# ---------------------------------------------------------------------------
+
+def cnn_policy(name, stages=4):
+    from repro_torch.core import policy as P
+    bp = {"none": P.NO_COMPRESSION, "q4q8": P.quant_policy(4, 8),
+          "top10": P.topk_policy(0.1), "ef21": P.ef_policy(0.1, "ef21"),
+          "aqsgd": P.aqsgd_policy(0.1)}[name]
+    return P.CompressionPolicy(num_stages=stages, boundary=bp)
+
+
+def cnn_opt(batch):
+    """``run_cnn_experiment``'s default SGD over its default 8 epochs."""
+    from repro_torch.train.loop import cnn_sgd
+    return cnn_sgd(8, CNN_TRAIN, batch)
+
+
+def cnn_kernels(torch, D, ops, quantize, pack4, topk, framing, codecs,
+                tiling):
+    """Phase 2 at the CNN's shapes: the cut kernels (bits 2/4/8, k
+    10%/5%) at the three ResNet18 cuts, batch 100, f32 (tile (4, 2048)),
+    the quantizer (bits 4/8) at the pipeline CNN's eval cut (128, 65,536)
+    f32 (tile (128, 2048)), and the hop kernels (the q8 wire quantizer,
+    the q4 pair with the codec's expanded pair, the TopK select, framing
+    of the q8-tiled backward and the q4 forward payload) at the pipeline
+    hop (32, 65,536) f32 (wire tile (32, 2048)), bit-exact against their
+    plain versions, then timed.  Returns (err, {label: {name: row}})."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    err = dict.fromkeys(KERNELS, 0.0)
+    timed = {}
+    for shape, label in CNN_CUT_LABELS.items():
+        x = torch.randn(shape, generator=gen, device="cuda")
+        assert ops._tile(x) == (4, 2048), ops._tile(x)
+        for bits in (2, 4, 8):
+            got, want = kernel_and_plain(
+                torch, D, lambda: ops.quant_dequant_op(x, bits))
+            err["quant_dequant"] = max(err["quant_dequant"],
+                                       max_err(torch, [got], [want]))
+        for k_frac in (0.1, 0.05):
+            got, want = kernel_and_plain(
+                torch, D, lambda: ops.topk_block_op(x, k_frac))
+            err["topk_block"] = max(err["topk_block"],
+                                    max_err(torch, [got], [want]))
+        log(f"# cut kernels bit-exact vs plain: {label}")
+        timed[label] = time_cut_kernels(torch, D, ops, x)
+    x = torch.randn(CNN_EVAL_CUT, generator=gen, device="cuda")
+    assert ops._tile(x) == (128, 2048), ops._tile(x)
+    for bits in (4, 8):
+        got, want = kernel_and_plain(
+            torch, D, lambda: ops.quant_dequant_op(x, bits))
+        err["quant_dequant"] = max(err["quant_dequant"],
+                                   max_err(torch, [got], [want]))
+    log(f"# quant_dequant bit-exact vs plain: {CNN_EVAL_LABEL} (bits 4, 8)")
+    timed[CNN_EVAL_LABEL] = time_cut_kernels(torch, D, ops, x,
+                                             ("quant_dequant",))
+    hop = torch.randn(CNN_HOP, generator=gen, device="cuda")
+    block = tiling.wire_tiling(CNN_HOP)
+    assert block == (32, 2048), block
+    got, want = kernel_and_plain(
+        torch, D, lambda: quantize.quantize_wire(hop, 8, block))
+    err["quantize_wire"] = max_err(torch, got, want)
+    for name, e in zip(("pack4_wire", "unpack4_wire"),
+                       check_q4(torch, D, pack4, hop,
+                                *per_tensor_pair(pack4, hop))):
+        err[name] = e
+    check_select(torch, D, topk, hop)
+    framed_sizes = []
+    for codec in ("q8", "q4"):
+        parts = hop_payload_parts(torch, codecs, hop, codec)
+        sizes = [p.numel() for p in parts]
+        framed, plain = kernel_and_plain(torch, D,
+                                         lambda: framing.frame_parts(parts))
+        if not torch.equal(framed, torch.cat(parts)):
+            raise AssertionError(f"frame_parts {codec} hop != torch.cat")
+        err["frame_parts"] = max(err["frame_parts"],
+                                 max_err(torch, [framed], [plain]))
+        segs, plain = kernel_and_plain(
+            torch, D, lambda: framing.unframe_parts(framed, sizes))
+        err["unframe_parts"] = max(err["unframe_parts"],
+                                   max_err(torch, segs, plain))
+        framed_sizes.append(sizes)
+    log(f"# hop kernels bit-exact vs plain: {CNN_HOP_LABEL} (quantize_wire "
+        f"tile {block}, the q4 pair, the TopK select, framing "
+        f"{framed_sizes[0]} (q8) and {framed_sizes[1]} (q4))")
+    timed[CNN_HOP_LABEL] = {
+        **time_quantize_wire(torch, D, quantize, tiling, hop),
+        **time_pack4(torch, D, pack4, hop, per_tensor=True),
+        **time_select(torch, D, topk, [hop])}
+    timed[CNN_FRAMED] = time_hop_framing(torch, D, framing, codecs, hop)
+    timed[CNN_FRAMED4] = time_hop_framing(torch, D, framing, codecs, hop,
+                                          "q4")
+    for label, rows in timed.items():
+        for name, row in rows.items():
+            log(f"# {name} {label}: " + json.dumps(row))
+    return err, timed
+
+
+def cnn_steps(torch, build, step, state, batches, profile_step=None):
+    """Runs ``step(params, opt_state, bstates, images, labels, ids)`` over
+    ``batches`` from ``state``; returns the losses, each step's launches,
+    wire counters (pipeline) and wall seconds, the final params and the
+    profile of step ``profile_step`` (1-based)."""
+    params, opt_state, bstates = state
+    out = {"losses": [], "launches": [], "wire": [], "seconds": [],
+           "profile": None}
+    for i, (x, y, ids) in enumerate(batches, 1):
+        x, y, ids = (torch.from_numpy(a).to("cuda") for a in (x, y, ids))
+        before = dict(build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == profile_step:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                params, opt_state, bstates, m = step(params, opt_state,
+                                                     bstates, x, y, ids)
+                torch.cuda.synchronize()
+            out["profile"] = prof
+        else:
+            params, opt_state, bstates, m = step(params, opt_state, bstates,
+                                                 x, y, ids)
+            torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["losses"].append(float(m["loss"]))
+        out["wire"].append(m.get("wire"))
+        out["launches"].append({k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+                                for k in KERNELS})
+    out["params"] = params
+    return out
+
+
+def cnn_run(torch, data, params, name, build, steps=CNN_STEPS,
+            profile_step=None):
+    """``steps`` simulated-cut steps of ResNet18 under ``name``."""
+    from repro_torch.optim.optimizers import init_opt_state
+    from repro_torch.train.loop import _cnn_bstates
+    from repro_torch.train.steps import make_cnn_train_step
+    policy = cnn_policy(name)
+    opt = cnn_opt(CNN_BATCH)
+    step = make_cnn_train_step(policy, opt)
+    state = (params, init_opt_state(opt, params),
+             _cnn_bstates(policy, data, CNN_BATCH, CNN_WIDTH, "cuda"))
+    batches = [b for _, b in zip(range(steps), data.epoch(CNN_BATCH, 0))]
+    return cnn_steps(torch, build, step, state, batches, profile_step)
+
+
+def cnn_pipe_run(torch, data, params, name, build, steps=CNN_PIPE_STEPS,
+                 profile_step=None):
+    """``steps`` pipeline steps of the homogeneous CNN under run ``name``."""
+    from repro_torch.optim.optimizers import init_opt_state
+    from repro_torch.train.steps import make_cnn_train_step
+    sched, pname = name.split("/")
+    opt = cnn_opt(CNN_PIPE_BATCH)
+    step = make_cnn_train_step(cnn_policy(pname, CNN_PIPE_STAGES), opt,
+                               transport="pipeline",
+                               pipeline_microbatches=CNN_PIPE_MB,
+                               schedule=sched)
+    batches = [b for _, b in zip(range(steps),
+                                 data.epoch(CNN_PIPE_BATCH, 0))]
+    return cnn_steps(torch, build, step,
+                     (params, init_opt_state(opt, params), []), batches,
+                     profile_step)
+
+
+def cnn_expected_wire(name):
+    """Bytes and hops per step of pipeline run ``name`` from
+    ``wire_telemetry``, checked against the payload sizes of one
+    (32, 32, 32, 64) f32 microbatch."""
+    from repro_torch.transport.pipeline import (PipelineTransport,
+                                                wire_telemetry)
+    from repro_torch.transport.schedules import get_schedule
+    from repro_torch.train.steps import _uniform_boundary
+    sched, pname = name.split("/")
+    schedule = get_schedule(sched, 1)
+    tel = wire_telemetry(
+        PipelineTransport(
+            _uniform_boundary(cnn_policy(pname, CNN_PIPE_STAGES)),
+            CNN_PIPE_STAGES, fused=schedule.fused_wire),
+        schedule, (CNN_HOP[0], 32, 32, CNN_WIDTH),
+        microbatches=CNN_PIPE_MB)
+    hops = CNN_PIPE_MB * tel["wire_cuts"]
+    fw, bw = CNN_PIPE_RUNS[name][1]
+    assert hops == PIPE_HOPS, (name, hops)
+    assert tel["fw_payload_bytes_per_hop"] == CNN_PAYLOAD[fw], (name, tel)
+    assert tel["bw_payload_bytes_per_hop"] == CNN_PAYLOAD[bw], (name, tel)
+    return {"fw_hops": hops, "bw_hops": hops,
+            "fw_bytes": hops * tel["fw_payload_bytes_per_hop"],
+            "bw_bytes": hops * tel["bw_payload_bytes_per_hop"]}
+
+
+def cnn_profile(torch, run, unprofiled_s, what):
+    dev = sorted(device_events(run["profile"]), reverse=True)
+    busy_ms = sum(ms for ms, _ in dev)
+    wall_ms = run["seconds"][-1] * 1e3
+    step_ms = 1e3 * unprofiled_s
+    log(f"# cnn {what} profile " + json.dumps({
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / wall_ms,
+        "unprofiled_step_ms": step_ms,
+        "device_idle_share_unprofiled": 1 - busy_ms / step_ms,
+        "top_device_ms": [[key[:60], ms] for ms, key in dev[:6]]}))
+
+
+def cnn(torch, D, build):
+    """The CNN path: ResNet18 through simulated cuts, the homogeneous CNN
+    through the real pipeline, evaluation with compression on and off and
+    ``run_cnn_experiment`` per transport, all on the card."""
+    from repro_torch.data.synthetic import ImageClassData
+    from repro_torch.models import cnn as C
+    from repro_torch.train.loop import _cnn_eval, run_cnn_experiment
+
+    log("# cnn precision: convs in "
+        f"{'TF32' if torch.backends.cudnn.allow_tf32 else 'float32'} "
+        f"(torch.backends.cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}, the default), the head's "
+        "matmul and the 1x1 projections in "
+        f"{'TF32' if torch.backends.cuda.matmul.allow_tf32 else 'float32'}"
+        " (torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}), all else float32")
+    data = ImageClassData()
+    params = C.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           width=CNN_WIDTH)
+    pparams = C.init_pipeline_params(
+        torch.Generator(device="cuda").manual_seed(0), CNN_PIPE_STAGES,
+        width=CNN_WIDTH)
+    build.reset_launches()                  # the CNN paths start here
+    runs = {name: cnn_run(torch, data, params, name, build)
+            for name in CNN_POLICIES}
+    pipes = {name: cnn_pipe_run(torch, data, pparams, name, build)
+             for name in CNN_PIPE_RUNS}
+    evals = {}
+    for compress, want in ((True, 3 * (CNN_TEST // CNN_BATCH)), (False, 0)):
+        before = build.LAUNCHES.get("topk_block", 0)
+        evals[compress] = _cnn_eval(runs["top10"]["params"], data,
+                                    cnn_policy("top10"), compress, CNN_BATCH,
+                                    "simulated", device="cuda")
+        got = build.LAUNCHES.get("topk_block", 0) - before
+        if got != want or not all(map(math.isfinite, evals[compress])):
+            raise AssertionError(f"cnn eval compress={compress}: {got} "
+                                 f"launches (want {want}), {evals[compress]}")
+    exps = {}
+    for transport, name, kw, per_step, per_eval in (
+            ("simulated", "top10", dict(batch=CNN_BATCH),
+             dict(topk_block=6), dict(topk_block=3)),
+            ("pipeline", "q4q8", dict(batch=CNN_PIPE_BATCH,
+                                      pipeline_microbatches=CNN_PIPE_MB),
+             _Q4Q8, dict(quant_dequant=3))):
+        before = dict(build.LAUNCHES)
+        t0 = time.perf_counter()
+        res = run_cnn_experiment(cnn_policy(name), epochs=1, width=CNN_WIDTH,
+                                 data=data, transport=transport, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        # each step, then the compressed eval over the test batches
+        steps = CNN_TRAIN // kw["batch"]
+        evals_n = CNN_TEST // kw["batch"]
+        want = {k: steps * per_step.get(k, 0) + evals_n * per_eval.get(k, 0)
+                for k in KERNELS}
+        got = {k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+               for k in KERNELS}
+        if got != want:
+            raise AssertionError(f"run_cnn_experiment {transport}: launches "
+                                 f"{got}, expected {want}")
+        vals = (res.acc_on, res.acc_off, res.loss_on, res.loss_off)
+        if not (all(map(math.isfinite, vals))
+                and 0 <= res.acc_on <= 100 and 0 <= res.acc_off <= 100):
+            raise AssertionError(f"run_cnn_experiment {transport}: {vals}")
+        exps[transport] = {"policy": name, "steps": steps,
+                           "acc_on": res.acc_on, "acc_off": res.acc_off,
+                           "loss_on": res.loss_on, "loss_off": res.loss_off,
+                           "train_curve": res.train_curve,
+                           "seconds_train": res.seconds,
+                           "seconds_with_eval": secs,
+                           "launches": {k: v for k, v in got.items() if v}}
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}  # read here
+    log(f"# cnn-path launches {launches}")
+
+    for name, (kernel, per_step) in CNN_POLICIES.items():
+        run = runs[name]
+        want = _per_step(**({kernel: per_step} if kernel else {}))
+        for i, got in enumerate(run["launches"]):
+            if got != want:
+                raise AssertionError(f"cnn {name} step {i + 1}: launches "
+                                     f"{got}, expected {want}")
+        # finite, but not falling: the reference's default SGD (lr 0.02,
+        # momentum 0.9, no warmup) raises a full-width ResNet18's loss over
+        # its first steps; the CPU tests hold each step to the reference's
+        losses = run["losses"]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"cnn {name}: non-finite loss {losses}")
+        log("# cnn " + json.dumps({
+            "policy": name, "losses": losses,
+            "launches_per_step": {k: v for k, v in run["launches"][0].items()
+                                  if v},
+            "step_s": run["seconds"],
+            "images_per_s_steps_2_to_4": CNN_BATCH * (CNN_STEPS - 1)
+            / sum(run["seconds"][1:])}))
+    for name, (want, _) in CNN_PIPE_RUNS.items():
+        run = pipes[name]
+        wire = cnn_expected_wire(name)
+        for i, (got, got_wire) in enumerate(zip(run["launches"],
+                                                run["wire"])):
+            if got != want:
+                raise AssertionError(f"cnn pipeline {name} step {i + 1}: "
+                                     f"launches {got}, expected {want}")
+            if got_wire != wire:
+                raise AssertionError(f"cnn pipeline {name} step {i + 1}: "
+                                     f"wire {got_wire}, expected {wire}")
+        if not all(math.isfinite(v) for v in run["losses"]):
+            raise AssertionError(f"cnn pipeline {name}: {run['losses']}")
+        if name in CNN_FALLING and not run["losses"][-1] < run["losses"][0]:
+            raise AssertionError(f"cnn pipeline {name}: the loss does not "
+                                 f"fall {run['losses']}")
+        log("# cnn pipeline " + json.dumps({
+            "run": name, "losses": run["losses"],
+            "launches_per_step": {k: v for k, v in run["launches"][0].items()
+                                  if v},
+            "wire_per_step": run["wire"][0], "step_s": run["seconds"],
+            "images_per_s_steps_2_to_3": CNN_PIPE_BATCH * (CNN_PIPE_STEPS - 1)
+            / sum(run["seconds"][1:])}))
+    a, b = pipes["gpipe/q4q8"], pipes["1f1b/q4q8"]
+    if a["losses"] != b["losses"] or not all(
+            torch.equal(x, y) for (_, x), (_, y)
+            in zip(_leaves(a["params"]), _leaves(b["params"]), strict=True)):
+        raise AssertionError(f"cnn 1f1b != gpipe: {b['losses']} vs "
+                             f"{a['losses']}")
+    log("# cnn pipeline: 1f1b equals gpipe bitwise (losses and params after "
+        f"{CNN_PIPE_STEPS} steps) under q4q8")
+    log("# cnn eval of the top10 model, 500 test images " + json.dumps(
+        {"acc_on": evals[True][0], "loss_on": evals[True][1],
+         "acc_off": evals[False][0], "loss_off": evals[False][1],
+         "launches_on": 3 * (CNN_TEST // CNN_BATCH), "launches_off": 0}))
+    for transport, row in exps.items():
+        log(f"# cnn run_cnn_experiment {transport} " + json.dumps(row))
+
+    D.KERNEL_BACKEND = "plain"
+    try:
+        for name in CNN_POLICIES:
+            plain = cnn_run(torch, data, params, name, build)["losses"]
+            if plain != runs[name]["losses"]:
+                raise AssertionError(f"cnn {name}: plain backend losses "
+                                     f"{plain} != {runs[name]['losses']}")
+        for name in CNN_PIPE_RUNS:
+            plain = cnn_pipe_run(torch, data, pparams, name, build)["losses"]
+            if plain != pipes[name]["losses"]:
+                raise AssertionError(f"cnn pipeline {name}: plain backend "
+                                     f"losses {plain} != "
+                                     f"{pipes[name]['losses']}")
+    finally:
+        D.KERNEL_BACKEND = "auto"
+    log("# plain backend on the card gives identical CNN losses for every "
+        "simulated and pipeline run")
+
+    check_cnn_against_cpu(torch, C, data)
+    for name in CNN_POLICIES:
+        prof = cnn_run(torch, data, params, name, build, steps=2,
+                       profile_step=2)
+        cnn_profile(torch, prof, sorted(runs[name]["seconds"][1:])[1],
+                    f"simulated {name}")
+    prof = cnn_pipe_run(torch, data, pparams, "gpipe/q4q8", build, steps=2,
+                        profile_step=2)
+    cnn_profile(torch, prof, min(pipes["gpipe/q4q8"]["seconds"][1:]),
+                "pipeline gpipe/q4q8")
+    return launches
+
+
+def check_cnn_against_cpu(torch, C, data):
+    """One uncompressed step of a width-8 ResNet on the card and on the
+    CPU (which the CPU tests hold to the JAX package): the loss and the
+    updated params, and the gradients (the step run again with the
+    optimizer swapped for one that hands back the gradients).  Convs in
+    TF32 (the default): loss and params within ``CNN_TF32_ATOL``, the
+    gradient tree and each leaf within ``CNN_TF32_GRAD_RTOL`` of its
+    norm; with TF32 off, ``CNN_F32_ATOL`` and ``CNN_F32_GRAD_RTOL``."""
+    import repro_torch.train.steps as TS
+    from repro_torch.optim.optimizers import init_opt_state
+    params = C.init_params(torch.Generator().manual_seed(1), width=8)
+    opt = cnn_opt(16)
+    step = TS.make_cnn_train_step(cnn_policy("none"), opt)
+    x, y, ids = next(data.epoch(16, 0))
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    apply_updates = TS.apply_updates
+    for dev, allow_tf32 in (("cpu", tf32), ("cuda", True), ("cuda", False)):
+        torch.backends.cudnn.allow_tf32 = allow_tf32
+        args = [torch.from_numpy(a).to(dev) for a in (x, y, ids)]
+        p = _tree_to(params, dev)
+        try:
+            new, _, _, m = step(p, init_opt_state(opt, p), [], *args)
+            TS.apply_updates = lambda o, p_, g, s: (g, s)
+            grads, _, _, _ = step(p, init_opt_state(opt, p), [], *args)
+        finally:
+            TS.apply_updates = apply_updates
+            torch.backends.cudnn.allow_tf32 = tf32
+        out[(dev, allow_tf32)] = (float(m["loss"]), _tree_to(new, "cpu"),
+                                  _tree_to(grads, "cpu"))
+    cpu_loss, cpu_params, cpu_grads = out[("cpu", tf32)]
+    for allow_tf32, tol, rtol in ((True, CNN_TF32_ATOL, CNN_TF32_GRAD_RTOL),
+                                  (False, CNN_F32_ATOL, CNN_F32_GRAD_RTOL)):
+        loss, new, grads = out[("cuda", allow_tf32)]
+        gap = max(abs(loss - cpu_loss), max(
+            (a - b).abs().max().item() for (_, a), (_, b)
+            in zip(_leaves(new), _leaves(cpu_params), strict=True)))
+        pairs = [(k, a, b) for (k, a), (_, b)
+                 in zip(_leaves(grads), _leaves(cpu_grads), strict=True)]
+        rel = {k: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+               for k, a, b in pairs}
+        whole = (math.sqrt(sum((a - b).norm().item() ** 2
+                               for _, a, b in pairs))
+                 / math.sqrt(sum(b.norm().item() ** 2 for _, _, b in pairs)))
+        order = sorted(rel, key=rel.get, reverse=True)
+        prec = "TF32" if allow_tf32 else "float32"
+        if not (math.isfinite(loss) and gap <= tol and whole <= rtol[0]
+                and all(math.isfinite(v) and v <= rtol[1]
+                        for v in rel.values())):
+            raise AssertionError(f"smoke CNN step, convs {prec}: card loss "
+                                 f"{loss} vs CPU {cpu_loss}, gap {gap}, "
+                                 f"gradient off by {whole} of its norm, "
+                                 f"leaf {order[0]} by {rel[order[0]]}")
+        log(f"# smoke CNN step (width 8, batch 16), convs {prec}, card vs "
+            f"CPU: loss {loss} vs {cpu_loss}, max gap over the loss and "
+            f"every updated param {gap} (<= {tol}); gradient: "
+            f"|card - CPU| / |CPU| {whole} (<= {rtol[0]}), per leaf (<= "
+            f"{rtol[1]}) largest " + json.dumps(
+                [[k, rel[k]] for k in order[:4]])
+            + f", median {rel[order[len(order) // 2]]}")
+
+
 def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}/{i}")
     else:
         yield prefix, tree
 
@@ -1830,6 +2334,8 @@ def _leaves(tree, prefix=""):
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
     return tree.to(device)
 
 
@@ -1895,6 +2401,10 @@ def main() -> int:
             log(f"# {name} {label}: " + json.dumps(row))
     for label, rows in q4_phase(torch, D, pack4, shapes).items():
         timed.setdefault(label, {}).update(rows)
+    cnn_err, cnn_timed = cnn_kernels(torch, D, ops, quantize, pack4, topk,
+                                     framing, codecs, tiling)
+    err = {k: max(err.get(k, 0.0), cnn_err[k]) for k in KERNELS}
+    timed.update(cnn_timed)
     torch.cuda.empty_cache()
     for label, rows in timed.items():
         for name, row in ({"decode_sum_fused": rows} if "ms" in rows
@@ -1905,13 +2415,14 @@ def main() -> int:
                     f"the launches; its times are not to be used")
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
-    # -- phases 3-6: each main path, its counts set to 0 just before it and
+    # -- phases 3-7: each main path, its counts set to 0 just before it and
     # read just after; the kernels line sums them
     paths = []
     for phase, run in ((3, lambda: serve(torch, np, D, _build)),
                        (4, lambda: train(torch, D, _build)),
                        (5, lambda: pipeline(torch, D, _build)),
-                       (6, lambda: data_parallel(torch, D, _build))):
+                       (6, lambda: data_parallel(torch, D, _build)),
+                       (7, lambda: cnn(torch, D, _build))):
         paths.append(run())
         log(f"# phase {phase} done at {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
@@ -1919,7 +2430,7 @@ def main() -> int:
         if not v:
             raise AssertionError(f"{k} was launched on no main path")
 
-    # -- phase 7 ------------------------------------------------------------
+    # -- phase 8 ------------------------------------------------------------
     line = []
     for name, (src, replaces) in KERNELS.items():
         row = (timed[DPQ8] if name in DP_KERNELS else

@@ -1,14 +1,16 @@
-"""Read the reference's npz checkpoints into torch params.
+"""The reference's npz checkpoints: read them into torch params, and
+write params-only files.
 
 Schema (``repro/checkpoint/io.py``): one npz, keys are "/"-joined tree
-paths, ``__meta__`` a JSON string with ``step``; bf16 leaves are stored as
-uint16 views under ``<key>@bf16``.  Params-only files hold ``embed/...``;
-train-state files hold them under ``params/``.  Writing checkpoints is not
-ported yet.
+paths (dict keys, list indices: ``stages/0/1/conv1``), ``__meta__`` a JSON
+string with ``step`` and ``extra``; bf16 leaves are stored as uint16 views
+under ``<key>@bf16``.  Params-only files hold ``embed/...``; train-state
+files hold them under ``params/``.  Writing train state is not ported yet.
 """
 from __future__ import annotations
 
 import json
+import os
 from typing import Dict, Tuple
 
 import numpy as np
@@ -38,19 +40,44 @@ def load_flat(path: str, device) -> Tuple[Dict[str, torch.Tensor], dict]:
 
 
 def _flatten(tree, prefix=""):
+    """Leaves by key, in ``jax.tree.leaves``' order (dict keys sorted,
+    list items by index)."""
     if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}{k}/"))
-        return out
-    return {prefix[:-1]: tree}
+        items = ((k, tree[k]) for k in sorted(tree))
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}{k}/"))
+    return out
 
 
 def _unflatten_like(like, flat, prefix=""):
     if isinstance(like, dict):
         return {k: _unflatten_like(v, flat, f"{prefix}{k}/")
                 for k, v in like.items()}
+    if isinstance(like, list):
+        return [_unflatten_like(v, flat, f"{prefix}{i}/")
+                for i, v in enumerate(like)]
     return flat[prefix[:-1]]
+
+
+def save(path: str, tree, step: int = 0, extra: dict = None) -> None:
+    """A params-only checkpoint of ``tree`` (nested dicts and lists of
+    tensors) in the reference's schema; ``np.savez`` adds ``.npz`` to a
+    path without it."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    flat = {}
+    for key, t in _flatten(tree).items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            flat[key + "@bf16"] = t.view(torch.int16).numpy().view(np.uint16)
+        else:
+            flat[key] = t.numpy()
+    meta = {"step": step, "extra": extra or {}}
+    np.savez(path, __meta__=json.dumps(meta), **flat)
 
 
 def restore_params(path: str, params_like) -> Tuple[dict, int]:

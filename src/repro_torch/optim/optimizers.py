@@ -1,7 +1,8 @@
 """Optimizers: SGD + momentum + weight decay, AdamW, cosine schedule.
 
 Port of ``repro/optim/optimizers.py``.  Parameters and optimizer moments
-are nested dicts of tensors mirroring each other; every update is
+are nested dicts and lists of tensors mirroring each other (the CNN's
+``stages`` is a list of lists of dicts); every update is
 computed in float32 and cast back to the parameter's (and the moment's)
 dtype, step for step as in the reference.  Updates run under
 ``torch.no_grad`` and return new tensors; nothing is updated in place.
@@ -34,17 +35,22 @@ class OptimizerConfig:
 
 
 def tree_map(f, *trees):
-    """``f`` over the leaves of nested dicts of the same structure."""
+    """``f`` over the leaves of nested dicts and lists of the same
+    structure."""
     if isinstance(trees[0], dict):
         return {k: tree_map(f, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [tree_map(f, *ts) for ts in zip(*trees)]
     return f(*trees)
 
 
 def tree_leaves(tree):
-    """Leaves of a nested dict, in sorted-key order (``jax.tree.leaves``'
-    order for dicts)."""
+    """Leaves of nested dicts and lists in ``jax.tree.leaves``' order:
+    dict keys sorted, list items in index order."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
@@ -134,4 +140,6 @@ def _pick(out, i):
     """Element ``i`` of every tuple leaf of ``out``."""
     if isinstance(out, dict):
         return {k: _pick(v, i) for k, v in out.items()}
+    if isinstance(out, list):
+        return [_pick(v, i) for v in out]
     return out[i]

@@ -1,13 +1,15 @@
-"""The paper's LM experiment loop (Sec. 3.2).
+"""The paper's experiment loops: ResNet / CIFAR-10 (Sec. 3.1) and LM
+fine-tuning (Sec. 3.2).
 
-Port of ``run_lm_experiment``, ``_lm_eval``, ``_pipeline_bstates`` and
-``init_lm_dp_state`` from ``repro/train/loop.py`` for a static policy on
-the simulated transport (with or without the compressed data-parallel
-gradient reduce) or the real pipeline (``dp=1``): fine-tune with boundary
-compression, then evaluate the loss with compression on AND off (finding
-F3: a model trained compressed must be served compressed).  Rule
-policies, rule-spec axis codecs, bandwidth probes and trace spans are not
-ported yet.
+Port of ``run_cnn_experiment``, ``_cnn_eval``, ``_cnn_bstates``,
+``run_lm_experiment``, ``_lm_eval``, ``pretrain_lm``,
+``_pipeline_bstates`` and ``init_lm_dp_state`` from
+``repro/train/loop.py`` for a static policy on the simulated transport
+(the LM with or without the compressed data-parallel gradient reduce) or
+the real pipeline (``dp=1``): train with boundary compression, then
+evaluate with compression on AND off (finding F3: a model trained
+compressed must be served compressed).  Rule policies, rule-spec axis
+codecs, bandwidth probes and trace spans are not ported yet.
 """
 from __future__ import annotations
 
@@ -20,15 +22,18 @@ import torch
 
 from repro_torch.core.boundary import init_boundary_state
 from repro_torch.core.parallel import ParallelSpec, from_legacy, warn_legacy
-from repro_torch.core.policy import BoundaryPolicy, CompressionPolicy
-from repro_torch.data.synthetic import LMData
+from repro_torch.core.policy import (NO_POLICY, BoundaryPolicy,
+                                     CompressionPolicy)
+from repro_torch.data.synthetic import ImageClassData, LMData
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import cnn, transformer
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+from repro_torch.optim.optimizers import (OptimizerConfig, init_opt_state,
+                                          tree_map)
 from repro_torch.train.steps import (_LEGACY_DEFAULTS, _UNSET,
-                                     _resolve_parallel, make_lm_eval_step,
-                                     make_lm_train_step)
+                                     _refuse_rules, _resolve_parallel,
+                                     make_cnn_eval_step, make_cnn_train_step,
+                                     make_lm_eval_step, make_lm_train_step)
 from repro_torch.transport.collectives import init_dp_state
 from repro_torch.transport.pipeline import init_feedback_state
 
@@ -36,11 +41,115 @@ from repro_torch.transport.pipeline import init_feedback_state
 @dataclasses.dataclass
 class ExperimentResult:
     name: str
+    acc_off: float = 0.0           # eval accuracy (%) with compression OFF
+    acc_on: float = 0.0            # eval accuracy (%) with compression ON
     loss_on: float = 0.0           # eval loss with compression ON
     loss_off: float = 0.0          # eval loss with compression OFF
     train_curve: List[float] = dataclasses.field(default_factory=list)
     seconds: float = 0.0
     params: Optional[dict] = None
+
+    def row(self) -> str:
+        return (f"{self.name:32s}  off={self.acc_off:6.2f}%  "
+                f"on={self.acc_on:6.2f}%")
+
+
+def cnn_sgd(epochs: int, num_train: int, batch: int) -> OptimizerConfig:
+    """``run_cnn_experiment``'s default optimizer, the reference's: SGD
+    with momentum, cosine over the run's ``epochs * (num_train // batch)``
+    steps."""
+    return OptimizerConfig(kind="sgd", lr=0.02, momentum=0.9,
+                           weight_decay=5e-4, schedule="cosine",
+                           t_max=epochs * (num_train // batch))
+
+
+def _cnn_eval(params, data, policy, compress, batch=100,
+              transport="simulated", *, device) -> tuple:
+    step = make_cnn_eval_step(policy, compress, transport=transport)
+    accs, losses = [], []
+    for x, y, _ in data.test_batches(batch):
+        a, l = step(params, torch.from_numpy(x).to(device),
+                    torch.from_numpy(y).to(device))
+        accs.append(float(a))
+        losses.append(float(l))
+    return 100.0 * float(np.mean(accs)), float(np.mean(losses))
+
+
+def _cnn_bstates(policy: CompressionPolicy, data: ImageClassData,
+                 batch: int, width: int, device=None):
+    shapes = cnn.boundary_shapes(width, data.image)
+    return [init_boundary_state(policy.at(i), shapes[i], batch=batch,
+                                num_samples=data.num_train, device=device)
+            for i in range(policy.num_boundaries)]
+
+
+def run_cnn_experiment(policy: CompressionPolicy, *, epochs: int = 8,
+                       batch: int = 100, width: int = 16,
+                       data: Optional[ImageClassData] = None,
+                       warmup_params=None, name: str = "",
+                       opt: Optional[OptimizerConfig] = None,
+                       seed: int = 0, transport: str = "simulated",
+                       pipeline_microbatches: Optional[int] = None,
+                       schedule: str = "gpipe", virtual_stages: int = 1,
+                       device=None) -> ExperimentResult:
+    """Train the ResNet with boundary compression, then evaluate its test
+    accuracy with compression on and off (the paper's protocol).
+
+    ``warmup_params``: start from these (uncompressed-baseline) weights,
+    a params tree (the paper's "warmup N" rows; simulated transport
+    only).  ``transport="pipeline"`` trains the homogeneous-stage CNN
+    through the real compressed pipeline under ``schedule`` (gpipe | 1f1b
+    | interleaved, the latter with ``num_stages * virtual_stages`` stage
+    slices), the same boundary policy at every cut.  Fresh params come
+    from a generator seeded with ``seed``.  Runs on ``cuda`` unless
+    ``device`` says otherwise."""
+    _refuse_rules(policy)
+    if transport not in ("simulated", "pipeline"):
+        raise ValueError(f"unknown transport {transport!r}")
+    dev = resolve_device(device)
+    data = data or ImageClassData()
+    opt = opt or cnn_sgd(epochs, data.num_train, batch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if transport == "pipeline":
+        if warmup_params is not None:
+            raise ValueError("warmup_params: the homogeneous pipeline CNN "
+                             "has a different param structure")
+        params = cnn.init_pipeline_params(
+            gen, policy.num_stages * virtual_stages, width=width)
+        bstates = _pipeline_bstates(policy, (data.image, data.image, width),
+                                    batch=batch,
+                                    microbatches=pipeline_microbatches,
+                                    num_samples=data.num_train,
+                                    virtual_stages=virtual_stages,
+                                    device=dev)
+    else:
+        params = (tree_map(lambda t: t.to(dev), warmup_params)
+                  if warmup_params is not None
+                  else cnn.init_params(gen, width=width))
+        bstates = _cnn_bstates(policy, data, batch, width, dev)
+    opt_state = init_opt_state(opt, params)
+    step = make_cnn_train_step(policy, opt, transport=transport,
+                               pipeline_microbatches=pipeline_microbatches,
+                               schedule=schedule,
+                               virtual_stages=virtual_stages)
+    t0 = time.time()
+    curve = []
+    for ep in range(epochs):
+        accs = []
+        for x, y, ids in data.epoch(batch, ep):
+            params, opt_state, bstates, m = step(
+                params, opt_state, bstates, torch.from_numpy(x).to(dev),
+                torch.from_numpy(y).to(dev), torch.from_numpy(ids).to(dev))
+            accs.append(float(m["acc"]))
+        curve.append(float(np.mean(accs)))
+    res = ExperimentResult(name=name or policy.boundary.name,
+                           train_curve=curve, seconds=time.time() - t0)
+    res.acc_off, res.loss_off = _cnn_eval(params, data, policy, False, batch,
+                                          transport, device=dev)
+    res.acc_on, res.loss_on = _cnn_eval(params, data, policy, True, batch,
+                                        transport, device=dev)
+    res.params = params
+    return res
 
 
 def _lm_eval(params, cfg, data, policy, compress, batch=16,
@@ -175,3 +284,30 @@ def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
                             dev)
     res.params = params
     return res
+
+
+def pretrain_lm(cfg: ModelConfig, *, steps: int = 300, batch: int = 16,
+                data: Optional[LMData] = None, seed: int = 0, device=None):
+    """Uncompressed pre-training for the fine-tuning experiments.
+    Returns ``(params, last loss)``.  Runs on ``cuda`` unless ``device``
+    says otherwise."""
+    dev = resolve_device(device)
+    data = data or LMData()
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="constant", grad_clip=1.0)
+    params = transformer.init_params(
+        torch.Generator(device=dev).manual_seed(seed), cfg)
+    opt_state = init_opt_state(opt, params)
+    step = make_lm_train_step(cfg, NO_POLICY, opt, remat=False)
+    n = ep = 0
+    while n < steps:
+        for toks, ids in data.epoch(batch, ep):
+            params, opt_state, _, m = step(
+                params, opt_state, [],
+                {"tokens": torch.from_numpy(toks).to(dev, torch.int64)},
+                torch.from_numpy(ids).to(dev))
+            n += 1
+            if n >= steps:
+                break
+        ep += 1
+    return params, float(m["loss"])

@@ -1,8 +1,10 @@
-"""LM train and eval steps with the paper's boundary compression.
+"""LM and CNN train and eval steps with the paper's boundary compression.
 
 Port of ``repro/train/steps.py``: ``make_lm_train_step`` with
 ``grad_accum=1`` on the simulated transport and on the real pipeline
-(``dp=1``, ``tp=1``), and ``make_lm_eval_step``.  The step is eager
+(``dp=1``, ``tp=1``), ``make_lm_eval_step``, and the CNN's
+``make_cnn_train_step`` (simulated and pipeline) and
+``make_cnn_eval_step``.  The step is eager
 PyTorch: one forward, the chunked LM loss, one backward, then the
 optimizer.  On the simulated transport each cut is a ``boundary_apply``
 in ``forward_hidden``; on the pipeline the embedding and the loss run on
@@ -25,12 +27,13 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.feedback import FeedbackState, get_mode, shard_ids
 from repro_torch.core.parallel import ParallelSpec, from_legacy, warn_legacy
 from repro_torch.core.policy import (NO_COMPRESSION, BoundaryPolicy,
                                      CompressionPolicy)
-from repro_torch.models import transformer
+from repro_torch.models import cnn, transformer
 from repro_torch.optim.optimizers import (OptimizerConfig, apply_updates,
                                           tree_leaves, tree_map)
 from repro_torch.transport.collectives import make_grad_all_reduce
@@ -325,5 +328,117 @@ def make_lm_eval_step(cfg, policy: CompressionPolicy, compress: bool):
                                           compress=compress)
         labels, mask = _labels_and_mask(batch["tokens"])
         return transformer.lm_loss(logits, labels, mask)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Image-classification steps (the paper's ResNet18 / CIFAR-10 experiments)
+# ---------------------------------------------------------------------------
+
+def xent_loss(logits, labels):
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+    return -logp.gather(1, labels.to(torch.int64)[:, None]).mean()
+
+
+def _accuracy(logits, labels):
+    return (logits.detach().argmax(-1) == labels).to(torch.float32).mean()
+
+
+def _refuse_rules(policy):
+    if not isinstance(policy, CompressionPolicy):
+        raise NotImplementedError(
+            f"policy {type(policy).__name__}: only a CompressionPolicy is "
+            "ported to repro_torch (rule policies, PolicyRules, are not)")
+
+
+def make_cnn_train_step(policy: CompressionPolicy, opt: OptimizerConfig,
+                        transport: str = "simulated",
+                        pipeline_microbatches: Optional[int] = None,
+                        schedule: str = "gpipe", virtual_stages: int = 1):
+    """Returns ``step(params, opt_state, bstates, images, labels, ids) ->
+    (params, opt_state, bstates, metrics)`` with ``metrics`` ``loss`` and
+    ``acc``.  ``images``: (B, H, W, 3) NHWC float32; ``bstates``: one
+    ``{"fw", "bw"}`` dict per cut (``[]`` without feedback).
+
+    ``transport="pipeline"`` trains the homogeneous-stage CNN
+    (``models/cnn.py::init_pipeline_params``, ``num_stages *
+    virtual_stages`` stacked slices) through the real compressed pipeline
+    under ``schedule``; ``bstates`` is then ``[]`` or the
+    ``init_feedback_state`` dict, and ``metrics["wire"]`` holds the
+    step's hops and bytes per direction."""
+    _refuse_rules(policy)
+    if transport == "pipeline":
+        return _make_pipeline_cnn_train_step(
+            policy, opt, microbatches=pipeline_microbatches,
+            schedule=schedule, virtual_stages=virtual_stages)
+    if transport != "simulated":
+        raise ValueError(f"unknown transport {transport!r}")
+
+    def step(params, opt_state, bstates, images, labels, ids):
+        params = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        logits, new_fw, slots = cnn.forward_train(params, images, policy,
+                                                  bstates or None, ids)
+        loss = xent_loss(logits, labels)
+        loss.backward()
+        grads = tree_map(lambda p: p.grad, params)
+        params, opt_state = apply_updates(opt, params, grads, opt_state)
+        new_states = [{"fw": f, "bw": slot.state}
+                      for f, slot, _ in zip(new_fw, slots, bstates)]
+        return params, opt_state, new_states, {
+            "loss": loss.detach(), "acc": _accuracy(logits, labels)}
+
+    return step
+
+
+def _make_pipeline_cnn_train_step(policy: CompressionPolicy,
+                                  opt: OptimizerConfig, *,
+                                  microbatches: Optional[int] = None,
+                                  schedule: str = "gpipe",
+                                  virtual_stages: int = 1):
+    """CNN training through the real compressed pipeline: stem and head
+    on the whole batch, the residual stages as ``policy.num_stages *
+    virtual_stages`` logical stage slices with packed payloads at every
+    cut.  With a feedback policy the buffers of ``bstates`` are updated
+    in place and come back with the new bw state."""
+    bp = _uniform_boundary(policy)
+    needs_state = bp.needs_fw_buffer or bp.needs_bw_buffer
+
+    def step(params, opt_state, bstates, images, labels, ids):
+        params = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        x = cnn.pipeline_stem(params, images)
+        x, new_fw, slot = pipeline_apply(
+            cnn.pipeline_stage_apply, params["stages"], x,
+            num_stages=policy.num_stages, policy=bp,
+            microbatches=microbatches, schedule=schedule,
+            virtual_stages=virtual_stages,
+            fw_state=bstates["fw"] if needs_state else None,
+            bw_state=bstates["bw"] if needs_state else None, ids=ids)
+        logits = cnn.pipeline_head(params, x)
+        loss = xent_loss(logits, labels)
+        loss.backward()
+        grads = tree_map(lambda p: p.grad, params)
+        params, opt_state = apply_updates(opt, params, grads, opt_state)
+        new_states = ({"fw": new_fw, "bw": slot.state} if needs_state
+                      else bstates)
+        return params, opt_state, new_states, {
+            "loss": loss.detach(), "acc": _accuracy(logits, labels),
+            "wire": dict(slot.wire)}
+
+    return step
+
+
+def make_cnn_eval_step(policy: CompressionPolicy, compress: bool,
+                       transport: str = "simulated"):
+    """Returns ``step(params, images, labels) -> (accuracy, loss)`` with
+    the cuts compressed by the plain fw compressor (``compress``) or
+    not."""
+    fwd = (cnn.pipeline_forward_eval if transport == "pipeline"
+           else cnn.forward_eval)
+
+    @torch.no_grad()
+    def step(params, images, labels):
+        logits = fwd(params, images, policy, compress=compress)
+        return _accuracy(logits, labels), xent_loss(logits, labels)
 
     return step

@@ -17,7 +17,8 @@ from repro_torch.core.policy import POLICIES
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.models import transformer
-from repro_torch.train.loop import run_lm_experiment
+from repro_torch.train.loop import (pretrain_lm, run_cnn_experiment,
+                                    run_lm_experiment)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -95,6 +96,13 @@ def test_entry_points_without_device_ask_for_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="cuda"):
         run_lm_experiment(cfg, POLICIES["none"](), epochs=1,
                           parallel=spec_from_cli("data=2", "data=q4"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_cnn_experiment(POLICIES["top10"](), epochs=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_cnn_experiment(POLICIES["q4q8"](), epochs=1,
+                           transport="pipeline", schedule="1f1b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        pretrain_lm(cfg, steps=1)
 
 
 def test_cpu_tensors_take_the_plain_path():

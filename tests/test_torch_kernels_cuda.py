@@ -709,3 +709,62 @@ def test_wire_wrappers_count_one_launch(gen):
     framing.unframe_parts(buf, [codes.numel(), meta.numel() * 4])
     assert _build.LAUNCHES == {"quantize_wire": 1, "frame_parts": 1,
                                "unframe_parts": 1}
+
+
+# the CNN slice's shapes: ResNet18's three cuts at batch 100 (tile (4,
+# 2048), 800 / 400 / 200 tiles), the pipeline CNN's compressed eval of a
+# whole test batch of 128 (tile (128, 2048)) and its hop, a microbatch of
+# 32 at 32 x 32 x 64, all f32
+CNN_CUTS = {(100, 65536): (4, 2048), (100, 32768): (4, 2048),
+            (100, 16384): (4, 2048), (128, 65536): (128, 2048)}
+CNN_HOP = (32, 65536)
+
+
+@pytest.mark.parametrize("shape", list(CNN_CUTS))
+def test_cut_kernels_bit_exact_at_the_cnn_cuts(gen, shape, monkeypatch):
+    cases = {"quant_dequant": lambda x: [ops.quant_dequant_op(x, bits)
+                                         for bits in (2, 4, 8)],
+             "topk_block": lambda x: [ops.topk_block_op(x, k_frac)
+                                      for k_frac in (0.1, 0.05)]}
+    for i, x in enumerate(_cut_inputs(gen, shape, torch.float32)):
+        assert ops._tile(x) == CNN_CUTS[shape]
+        for fn in cases.values():
+            got, want = _kernel_and_plain(lambda: fn(x), monkeypatch)
+            for a, b in zip(got, want):
+                assert torch.equal(_bits(a), _bits(b)), f"input {i}"
+
+
+def test_hop_kernels_bit_exact_at_the_cnn_hop(gen, monkeypatch):
+    """The q8 wire quantizer (wire tile (32, 2048)), the q4 pair with the
+    codec's expanded per-tensor pair, the TopK select (k 10%) and framing
+    of the q8 and the q4 payload, at the pipeline CNN's hop."""
+    block = tiling.wire_tiling(CNN_HOP)
+    assert block == (32, 2048)
+    k = max(1, int(round(0.1 * CNN_HOP[1])))
+    for x in _cut_inputs(gen, CNN_HOP, torch.float32, nonfinite=False):
+        got, want = _kernel_and_plain(
+            lambda: quantize.quantize_wire(x, 8, block), monkeypatch)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        mn, sc = (v.reshape(()).expand(CNN_HOP[0])
+                  for v in pack4.minmax_scale(x.reshape(1, -1)))
+        packed, want_p = _kernel_and_plain(
+            lambda: pack4.pack4_wire(x, mn, sc), monkeypatch)
+        assert torch.equal(packed, want_p)
+        got, want = _kernel_and_plain(
+            lambda: pack4.unpack4_wire(want_p, mn, sc, CNN_HOP[1]),
+            monkeypatch)
+        assert torch.equal(_bits(got), _bits(want))
+        got, want = _kernel_and_plain(
+            lambda: topk_select.topk_select_wire(x, k), monkeypatch)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        for codec in ("q8", "q4"):
+            parts = [a.reshape(-1).view(torch.uint8) for a in
+                     codecs.payload_leaves(codecs.get_codec(codec).pack(x))]
+            buf, want_b = _kernel_and_plain(
+                lambda: framing.frame_parts(parts), monkeypatch)
+            assert torch.equal(buf, want_b)
+            assert torch.equal(buf, torch.cat(parts))
+            segs = framing.unframe_parts(buf, [p.numel() for p in parts])
+            assert all(torch.equal(a, b) for a, b in zip(segs, parts))
