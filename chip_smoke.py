@@ -102,12 +102,39 @@ failure fatal:
      "# cnn precision" states) and in float32; a profile of one step per
      policy.  Phase 2 holds the cut kernels at the three cut shapes and
      the hop kernels at the (32, 65,536) f32 hop bit-exact and times them.
-  8. one ``{"kernels": [...]}`` line (launches summed over phases 3-7;
+  8. the pipeline x DP step on the (data, stage) grid (launch counters
+     set to 0 just before and read just after): full-width gpt2-small, 2
+     replica rows x 4 stages (interleaved: 2 stages x 2 virtual), global
+     batch 32 x 128, each row 16 as 4 microbatches of 4 (hops (4,
+     98,304) bf16, 24 a direction a step), the launch/train AdamW, 3 steps
+     under gpipe none + DP none, gpipe q4q8 + DP q8, gpipe EF21 TopK 10% +
+     DP q4+EF21, 1f1b AQ-SGD TopK 10% + DP topk 0.1+EF and interleaved
+     q4q8 + DP q8.  Holds exact launches per step (``pd_expected``), hop
+     bytes == each row's ``wire_telemetry`` x hops x dp, the ring's bytes
+     == S columns of ``dp_wire_report(shard_axis=S)`` x dp(dp-1), falling
+     losses, the none run against the dp = 1 pipeline on the same batch
+     as 8 microbatches of 4 (losses 1e-4 relative at step 1, 1e-3 after;
+     step 1's gradient, the reduced stack's alone too, within
+     ``PD_GRAD_REL`` of its norm), the same losses under the plain
+     backend (q4q8 + DP q8), one smoke step card vs CPU under q4q8 + DP
+     q8 and EF21 TopK + DP q4+EF21 (the loss, and the gradient the
+     optimizer is given within ``PD_CPU_GRAD_RTOL``), and ``launch/train
+     --mesh data=2,stage=4 --wire data=q8 --policy q4q8`` exiting 0;
+     tokens/s per run and a profile of one step.  Phase 4 adds q4q8 with
+     ``grad_accum=2`` (twice the cut launches a step), phase 6 q8 + q4q8
+     with ``grad_accum=2`` a lane; phase 2 holds the decode + sum at dp =
+     2 on one stage column's q8 / q4 payloads, and the q4 pair and the
+     select at the (4, 98,304) hop, bit-exact, and times them (4 rows fill
+     no (8, n) wire tile, so the q8 hop packs per tensor and launches no
+     ``quantize_wire``).
+  9. one ``{"kernels": [...]}`` line (launches summed over phases 3-8;
      the select kernels timed at the 38.6 M-element DP leaf), then the
-     ``{"ok": true, ...}`` line.
+     ``{"ok": true, ...}`` line.  Every number's line of phase 8 carries
+     the card's name and power limit.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -138,7 +165,10 @@ TRAIN_POLICIES = {"none": (("none", "none"), None, 0),
                   "q4q8": (("q4q8", "none"), "quant_dequant", 6),
                   "top10": (("top10", "none"), "topk_block", 6),
                   "top10reuse": (("top10reuse", "none"), "topk_block", 3),
-                  "aqsgd": (("none", "aqsgd"), "topk_block", 6)}
+                  "aqsgd": (("none", "aqsgd"), "topk_block", 6),
+                  # grad_accum=2: the batch as 2 pieces of 4, each piece's
+                  # cuts launching as a whole batch's do
+                  "q4q8/accum2": (("q4q8", "none"), "quant_dequant", 12)}
 LOSS_ATOL = 2e-3              # smoke-model loss, card vs CPU (tests/test_torch_train.py)
 CUT_SHAPE = (TRAIN_BATCH, TRAIN_SEQ * D_MODEL)
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
@@ -260,6 +290,9 @@ DP_RUNS = {
                             unframe_parts=DP)),
     "q8/aqsgd": ("q8", "none", 0.1, "none", "aqsgd",
                  _per_step(topk_block=6 * DP, **_Q_RING)),
+    # grad_accum=2 on each lane (2 pieces of 4), then one reduce
+    "q8/q4q8/accum2": ("q8", "none", 0.1, "q4q8", "none",
+                       _per_step(quant_dequant=12 * DP, **_Q_RING)),
 }
 DP_KERNELS = ("decode_sum_fused",)
 DPQ8 = f"DP decode dp={DP} q8, full-width gpt2-small payload"
@@ -312,6 +345,40 @@ CNN_TF32_GRAD_RTOL, CNN_F32_GRAD_RTOL = (5e-2, 0.25), (1e-5, 1e-4)
 # first steps (tests/test_torch_cnn_train.py holds the port's first steps
 # at width 32 to the reference's)
 CNN_FALLING = ("gpipe/top10",)
+# the pipeline x DP phase: 2 replica rows x 4 stages (interleaved: 2
+# stages x 2 virtual), global batch 32 x 128, each row 16 as 4 microbatches
+# of 4 -> a hop (4, 98,304) bf16, 12 hops a direction a row
+PD_DP, PD_BATCH, PD_SEQ, PD_STEPS, PD_MB, PD_STAGES = 2, 32, 128, 3, 4, 4
+PD_SAMPLES = 64               # AQ-SGD: 32 rows a replica, step 3 revisits
+PD_HOPS = PD_DP * PD_MB * (PD_STAGES - 1)      # 24 a direction a step
+PD_HOP = (PD_BATCH // (PD_DP * PD_MB), PD_SEQ * D_MODEL)
+PD_HOP_LABEL = f"pipeline x DP hop {PD_HOP} bf16"
+PD_HOP4_LABEL = f"pipeline x DP hop {PD_HOP} f32, the codec's expanded pair"
+PD_COL8 = f"DP decode dp={PD_DP} q8, one stage column (3 layers)"
+PD_COL4 = f"DP decode dp={PD_DP} q4, one stage column (3 layers)"
+# run -> (launch/train --policy, --feedback, schedule, virtual stages,
+#         DP codec, DP feedback, DP k_frac)
+PD_RUNS = {
+    "gpipe/none/none": ("none", "none", "gpipe", 1, "none", "none", 0.1),
+    "gpipe/q4q8/q8": ("q4q8", "none", "gpipe", 1, "q8", "none", 0.1),
+    "gpipe/ef21top10/q4+ef21": ("ef21top10", "none", "gpipe", 1, "q4",
+                                "ef21", 0.1),
+    "1f1b/aqsgd/topk+ef": ("none", "aqsgd", "1f1b", 1, "topk", "ef", 0.1),
+    "interleaved/q4q8/q8": ("q4q8", "none", "interleaved", 2, "q8", "none",
+                            0.1),
+}
+PD_REL_1, PD_REL_N = 1e-4, 1e-3   # (a) vs the dp = 1 pipeline: step 1, after
+# |g - g_ref| / |g_ref| of the gradient the optimizer is given, over the
+# whole tree and over the reduced layer stack alone.  A 1/dp slip of the
+# stack's reduce gives 0.5 on the stack.  (a) vs the dp = 1 pipeline at
+# step 1 (bf16 sums in another order; measured 3.3e-3 / 3.7e-3):
+PD_GRAD_REL = 1e-2
+# the smoke pipeline x DP step, card vs CPU, by cut policy: under q4q8
+# (measured 0.022 / 0.028), and under EF21 TopK 10%, whose selection at
+# the cut keeps other entries where the card's bf16 activations and the
+# CPU's differ in a last bit (measured 0.20 / 0.30; the port and the JAX
+# package part by up to 0.24 there, tests/test_torch_pipeline.py)
+PD_CPU_GRAD_RTOL = {"q4q8": 0.1, "ef21top10": 0.4}
 # a ragged gradient tree: an odd leaf (misaligned meta), a rank-3 stack,
 # a constant leaf (one code) and a leaf of 3 tiles and a bit
 RAGGED = [(7,), (5, 33), (2, 3, 17), (6,), (3 * 8192 + 5,)]
@@ -1038,13 +1105,13 @@ def replica_payload(torch, codecs, collectives, codec, shapes, gen,
                      for a in codecs.payload_leaves(payload)]
 
 
-def dp_bank(torch, codecs, collectives, codec, shapes, seed):
-    """(dp, nbytes) uint8 bank of ``DP`` replicas' fused gradient buffers,
+def dp_bank(torch, codecs, collectives, codec, shapes, seed, dp=DP):
+    """(dp, nbytes) uint8 bank of ``dp`` replicas' fused gradient buffers,
     its decode plans, payload structs and the last replica's segments."""
     from repro_torch.kernels import dp_reduce
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for _ in range(DP):
+    for _ in range(dp):
         payload, leaves = replica_payload(torch, codecs, collectives, codec,
                                           shapes, gen)
         buf = codecs.fuse_payload(payload)
@@ -1172,6 +1239,73 @@ def framing_cases(torch, D, framing, leaves, buf, sizes):
                           2 * buf.numel(), 0)})
 
 
+def pd_column_leaves(torch):
+    """Leaf shapes of one stage column of full-width gpt2-small's layer
+    stack (``stack_layer_stages`` into 4 slices, each column's 3 layers),
+    as the pipeline x DP reduce packs them."""
+    from repro_torch.configs.registry import get
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import tree_leaves
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(0), get("gpt2-small"))
+    stack = transformer.stack_layer_stages(params, PD_STAGES)
+    return [(a.shape[0] // PD_STAGES, *a.shape[1:])
+            for a in tree_leaves(stack)]
+
+
+def pd_kernels(torch, D, pack4, topk, codecs, collectives, tiling):
+    """Phase 2 at the pipeline x DP path's new shapes: the decode + sum
+    at dp = 2 on one stage column's q8 and q4 payloads (against its plain
+    version and the unfused loop), and at the (4, 98,304) hop the q4 pair
+    (f32, the codec's expanded pair) and the TopK select (bf16); every
+    one bit-exact, then timed with its bound.  Returns ({kernel: max
+    error}, {label: {name: row}})."""
+    from repro_torch.kernels import dp_reduce
+    err = dict.fromkeys(KERNELS, 0.0)
+    timed = {}
+    shapes = pd_column_leaves(torch)
+    for label, codec in ((PD_COL8, "q8"), (PD_COL4, "q4")):
+        bank, plans, structs, _ = dp_bank(torch, codecs, collectives, codec,
+                                          shapes, 12, dp=PD_DP)
+        got, want = kernel_and_plain(
+            torch, D, lambda: dp_reduce.decode_sum_fused(bank, plans, PD_DP))
+        err["decode_sum_fused"] = max(err["decode_sum_fused"],
+                                      max_err(torch, got, want))
+        c, loop = codecs.get_codec(codec), [None] * len(shapes)
+        for r in range(PD_DP):
+            pls = codecs.unfuse_payload(bank[r], structs)
+            for i, shape in enumerate(shapes):
+                m = collectives.unpack_grad_leaf(c, pls[i], shape)
+                loop[i] = m if loop[i] is None else loop[i] + m
+        max_err(torch, [a.reshape(l.shape) for a, l in zip(got, loop)], loop)
+        log(f"# decode_sum_fused bit-exact vs plain and the unfused loop: "
+            f"{label} ({bank.shape[1]} B a replica)")
+        total = sum(p.n for p in plans)
+        timed[label] = time_cases(torch, D, {"decode_sum_fused": (
+            lambda: dp_reduce.decode_sum_fused(bank, plans, PD_DP),
+            "decode_sum_kernel", None, PD_DP * bank.shape[1] + 4 * total,
+            2 * PD_DP * total)})
+        del bank
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    hop32 = torch.randn(PD_HOP, generator=gen, device="cuda")
+    hop = hop32.to(torch.bfloat16)
+    # 4 rows fill no (8, n) wire tile: the q8 hop packs per tensor, as
+    # the reference's does, and launches no quantize_wire
+    assert tiling.wire_tiling(PD_HOP) is None
+    for name, e in zip(("pack4_wire", "unpack4_wire"), check_q4(
+            torch, D, pack4, hop32, *per_tensor_pair(pack4, hop32))):
+        err[name] = e
+    check_select(torch, D, topk, hop)
+    log(f"# the q4 pair and the select bit-exact vs plain: {PD_HOP_LABEL}")
+    timed[PD_HOP_LABEL] = time_select(torch, D, topk, [hop])
+    timed[PD_HOP4_LABEL] = time_pack4(torch, D, pack4, hop32,
+                                      per_tensor=True)
+    for label, rows in timed.items():
+        for name, row in rows.items():
+            log(f"# {name} {label}: " + json.dumps(row))
+    return err, timed
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving
 # ---------------------------------------------------------------------------
@@ -1290,6 +1424,11 @@ def check_against_cpu(torch, transformer, get):
 # phase 4: training
 # ---------------------------------------------------------------------------
 
+def grad_accum_of(name):
+    """The gradient-accumulation pieces of a phase 4 or 6 run."""
+    return 2 if name.endswith("/accum2") else 1
+
+
 def train_run(torch, cfg, params, name, build, steps=TRAIN_STEPS,
               profile_step=None):
     """``steps`` train steps of ``name`` from ``params``, built as
@@ -1311,7 +1450,8 @@ def train_run(torch, cfg, params, name, build, steps=TRAIN_STEPS,
                                    num_samples=AQSGD_SAMPLES,
                                    dtype=torch.bfloat16, device="cuda")
                for i in range(cuts)]
-    step = make_lm_train_step(cfg, policy, opt)
+    step = make_lm_train_step(cfg, policy, opt,
+                              grad_accum=grad_accum_of(name))
     stream = synthetic_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, 0,
                               num_samples=AQSGD_SAMPLES)
     opt_state = init_opt_state(opt, params)
@@ -1376,6 +1516,13 @@ def train(torch, D, build):
             "policy": name, "losses": losses,
             "launches_per_step": run["launches"][0],
             "step_s": run["seconds"], "tokens_per_s_steps_2_to_4": tok_s}))
+    one, two = (runs[n]["launches"][0]["quant_dequant"]
+                for n in ("q4q8", "q4q8/accum2"))
+    if two != 2 * one:
+        raise AssertionError(f"q4q8 with grad_accum=2 launched {two} cut "
+                             f"kernels a step, not twice {one}")
+    log(f"# q4q8 with grad_accum=2: {two} cut launches a step, twice the "
+        f"un-accumulated run's {one}")
 
     D.KERNEL_BACKEND = "plain"
     try:
@@ -1679,9 +1826,11 @@ def dp_spec(name):
                                           k_frac=k_frac)})
 
 
-def make_timed_dp_step(torch, cfg, policy, opt, spec, reduce_events):
-    """``make_lm_train_step(parallel=spec)`` whose reduce records a pair
-    of CUDA events around each call into ``reduce_events``."""
+def make_timed_dp_step(torch, cfg, policy, opt, spec, reduce_events,
+                       grad_accum=1):
+    """``make_lm_train_step(parallel=spec, grad_accum=...)`` whose reduce
+    records a pair of CUDA events around each call into
+    ``reduce_events``."""
     import repro_torch.train.steps as TS
     real = TS.make_grad_all_reduce
 
@@ -1699,7 +1848,8 @@ def make_timed_dp_step(torch, cfg, policy, opt, spec, reduce_events):
 
     TS.make_grad_all_reduce = timed
     try:
-        return TS.make_lm_train_step(cfg, policy, opt, parallel=spec)
+        return TS.make_lm_train_step(cfg, policy, opt, parallel=spec,
+                                     grad_accum=grad_accum)
     finally:
         TS.make_grad_all_reduce = real
 
@@ -1728,7 +1878,7 @@ def dp_run(torch, cfg, params, name, build, steps=DP_STEPS,
                for i in range(cuts)]
     reduce_events = []
     step = make_timed_dp_step(torch, cfg, policy, opt, dp_spec(name),
-                              reduce_events)
+                              reduce_events, grad_accum_of(name))
     dp_state = init_lm_dp_state(cfg, params, policy, DP, dfb)
     stream = synthetic_stream(cfg, DP_BATCH, DP_SEQ, 0,
                               num_samples=DP_SAMPLES, dp=DP)
@@ -2260,9 +2410,8 @@ def cnn(torch, D, build):
 
 def check_cnn_against_cpu(torch, C, data):
     """One uncompressed step of a width-8 ResNet on the card and on the
-    CPU (which the CPU tests hold to the JAX package): the loss and the
-    updated params, and the gradients (the step run again with the
-    optimizer swapped for one that hands back the gradients).  Convs in
+    CPU (which the CPU tests hold to the JAX package): the loss, the
+    updated params and the gradient the optimizer was given.  Convs in
     TF32 (the default): loss and params within ``CNN_TF32_ATOL``, the
     gradient tree and each leaf within ``CNN_TF32_GRAD_RTOL`` of its
     norm; with TF32 off, ``CNN_F32_ATOL`` and ``CNN_F32_GRAD_RTOL``."""
@@ -2274,20 +2423,17 @@ def check_cnn_against_cpu(torch, C, data):
     x, y, ids = next(data.epoch(16, 0))
     out = {}
     tf32 = torch.backends.cudnn.allow_tf32
-    apply_updates = TS.apply_updates
     for dev, allow_tf32 in (("cpu", tf32), ("cuda", True), ("cuda", False)):
         torch.backends.cudnn.allow_tf32 = allow_tf32
         args = [torch.from_numpy(a).to(dev) for a in (x, y, ids)]
-        p = _tree_to(params, dev)
+        p, grads = _tree_to(params, dev), []
         try:
-            new, _, _, m = step(p, init_opt_state(opt, p), [], *args)
-            TS.apply_updates = lambda o, p_, g, s: (g, s)
-            grads, _, _, _ = step(p, init_opt_state(opt, p), [], *args)
+            with first_gradient(grads):
+                new, _, _, m = step(p, init_opt_state(opt, p), [], *args)
         finally:
-            TS.apply_updates = apply_updates
             torch.backends.cudnn.allow_tf32 = tf32
         out[(dev, allow_tf32)] = (float(m["loss"]), _tree_to(new, "cpu"),
-                                  _tree_to(grads, "cpu"))
+                                  _tree_to(grads[0], "cpu"))
     cpu_loss, cpu_params, cpu_grads = out[("cpu", tf32)]
     for allow_tf32, tol, rtol in ((True, CNN_TF32_ATOL, CNN_TF32_GRAD_RTOL),
                                   (False, CNN_F32_ATOL, CNN_F32_GRAD_RTOL)):
@@ -2299,9 +2445,7 @@ def check_cnn_against_cpu(torch, C, data):
                  in zip(_leaves(grads), _leaves(cpu_grads), strict=True)]
         rel = {k: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
                for k, a, b in pairs}
-        whole = (math.sqrt(sum((a - b).norm().item() ** 2
-                               for _, a, b in pairs))
-                 / math.sqrt(sum(b.norm().item() ** 2 for _, _, b in pairs)))
+        whole = tree_rel_gap(grads, cpu_grads)
         order = sorted(rel, key=rel.get, reverse=True)
         prec = "TF32" if allow_tf32 else "float32"
         if not (math.isfinite(loss) and gap <= tol and whole <= rtol[0]
@@ -2320,6 +2464,361 @@ def check_cnn_against_cpu(torch, C, data):
             + f", median {rel[order[len(order) // 2]]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the pipeline x DP step (the 2D data x stage grid)
+# ---------------------------------------------------------------------------
+
+def pd_stages(name):
+    """(stages, virtual stages) of a phase 8 run."""
+    v = PD_RUNS[name][3]
+    return PD_STAGES // v, v
+
+
+def pd_policy(name):
+    import dataclasses
+    from repro_torch.launch.train import build_policy
+    pname, feedback = PD_RUNS[name][:2]
+    return dataclasses.replace(build_policy(pname, feedback, 0.1),
+                               num_stages=pd_stages(name)[0])
+
+
+def pd_run(torch, cfg, params, name, build, steps=PD_STEPS,
+           profile_step=None, smi=""):
+    """``steps`` pipeline x DP train steps of run ``name`` from
+    ``params``, built as ``launch/train --mesh data=2,stage=S --wire
+    data=...`` builds its run.  Returns the losses, each step's launches,
+    wire counters and wall seconds, the final params and the profile of
+    ``profile_step``."""
+    from repro_torch.core.parallel import AxisSpec, ParallelSpec
+    from repro_torch.launch.train import synthetic_stream
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.loop import _pipeline_bstates, init_lm_dp_state
+    from repro_torch.train.steps import make_lm_train_step
+
+    _, _, sched, _, codec, dfb, k_frac = PD_RUNS[name]
+    stages, v = pd_stages(name)
+    policy = pd_policy(name)
+    spec = ParallelSpec({"data": AxisSpec(size=PD_DP, codec=codec,
+                                          feedback=dfb, k_frac=k_frac),
+                         "stage": stages})
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="cosine", t_max=steps, grad_clip=1.0)
+    bstates = _pipeline_bstates(policy, (PD_SEQ, cfg.d_model),
+                                batch=PD_BATCH, microbatches=PD_MB,
+                                num_samples=PD_SAMPLES,
+                                dtype=torch.bfloat16, virtual_stages=v,
+                                dp=PD_DP, device="cuda")
+    dp_state = init_lm_dp_state(cfg, params, policy, PD_DP, dfb,
+                                transport="pipeline", virtual_stages=v)
+    step = make_lm_train_step(cfg, policy, opt, transport="pipeline",
+                              pipeline_microbatches=PD_MB, schedule=sched,
+                              virtual_stages=v, parallel=spec)
+    stream = synthetic_stream(cfg, PD_BATCH, PD_SEQ, 0,
+                              num_samples=PD_SAMPLES, dp=PD_DP)
+    opt_state = init_opt_state(opt, params)
+    out = {"losses": [], "launches": [], "wire": [], "seconds": [],
+           "profile": None}
+    for i in range(1, steps + 1):
+        toks, ids = next(stream)
+        batch = {"tokens": torch.from_numpy(toks).to("cuda", torch.int64)}
+        ids = torch.from_numpy(ids).to("cuda")
+        before = dict(build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        args = (params, opt_state, bstates, batch, ids, dp_state)
+        if i == profile_step:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                params, opt_state, bstates, dp_state, m = step(*args)
+                torch.cuda.synchronize()
+            out["profile"] = prof
+        else:
+            params, opt_state, bstates, dp_state, m = step(*args)
+            torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["losses"].append(float(m["loss"]))
+        out["wire"].append(m["wire"])
+        out["launches"].append({k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+                                for k in KERNELS})
+    out["params"] = params
+    return out
+
+
+def pd_expected(name, params):
+    """Launches, hops and bytes per step of run ``name``, worked out from
+    its parts: each replica row's hops from ``wire_telemetry`` (x dp
+    rows), and the ring from ``dp_wire_report(shard_axis=S)`` of the
+    layer stack (S columns of dp (dp - 1) hops of one column's payload).
+    Launches: the hop codec's per hop and direction (q4 forward: the q4
+    pair; q8 backward: ``quantize_wire`` where the hop fills (8, n) wire
+    tiles, none at 4 rows, which pack per tensor; TopK: the select, both
+    directions; a fused schedule frames and unframes every hop); the
+    ring's per column (q8: a framing launch a replica and one decode; q4
+    also packs every leaf a replica, and with EF21 unpacks its own;
+    TopK: the select on every leaf a replica and framing both ways a
+    replica; raw: framing both ways a replica)."""
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.transport.collectives import dp_wire_report
+    from repro_torch.transport.pipeline import (PipelineTransport,
+                                                wire_telemetry)
+    from repro_torch.transport.schedules import get_schedule
+    from repro_torch.kernels.tiling import wire_tiling
+    from repro_torch.train.steps import _uniform_boundary
+    pname, feedback, sched, _, codec, dfb, k_frac = PD_RUNS[name]
+    stages, v = pd_stages(name)
+    bp = _uniform_boundary(pd_policy(name))
+    schedule = get_schedule(sched, v)
+    tel = wire_telemetry(PipelineTransport(bp, stages, virtual_stages=v,
+                                           fused=schedule.fused_wire),
+                         schedule, (PD_HOP[0], PD_SEQ, D_MODEL),
+                         microbatches=PD_MB)
+    hops = PD_DP * PD_MB * tel["wire_cuts"]
+    assert hops == PD_HOPS, (name, hops)
+    launches = dict.fromkeys(KERNELS, 0)
+    for comp in (bp.fw, bp.bw):                 # each direction's codec
+        if comp.kind == "quant" and comp.bits == 4:
+            launches["pack4_wire"] += hops
+            launches["unpack4_wire"] += hops
+        elif comp.kind == "quant" and wire_tiling(PD_HOP) is not None:
+            launches["quantize_wire"] += hops   # q8 in (8, n) tiles
+        elif comp.kind == "topk":
+            launches["topk_threshold"] += hops
+            launches["topk_compact"] += hops
+    if schedule.fused_wire:
+        launches["frame_parts"] += 2 * hops
+        launches["unframe_parts"] += 2 * hops
+    stack = transformer.stack_layer_stages(params, stages * v)
+    n_leaves = len(tree_leaves(stack))
+    rep = dp_wire_report(stack, codec, k_frac=k_frac, dp=PD_DP,
+                         shard_axis=stages)
+    ring_bytes = rep["columns"] * PD_DP * rep["wire_bytes_per_reduce"]
+    for _ in range(rep["columns"]):
+        launches["frame_parts"] += PD_DP
+        if codec in ("q8", "q4"):
+            launches["decode_sum_fused"] += 1
+        else:
+            launches["unframe_parts"] += PD_DP
+        if codec == "q4":
+            launches["pack4_wire"] += PD_DP * n_leaves
+            if dfb == "ef21":
+                launches["unpack4_wire"] += PD_DP * n_leaves
+        if codec == "topk":
+            launches["topk_threshold"] += PD_DP * n_leaves
+            launches["topk_compact"] += PD_DP * n_leaves
+    wire = {"fw_hops": hops, "bw_hops": hops,
+            "fw_bytes": hops * tel["fw_payload_bytes_per_hop"],
+            "bw_bytes": hops * tel["bw_payload_bytes_per_hop"],
+            "dp_hops": stages * PD_DP * (PD_DP - 1), "dp_bytes": ring_bytes}
+    return launches, wire
+
+
+def pipeline_dp(torch, D, build, smi):
+    from repro_torch.configs.registry import get
+    from repro_torch.models import transformer
+
+    cfg = get("gpt2-small")
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    build.reset_launches()                  # the pipeline x DP path starts
+    runs, grad_a = {}, []
+    for name in PD_RUNS:
+        with first_gradient(grad_a if name == "gpipe/none/none" else []):
+            runs[name] = pd_run(torch, cfg, params, name, build)
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}  # read here
+    log(f"# pipeline x DP path launches {launches}")
+    for name in PD_RUNS:
+        run = runs[name]
+        want, wire = pd_expected(name, params)
+        for i, got in enumerate(run["launches"]):
+            if got != want:
+                raise AssertionError(f"pipeline x DP {name} step {i + 1}: "
+                                     f"launches {got}, expected {want}")
+        for i, got in enumerate(run["wire"]):
+            if got != wire:
+                raise AssertionError(f"pipeline x DP {name} step {i + 1}: "
+                                     f"wire {got}, expected {wire}")
+        losses = run["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"pipeline x DP {name}: non-finite loss "
+                                 f"{losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"pipeline x DP {name}: loss did not fall "
+                                 f"{losses}")
+        tok_s = (PD_BATCH * PD_SEQ * (PD_STEPS - 1)
+                 / sum(run["seconds"][1:]))
+        log("# pipeline x DP " + json.dumps({
+            "run": name, "card": smi, "losses": losses,
+            "launches_per_step": {k: x for k, x in run["launches"][0].items()
+                                  if x},
+            "wire_per_step": run["wire"][0], "step_s": run["seconds"],
+            "tokens_per_s_steps_2_to_3": tok_s}))
+
+    # (a) against the dp = 1 pipeline on the same batch: its 8
+    # microbatches of 4 are the hop tensors of the two rows' 4 each
+    grad_solo = []
+    with first_gradient(grad_solo):
+        solo = pd_solo(torch, cfg, params)
+    gaps = [abs(a - b) / abs(b) for a, b in
+            zip(runs["gpipe/none/none"]["losses"], solo)]
+    # step 1's gradient: the stack's is the reduced sum of the two rows'
+    grad_gaps = {"tree": tree_rel_gap(grad_a[0], grad_solo[0]),
+                 "stack": tree_rel_gap(grad_a[0]["layers"],
+                                       grad_solo[0]["layers"])}
+    del grad_a, grad_solo
+    log("# pipeline x DP gpipe/none/none vs the dp = 1 pipeline (8 "
+        "microbatches of 4) " + json.dumps({
+            "card": smi, "dp2": runs["gpipe/none/none"]["losses"],
+            "dp1": solo, "relative_gap": gaps,
+            "bounds": [PD_REL_1] + [PD_REL_N] * (PD_STEPS - 1),
+            "step_1_gradient_relative_gap": grad_gaps,
+            "gradient_bound": PD_GRAD_REL}))
+    if not (gaps[0] <= PD_REL_1 and all(g <= PD_REL_N for g in gaps[1:])
+            and all(g <= PD_GRAD_REL for g in grad_gaps.values())):
+        raise AssertionError(f"pipeline x DP (a) vs dp = 1: relative loss "
+                             f"gaps {gaps}, step 1 gradient {grad_gaps}")
+
+    name = "gpipe/q4q8/q8"
+    D.KERNEL_BACKEND = "plain"
+    try:
+        plain = pd_run(torch, cfg, params, name, build)["losses"]
+    finally:
+        D.KERNEL_BACKEND = "auto"
+    if plain != runs[name]["losses"]:
+        raise AssertionError(f"pipeline x DP {name}: plain backend losses "
+                             f"{plain} != {runs[name]['losses']}")
+    log(f"# plain backend on the card gives identical pipeline x DP losses "
+        f"under {name}: {plain}")
+
+    check_pipeline_dp_against_cpu(torch, transformer, get)
+    check_launcher_2d(smi)
+    prof = pd_run(torch, cfg, params, name, build, steps=2, profile_step=2)
+    dev = sorted(device_events(prof["profile"]), reverse=True)
+    busy_ms = sum(ms for ms, _ in dev)
+    wall_ms = prof["seconds"][1] * 1e3
+    step_ms = 1e3 * min(runs[name]["seconds"][1:])
+    log("# pipeline x DP profile " + json.dumps({
+        "run": name, "card": smi, "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / wall_ms,
+        "unprofiled_step_ms": step_ms,
+        "device_idle_share_unprofiled": 1 - busy_ms / step_ms,
+        "top_device_ms": [[key[:60], ms] for ms, key in dev[:8]]}))
+    return launches
+
+
+def pd_solo(torch, cfg, params):
+    """Run (a)'s losses from the dp = 1 pipeline: 4 stages, the global
+    batch as 8 microbatches of 4."""
+    import dataclasses
+    from repro_torch.launch.train import build_policy, synthetic_stream
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.steps import make_lm_train_step
+    policy = dataclasses.replace(build_policy("none", "none", 0.1),
+                                 num_stages=PD_STAGES)
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="cosine", t_max=PD_STEPS, grad_clip=1.0)
+    step = make_lm_train_step(cfg, policy, opt, transport="pipeline",
+                              pipeline_microbatches=PD_DP * PD_MB)
+    stream = synthetic_stream(cfg, PD_BATCH, PD_SEQ, 0,
+                              num_samples=PD_SAMPLES, dp=PD_DP)
+    opt_state, losses = init_opt_state(opt, params), []
+    for _ in range(PD_STEPS):
+        toks, ids = next(stream)
+        params, opt_state, _, m = step(
+            params, opt_state, [],
+            {"tokens": torch.from_numpy(toks).to("cuda", torch.int64)},
+            torch.from_numpy(ids).to("cuda"))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def check_pipeline_dp_against_cpu(torch, transformer, get):
+    """One pipeline x DP step of the smoke model (4 layer groups, dp 2 x
+    2 stages, batch 16 x 32, 2 microbatches a row) on the card and on the
+    CPU, which the CPU tests hold to the JAX package: runs (b) (q4q8 cuts,
+    DP q8) and (c) (EF21 TopK 10% cuts, DP q4 + EF21).  It holds the loss
+    (the forward pass) within
+    ``check_pipeline_against_cpu``'s compressed bound, and the gradient
+    (the backward pass, the stage-column reduce of the stack's and its
+    fold into ``params["layers"]``): the whole tree and the stack's alone
+    within ``PD_CPU_GRAD_RTOL[policy]`` of their norms."""
+    import dataclasses
+    import numpy as np
+    import repro_torch.train.steps as TS
+    from repro_torch.core.parallel import AxisSpec, ParallelSpec
+    from repro_torch.launch.train import build_policy
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.loop import _pipeline_bstates, init_lm_dp_state
+    cfg = dataclasses.replace(get("gpt2-small", smoke=True), num_layers=4)
+    params = transformer.init_params(torch.Generator().manual_seed(1), cfg)
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="cosine", t_max=1, grad_clip=1.0)
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (16, 32)))
+    for pname, codec, dfb in (("q4q8", "q8", "none"),
+                              ("ef21top10", "q4", "ef21")):
+        policy = dataclasses.replace(build_policy(pname, "none", 0.1),
+                                     num_stages=2)
+        spec = ParallelSpec({"data": AxisSpec(size=2, codec=codec,
+                                              feedback=dfb), "stage": 2})
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = _tree_to(params, dev)
+            st = _pipeline_bstates(policy, (32, cfg.d_model), batch=16,
+                                   microbatches=2, dtype=torch.bfloat16,
+                                   dp=2, device=dev)
+            dst = init_lm_dp_state(cfg, p, policy, 2, dfb,
+                                   transport="pipeline")
+            step = TS.make_lm_train_step(cfg, policy, opt,
+                                         transport="pipeline",
+                                         pipeline_microbatches=2,
+                                         parallel=spec)
+            grads = []
+            with first_gradient(grads):
+                *_, m = step(p, init_opt_state(opt, p), st,
+                             {"tokens": toks.to(dev)},
+                             torch.arange(16, device=dev), dst)
+            out[dev] = (float(m["loss"]), _tree_to(grads[0], "cpu"))
+        (loss, grads), (cpu_loss, cpu_grads) = out["cuda"], out["cpu"]
+        gap = abs(loss - cpu_loss)
+        rel = tree_rel_gap(grads, cpu_grads)
+        rel_stack = tree_rel_gap(grads["layers"], cpu_grads["layers"])
+        rtol = PD_CPU_GRAD_RTOL[pname]
+        what = f"smoke pipeline x DP step {pname} + DP {codec}+{dfb}"
+        if not (math.isfinite(loss) and gap <= LM_LOSS_ATOL
+                and rel <= rtol and rel_stack <= rtol):
+            raise AssertionError(f"{what}: card loss {loss} vs CPU "
+                                 f"{cpu_loss}; gradient off by {rel} of "
+                                 f"its norm, the stack's by {rel_stack}")
+        log(f"# {what}, card vs CPU: loss {loss} vs {cpu_loss}, gap {gap} "
+            f"(<= {LM_LOSS_ATOL}); gradient |card - CPU| / |CPU| {rel}, "
+            f"the reduced stack's {rel_stack} (<= {rtol})")
+
+
+def check_launcher_2d(smi):
+    """``launch/train --mesh data=2,stage=4 --wire data=q8 --policy q4q8``
+    for 2 steps at full width exits 0 with finite losses."""
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--mesh",
+            "data=2,stage=4", "--wire", "data=q8", "--policy", "q4q8",
+            "--steps", "2", "--batch", str(PD_BATCH), "--seq", str(PD_SEQ),
+            "--pipeline-microbatches", str(PD_MB), "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    recs = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")]
+    if (proc.returncode != 0 or [r["step"] for r in recs] != [1, 2]
+            or not all(math.isfinite(r["loss"]) for r in recs)):
+        raise AssertionError(f"launch/train --mesh data=2,stage=4 exited "
+                             f"{proc.returncode}: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+    log("# launch/train --mesh data=2,stage=4 --wire data=q8 --policy q4q8 "
+        "exits 0: " + json.dumps({"card": smi, "steps": recs}))
+
+
 def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -2329,6 +2828,36 @@ def _leaves(tree, prefix=""):
             yield from _leaves(v, f"{prefix}/{i}")
     else:
         yield prefix, tree
+
+
+def tree_rel_gap(got, want) -> float:
+    """|got - want| / |want| over every leaf of two trees of one layout,
+    in float64."""
+    num = den = 0.0
+    for (_, a), (_, b) in zip(_leaves(got), _leaves(want), strict=True):
+        a, b = a.double(), b.double()
+        num += (a - b).square().sum().item()
+        den += b.square().sum().item()
+    return math.sqrt(num / max(den, 1e-300))
+
+
+@contextlib.contextmanager
+def first_gradient(into: list):
+    """While open, a train step's first call to its optimizer also puts
+    the gradient tree it was given into ``into``."""
+    import repro_torch.train.steps as TS
+    real = TS.apply_updates
+
+    def spy(o, p, g, s):
+        if not into:
+            into.append(g)
+        return real(o, p, g, s)
+
+    TS.apply_updates = spy
+    try:
+        yield
+    finally:
+        TS.apply_updates = real
 
 
 def _tree_to(tree, device):
@@ -2403,8 +2932,11 @@ def main() -> int:
         timed.setdefault(label, {}).update(rows)
     cnn_err, cnn_timed = cnn_kernels(torch, D, ops, quantize, pack4, topk,
                                      framing, codecs, tiling)
-    err = {k: max(err.get(k, 0.0), cnn_err[k]) for k in KERNELS}
+    pd_err, pd_timed = pd_kernels(torch, D, pack4, topk, codecs,
+                                  collectives, tiling)
+    err = {k: max(err.get(k, 0.0), cnn_err[k], pd_err[k]) for k in KERNELS}
     timed.update(cnn_timed)
+    timed.update(pd_timed)
     torch.cuda.empty_cache()
     for label, rows in timed.items():
         for name, row in ({"decode_sum_fused": rows} if "ms" in rows
@@ -2415,14 +2947,15 @@ def main() -> int:
                     f"the launches; its times are not to be used")
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
-    # -- phases 3-7: each main path, its counts set to 0 just before it and
+    # -- phases 3-8: each main path, its counts set to 0 just before it and
     # read just after; the kernels line sums them
     paths = []
     for phase, run in ((3, lambda: serve(torch, np, D, _build)),
                        (4, lambda: train(torch, D, _build)),
                        (5, lambda: pipeline(torch, D, _build)),
                        (6, lambda: data_parallel(torch, D, _build)),
-                       (7, lambda: cnn(torch, D, _build))):
+                       (7, lambda: cnn(torch, D, _build)),
+                       (8, lambda: pipeline_dp(torch, D, _build, smi))):
         paths.append(run())
         log(f"# phase {phase} done at {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
@@ -2430,7 +2963,7 @@ def main() -> int:
         if not v:
             raise AssertionError(f"{k} was launched on no main path")
 
-    # -- phase 8 ------------------------------------------------------------
+    # -- phase 9 ------------------------------------------------------------
     line = []
     for name, (src, replaces) in KERNELS.items():
         row = (timed[DPQ8] if name in DP_KERNELS else

@@ -81,8 +81,10 @@ def save(path: str, tree, step: int = 0, extra: dict = None) -> None:
 
 
 def restore_params(path: str, params_like) -> Tuple[dict, int]:
-    """Params from either format, in the structure, shapes and dtypes of
-    ``params_like`` and on its devices.  Returns ``(params, step)``;
+    """Params from either format, in the structure and shapes of
+    ``params_like`` and on its devices.  As the reference's ``restore``,
+    only shapes are checked: each leaf comes back in the dtype the file
+    holds, whatever ``params_like``'s dtype.  Returns ``(params, step)``;
     raises :class:`CheckpointMismatch` listing every missing or
     mismatched key."""
     leaves = _flatten(params_like)
@@ -92,10 +94,9 @@ def restore_params(path: str, params_like) -> Tuple[dict, int]:
         flat = {k[len("params/"):]: v for k, v in flat.items()
                 if k.startswith("params/")}
     missing = sorted(k for k in leaves if k not in flat)
-    bad = sorted(f"{k}: saved {tuple(flat[k].shape)} {flat[k].dtype} != "
-                 f"{tuple(v.shape)} {v.dtype}"
-                 for k, v in leaves.items() if k in flat
-                 and (flat[k].shape != v.shape or flat[k].dtype != v.dtype))
+    bad = sorted(f"{k}: saved {tuple(flat[k].shape)} != {tuple(v.shape)}"
+                 for k, v in leaves.items()
+                 if k in flat and flat[k].shape != v.shape)
     if missing or bad:
         raise CheckpointMismatch(
             f"checkpoint {path!r} does not match the params: missing "

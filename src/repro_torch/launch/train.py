@@ -14,6 +14,11 @@ Runs on ``cuda`` unless ``--device cpu``.
       --schedule 1f1b --pipeline-microbatches 2 --policy q4q8
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
       --smoke --device cpu --mesh data=2 --wire data=q4+ef --policy q4q8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
+      --mesh data=2,stage=4 --wire data=q8 --policy q4q8 --batch 32 \\
+      --pipeline-microbatches 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
+      --smoke --device cpu --grad-accum 2 --policy q4q8
 
 ``--transport simulated`` compresses simulated stage cuts;
 ``--transport pipeline`` runs the layer stack through the real
@@ -22,12 +27,15 @@ compressed pipeline (``--stages``, ``--schedule``, ``--virtual-stages``,
 device), and its JSON lines add the step's forward and backward wire
 bytes.  ``--mesh data=N --wire data=codec[+feedback][:k]`` (or the
 deprecated ``--dp`` / ``--dp-codec`` / ``--dp-feedback`` /
-``--dp-k-frac``) adds N data-parallel lanes on the simulated transport
-with the compressed gradient all-reduce; the JSON lines add the ring's
-``dp_bytes`` per step.  Static named policies and ``--grad-accum 1``
-only; the reference's other flags (a mesh with a tensor axis or with
-both data and stage axes, rule-spec policies and axis codecs,
-checkpoints, telemetry) exit with an error saying so.
+``--dp-k-frac``) adds N data-parallel replicas with the compressed
+gradient all-reduce: lanes around the simulated cuts, or, with
+``stage=S`` too (or ``--transport pipeline``), N pipelines of S stages
+whose layer-stack gradients cross the reduce in S stage columns; the
+JSON lines add the ring's ``dp_bytes`` per step.  ``--grad-accum K``
+(deprecated alias ``--microbatches``) splits each step's batch into K
+pieces on the simulated transport.  Static named policies only; the
+reference's other flags (a mesh with a tensor axis, rule-spec policies
+and axis codecs, checkpoints, telemetry) exit with an error saying so.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import json
 import math
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -54,8 +63,8 @@ from repro_torch.train.steps import _resolve_parallel, make_lm_train_step
 from repro_torch.transport.schedules import get_schedule
 
 # Flags of the reference launcher that belong to features not ported yet.
-NOT_PORTED = ("--microbatches", "--ckpt", "--save-every", "--ckpt-every",
-              "--resume", "--trace", "--perfetto", "--metrics")
+NOT_PORTED = ("--ckpt", "--save-every", "--ckpt-every", "--resume",
+              "--trace", "--perfetto", "--metrics")
 
 
 def synthetic_stream(cfg, batch: int, seq: int, seed: int = 0,
@@ -138,9 +147,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default=None, metavar="SPEC",
                     help="mesh sizes, 'data=2' (axis aliases dp/pp/tp/model "
                          "accepted; missing axes default to 1).  stage>1 "
-                         "implies --transport pipeline; a tensor axis, and "
-                         "data>1 with stage>1, are not yet ported.  "
-                         "Replaces --dp/--stages")
+                         "implies --transport pipeline, and data>1 with "
+                         "stage>1 runs the 2D (data, stage) grid; a tensor "
+                         "axis is not yet ported.  Replaces --dp/--stages")
     ap.add_argument("--wire", default=None, metavar="SPEC",
                     help="per-axis wire config "
                          "'axis=codec[+feedback][:k_frac]', e.g. "
@@ -174,7 +183,13 @@ def main(argv=None) -> int:
                     help="AQ-SGD per-example buffer size; the stream's ids "
                          "cycle modulo this")
     ap.add_argument("--lr", type=float, default=1e-3)
-    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--grad-accum", type=int, default=1,
+                    help="gradient-accumulation splits of the global batch "
+                         "(bounds activation memory at B/grad_accum)")
+    ap.add_argument("--microbatches", type=int, default=None,
+                    help="DEPRECATED alias for --grad-accum (and, with "
+                         "--transport pipeline, for "
+                         "--pipeline-microbatches)")
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -186,8 +201,25 @@ def main(argv=None) -> int:
             ap.error(f"{flag.split('=')[0]} is not yet ported to repro_torch")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
-    if args.grad_accum != 1:
-        ap.error("--grad-accum > 1 is not yet ported to repro_torch")
+    grad_accum = args.grad_accum
+    pipeline_mb = args.pipeline_microbatches
+    if args.microbatches is not None:
+        if args.transport == "pipeline":
+            if pipeline_mb is not None:
+                ap.error("--microbatches (deprecated) conflicts with "
+                         "--pipeline-microbatches — drop --microbatches")
+            warnings.warn("--microbatches is deprecated: use "
+                          "--pipeline-microbatches for the pipeline "
+                          "microbatch count", DeprecationWarning)
+            if args.microbatches > 1:
+                pipeline_mb = args.microbatches
+        else:
+            if grad_accum != 1:
+                ap.error("--microbatches (deprecated) conflicts with "
+                         "--grad-accum — drop --microbatches")
+            warnings.warn("--microbatches is deprecated: use --grad-accum "
+                          "for gradient accumulation", DeprecationWarning)
+            grad_accum = args.microbatches
     if args.policy not in POLICIES:
         ap.error(f"--policy {args.policy!r}: rule-spec policies are not yet "
                  f"ported to repro_torch (named: "
@@ -229,12 +261,10 @@ def main(argv=None) -> int:
         policy_eff, transport = policy, args.transport
         dp_n, dp_codec, dp_feedback = args.dp, args.dp_codec, args.dp_feedback
     pipeline = transport == "pipeline"
-    if dp_n > 1 and pipeline:
-        ap.error("--mesh/--dp: data > 1 with the pipeline transport (the "
-                 "pipeline x DP step) is not yet ported to repro_torch")
-    if args.batch % dp_n:
+    if args.batch % (dp_n * grad_accum):
         ap.error(f"--batch {args.batch} is not divisible by the {dp_n} "
-                 "data-parallel replicas")
+                 f"data-parallel replicas x {grad_accum} accumulation "
+                 "pieces")
     print(f"# arch={cfg.arch_id} B={args.batch} S={seq} "
           f"policy={args.policy}"
           f"{'' if args.feedback == 'none' else '+' + args.feedback} "
@@ -247,19 +277,19 @@ def main(argv=None) -> int:
     opt_state = init_opt_state(opt, params)
     if pipeline:
         sched = get_schedule(args.schedule, virtual_stages)
-        mb_eff = args.pipeline_microbatches or policy_eff.num_stages
-        if args.batch % mb_eff:
+        mb_eff = pipeline_mb or policy_eff.num_stages
+        if args.batch % (mb_eff * dp_n):
             ap.error(f"--batch {args.batch} is not divisible by the "
-                     f"{mb_eff} pipeline microbatches")
+                     f"{mb_eff} pipeline microbatches x {dp_n} replicas")
         try:
             sched.validate(mb_eff, policy_eff.num_stages)
             transformer.stack_layer_stages(
                 params, policy_eff.num_stages * virtual_stages)
             bstates = _pipeline_bstates(
                 policy_eff, (seq, cfg.d_model), batch=args.batch,
-                microbatches=args.pipeline_microbatches,
-                num_samples=args.num_samples, dtype=torch.bfloat16,
-                virtual_stages=virtual_stages, device=dev)
+                microbatches=pipeline_mb, num_samples=args.num_samples,
+                dtype=torch.bfloat16, virtual_stages=virtual_stages,
+                dp=dp_n, device=dev)
         except ValueError as e:
             ap.error(str(e))
         print(f"# pipeline transport: schedule={args.schedule} "
@@ -288,15 +318,16 @@ def main(argv=None) -> int:
     try:
         step_fn = make_lm_train_step(
             cfg, policy, opt, remat=not args.no_remat,
-            transport=args.transport,
-            pipeline_microbatches=args.pipeline_microbatches,
+            grad_accum=grad_accum, transport=args.transport,
+            pipeline_microbatches=pipeline_mb,
             schedule=args.schedule, virtual_stages=virtual_stages, **pkw)
-    except ValueError as e:
+    except (ValueError, NotImplementedError) as e:
         ap.error(str(e))
     dp_state = None
     if dp_n > 1:
         dp_state = init_lm_dp_state(cfg, params, policy_eff, dp_n,
-                                    dp_feedback)
+                                    dp_feedback, transport=transport,
+                                    virtual_stages=virtual_stages)
         print(f"# dp={dp_n} gradient all-reduce: codec={dp_codec} "
               f"feedback={dp_feedback}", flush=True)
     stream = synthetic_stream(cfg, args.batch, seq, args.seed,

@@ -5,8 +5,8 @@ Port of ``run_cnn_experiment``, ``_cnn_eval``, ``_cnn_bstates``,
 ``run_lm_experiment``, ``_lm_eval``, ``pretrain_lm``,
 ``_pipeline_bstates`` and ``init_lm_dp_state`` from
 ``repro/train/loop.py`` for a static policy on the simulated transport
-(the LM with or without the compressed data-parallel gradient reduce) or
-the real pipeline (``dp=1``): train with boundary compression, then
+or the real pipeline, the LM on either with or without the compressed
+data-parallel gradient reduce: train with boundary compression, then
 evaluate with compression on AND off (finding F3: a model trained
 compressed must be served compressed).  Rule policies, rule-spec axis
 codecs, bandwidth probes and trace spans are not ported yet.
@@ -164,29 +164,35 @@ def _lm_eval(params, cfg, data, policy, compress, batch=16,
 def _pipeline_bstates(policy: CompressionPolicy, feat_shape, *, batch: int,
                       microbatches=None, num_samples: int = 0,
                       dtype=torch.float32, virtual_stages: int = 1,
-                      device=None):
+                      dp: int = 1, device=None):
     """Feedback state for the pipeline transport: the stage-stacked
-    ``init_feedback_state`` dict, or ``[]`` for feedback-free policies."""
+    ``init_feedback_state`` dict (with a replica dim first when ``dp >
+    1``), or ``[]`` for feedback-free policies."""
     bp = policy.at(0) if policy.num_boundaries else BoundaryPolicy()
     if not (bp.needs_fw_buffer or bp.needs_bw_buffer):
         return []
     return init_feedback_state(bp, feat_shape, num_stages=policy.num_stages,
                                batch=batch, microbatches=microbatches,
                                num_samples=num_samples, dtype=dtype,
-                               virtual_stages=virtual_stages, device=device)
+                               virtual_stages=virtual_stages, dp=dp,
+                               device=device)
 
 
 def init_lm_dp_state(cfg, params, policy: CompressionPolicy, dp: int,
                      dp_feedback: str = "none", *,
-                     transport: str = "simulated"):
+                     transport: str = "simulated", virtual_stages: int = 1):
     """DP-reduce state for an LM train step: the residual / aggregate
-    trees mirror what crosses the data axis, on the simulated transport
-    the FULL param tree (every lane differentiates everything), on
-    ``params``' device.  The pipeline x DP step is not ported yet."""
+    trees mirror what crosses the data axis, on ``params``' device: the
+    FULL param tree on the simulated transport (every lane differentiates
+    everything), the stage-stacked layer stack (``policy.num_stages *
+    virtual_stages`` slices) on the pipeline, whose embedding and head
+    gradients stay exact."""
+    if transport == "pipeline":
+        like = transformer.stack_layer_stages(
+            params, policy.num_stages * virtual_stages)
+        return init_dp_state(like, dp, dp_feedback)
     if transport != "simulated":
-        raise NotImplementedError(
-            f"init_lm_dp_state(transport={transport!r}): the pipeline x DP "
-            "step is not yet ported to repro_torch")
+        raise ValueError(f"unknown transport {transport!r}")
     return init_dp_state(params, dp, dp_feedback)
 
 
@@ -249,7 +255,8 @@ def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
                                     microbatches=pipeline_microbatches,
                                     num_samples=data.num_train,
                                     dtype=torch.bfloat16,
-                                    virtual_stages=virtual_stages, device=dev)
+                                    virtual_stages=virtual_stages,
+                                    dp=spec.dp, device=dev)
     else:
         bstates = [init_boundary_state(policy_eff.at(i), feat, batch=batch,
                                        num_samples=data.num_train,
@@ -261,7 +268,8 @@ def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
                               schedule=schedule,
                               virtual_stages=virtual_stages, parallel=spec)
     dp_state = (init_lm_dp_state(cfg, params, policy_eff, spec.dp,
-                                 spec.data.feedback, transport=transport)
+                                 spec.data.feedback, transport=transport,
+                                 virtual_stages=virtual_stages)
                 if spec.dp > 1 else None)
     t0 = time.time()
     curve = []

@@ -1,8 +1,9 @@
 """LM and CNN train and eval steps with the paper's boundary compression.
 
-Port of ``repro/train/steps.py``: ``make_lm_train_step`` with
-``grad_accum=1`` on the simulated transport and on the real pipeline
-(``dp=1``, ``tp=1``), ``make_lm_eval_step``, and the CNN's
+Port of ``repro/train/steps.py``: ``make_lm_train_step`` on the
+simulated transport (with gradient accumulation) and on the real
+pipeline (alone, or on the ``(data, stage)`` grid; ``tp=1``),
+``make_lm_eval_step``, and the CNN's
 ``make_cnn_train_step`` (simulated and pipeline) and
 ``make_cnn_eval_step``.  The step is eager
 PyTorch: one forward, the chunked LM loss, one backward, then the
@@ -18,12 +19,16 @@ Data parallelism on the simulated transport (``parallel=`` a
 the deprecated ``dp``/``dp_codec``/``dp_feedback``/``dp_k_frac``
 kwargs): the global batch splits into ``dp`` contiguous shards, each
 lane computes its gradient, and one compressed all-reduce
-(``transport/collectives.py``) feeds one optimizer update.  The pipeline
-x DP and DP x TP steps, TP and gradient accumulation are not ported yet.
+(``transport/collectives.py``) feeds one optimizer update.  On the
+pipeline, ``data`` > 1 runs the pipeline x DP step: each replica row
+pipelines its batch shard through its own copy of the layer stack, and
+the per-replica stack gradients cross the stage-column-sharded reduce.
+The DP x TP step and TP are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
@@ -123,8 +128,28 @@ def _labels_and_mask(tokens):
     return labels, mask
 
 
+def _resolve_grad_accum(grad_accum: int,
+                        microbatches: Optional[int]) -> int:
+    """``microbatches=`` is the deprecated name of the grad-accumulation
+    knob (it collided with the pipeline's GPipe microbatch count)."""
+    if microbatches is None:
+        return grad_accum
+    if grad_accum != 1:
+        raise ValueError(
+            f"both grad_accum={grad_accum} and its deprecated alias "
+            f"microbatches={microbatches} were passed — drop microbatches=")
+    warnings.warn(
+        "microbatches= is deprecated (it means gradient accumulation, not "
+        "pipeline microbatches): pass grad_accum= instead, and "
+        "pipeline_microbatches= for the GPipe microbatch count",
+        DeprecationWarning, stacklevel=3)
+    return microbatches
+
+
 def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
                        aux_weight: float = 0.01, remat: bool = True,
+                       grad_accum: int = 1,
+                       microbatches: Optional[int] = None,
                        transport: str = "simulated",
                        pipeline_microbatches: Optional[int] = None,
                        schedule: str = "gpipe", virtual_stages: int = 1,
@@ -138,6 +163,12 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
     per cut (``[]`` without compression); ``ids``: (B,) example ids.  The
     caller's params are not modified; AQ-SGD's fw buffer is updated in
     place (``core/feedback.aqsgd_message``).
+
+    ``grad_accum > 1`` (simulated transport): the batch, ids and feedback
+    buffers split along B into ``grad_accum`` pieces, run one after the
+    other; the gradients sum in f32, are divided by ``grad_accum`` and
+    cast to bfloat16, as the reference's are, and loss and aux are the
+    pieces' means.  ``microbatches=`` is its deprecated alias.
 
     ``transport="pipeline"`` trains through the real compressed pipeline
     (``transport/pipeline.py``) under ``schedule`` (gpipe | 1f1b |
@@ -154,24 +185,38 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
     ``step(params, opt_state, bstates, batch, ids, dp_state) -> (params,
     opt_state, bstates, dp_state, metrics)`` with ``dp_state`` from
     ``train/loop.init_lm_dp_state``, and ``metrics["wire"]`` holds the
-    ring's ``dp_hops`` / ``dp_bytes``."""
+    ring's ``dp_hops`` / ``dp_bytes``.  On the simulated transport the
+    replicas are lanes around the cuts (``grad_accum`` composes per lane:
+    accumulate locally, reduce once); on the pipeline it is the
+    ``(data, stage)`` grid, whose reduced tree is the layer stack (see
+    :func:`_make_dp_pipeline_lm_train_step`)."""
     transformer.check_supported(cfg)
+    grad_accum = _resolve_grad_accum(grad_accum, microbatches)
     spec, policy, transport = _resolve_parallel(
         "make_lm_train_step", parallel, policy, transport,
         {"dp": dp, "dp_codec": dp_codec, "dp_feedback": dp_feedback,
          "dp_k_frac": dp_k_frac})
     if transport == "pipeline":
-        if spec.dp > 1:
+        if grad_accum > 1:
             raise NotImplementedError(
-                "transport='pipeline' with dp > 1 (the pipeline x DP step) "
-                "is not yet ported to repro_torch")
+                "grad_accum > 1 is not supported with transport='pipeline' "
+                "— bound activation memory with pipeline_microbatches (the "
+                "1f1b schedule keeps the stash at the boundary tensors)")
+        if spec.dp > 1:
+            d_ax = spec.data
+            return _make_dp_pipeline_lm_train_step(
+                cfg, _uniform_boundary(policy), opt,
+                microbatches=pipeline_microbatches, schedule=schedule,
+                virtual_stages=virtual_stages, dp=spec.dp,
+                dp_codec=d_ax.codec, dp_feedback=d_ax.feedback,
+                dp_k_frac=d_ax.k_frac, s_stages=policy.num_stages)
         return _make_pipeline_lm_train_step(
             cfg, policy, opt, microbatches=pipeline_microbatches,
             schedule=schedule, virtual_stages=virtual_stages)
     if transport != "simulated":
         raise ValueError(f"unknown transport {transport!r}")
 
-    def compute_grads(params, bstates, batch, ids):
+    def piece_grads(params, bstates, batch, ids):
         """One replica's (grads, new bstates, metrics) over its batch,
         from fresh leaf tensors (``p.grad`` never adds lanes together)."""
         params = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -188,6 +233,42 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
         metrics = {"loss": loss.detach(), "aux": aux.detach(),
                    "total": total.detach()}
         return grads, new_states, metrics
+
+    def compute_grads(params, bstates, batch, ids):
+        """One replica's (grads, new bstates, metrics) over its batch:
+        :func:`piece_grads` over the whole of it, or over ``grad_accum``
+        pieces of it, one after the other, as the reference's scan."""
+        if grad_accum == 1:
+            return piece_grads(params, bstates, batch, ids)
+        if ids.shape[0] % grad_accum:
+            raise ValueError(f"batch {ids.shape[0]} is not divisible by "
+                             f"grad_accum {grad_accum}")
+        split = lambda t: _split_leading(t, grad_accum)  # noqa: E731
+        b_sh, ids_sh, st_sh = split(batch), split(ids), split(bstates)
+        gacc, loss_s, aux_s, piece_states = None, None, None, []
+        for i in range(grad_accum):
+            piece = lambda t: _map_tensors(lambda a: a[i], t)  # noqa: E731
+            g, new_states, m = piece_grads(params, piece(st_sh),
+                                           piece(b_sh), ids_sh[i])
+            g32 = tree_map(lambda a: a.to(torch.float32), g)
+            gacc = g32 if gacc is None else tree_map(torch.add, gacc, g32)
+            loss_s = m["loss"] if loss_s is None else loss_s + m["loss"]
+            aux_s = m["aux"] if aux_s is None else aux_s + m["aux"]
+            piece_states.append(new_states)
+        div = loss_s.new_full((), grad_accum)
+        grads = tree_map(lambda a: (a / div).to(torch.bfloat16), gacc)
+        new_states = [{d: _merge_lanes(st[d], [ps[j][d] for ps in
+                                               piece_states])
+                       for d in ("fw", "bw")}
+                      for j, st in enumerate(bstates)]
+        metrics = {"loss": loss_s / div, "aux": aux_s / div,
+                   "total": (loss_s + aux_weight * aux_s) / div}
+        return grads, new_states, metrics
+
+    if grad_accum > 1 and policy.num_boundaries and any(
+            policy.at(i).feedback == "aqsgd"
+            for i in range(policy.num_boundaries)):
+        raise NotImplementedError("aqsgd + gradient accumulation")
 
     if spec.dp > 1:
         d_ax = spec.data
@@ -279,6 +360,44 @@ def _uniform_boundary(policy: CompressionPolicy) -> BoundaryPolicy:
     return bps[0]
 
 
+def _pipeline_lm_grads(cfg, params, batch, n_slices: int, rows: int,
+                       run_row):
+    """The pipeline LM step's forward and backward.  The embedding, final
+    norm, LM head and loss run once on the whole batch and keep exact
+    gradients.  The stage-stacked layer stack goes to each of ``rows``
+    replica rows as the row's own leaves (the reference's
+    ``broadcast_to(stack[None], (dp, ...))``), so autograd never sums
+    the rows' stack gradients.  ``run_row(r, stack, x_r) -> (y_r, *out)``
+    pipelines row ``r``'s contiguous batch shard.
+
+    Returns ``(params, loss, grads, outs)``: ``params`` as leaves that
+    took the gradients, ``grads["layers"]`` the stack's gradient per row
+    ``(rows, S*v, ...)`` (fold it back with :func:`_unstack`), ``outs``
+    each row's ``out``."""
+    params = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    labels, mask = _labels_and_mask(batch["tokens"])
+    x = transformer._embed(params, batch)
+    stack = transformer.stack_layer_stages(params, n_slices)
+    stacks = [tree_map(lambda a: a.detach().requires_grad_(True), stack)
+              for _ in range(rows)]
+    x_sh = x.reshape(rows, x.shape[0] // rows, *x.shape[1:])
+    outs = [run_row(r, stacks[r], x_sh[r]) for r in range(rows)]
+    y = torch.cat([o[0] for o in outs]) if rows > 1 else outs[0][0]
+    loss = transformer.hidden_lm_loss(params, y, labels, cfg, mask)
+    loss.backward()
+    grads = {k: tree_map(lambda p: p.grad, v) for k, v in params.items()}
+    grads["layers"] = tree_map(
+        lambda *a: torch.stack([t.grad for t in a]), *stacks)
+    return params, loss, grads, [o[1:] for o in outs]
+
+
+def _unstack(stack):
+    """A ``(S*v, groups/(S*v), ...)`` stage-stacked tree back in the
+    ``(groups, ...)`` layout of ``params["layers"]``."""
+    return tree_map(
+        lambda a: a.reshape(a.shape[0] * a.shape[1], *a.shape[2:]), stack)
+
+
 def _make_pipeline_lm_train_step(cfg, policy: CompressionPolicy,
                                  opt: OptimizerConfig, *,
                                  microbatches: Optional[int] = None,
@@ -286,34 +405,109 @@ def _make_pipeline_lm_train_step(cfg, policy: CompressionPolicy,
                                  virtual_stages: int = 1):
     """LM training through the real compressed pipeline: the embedding
     and the chunked loss run on the whole batch, the layer stack as
-    ``policy.num_stages * virtual_stages`` logical stage slices.  MoE aux
-    losses are not threaded through the pipeline, as in the reference."""
+    ``policy.num_stages * virtual_stages`` logical stage slices (one
+    replica row of :func:`_pipeline_lm_grads`).  MoE aux losses are not
+    threaded through the pipeline, as in the reference."""
     bp = _uniform_boundary(policy)
     s_stages = policy.num_stages
     needs_state = bp.needs_fw_buffer or bp.needs_bw_buffer
     stage_fn = transformer.stage_stack_fn(cfg)
 
     def step(params, opt_state, bstates, batch, ids):
-        params = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        labels, mask = _labels_and_mask(batch["tokens"])
-        x = transformer._embed(params, batch)
-        stack = transformer.stack_layer_stages(params,
-                                               s_stages * virtual_stages)
-        x, new_fw, slot = pipeline_apply(
-            stage_fn, stack, x, num_stages=s_stages, policy=bp,
-            microbatches=microbatches, schedule=schedule,
-            virtual_stages=virtual_stages,
-            fw_state=bstates["fw"] if needs_state else None,
-            bw_state=bstates["bw"] if needs_state else None, ids=ids)
-        loss = transformer.hidden_lm_loss(params, x, labels, cfg, mask)
-        loss.backward()
-        grads = tree_map(lambda p: p.grad, params)
+        def run_row(r, stack, x):
+            return pipeline_apply(
+                stage_fn, stack, x, num_stages=s_stages, policy=bp,
+                microbatches=microbatches, schedule=schedule,
+                virtual_stages=virtual_stages,
+                fw_state=bstates["fw"] if needs_state else None,
+                bw_state=bstates["bw"] if needs_state else None, ids=ids)
+
+        params, loss, grads, [(new_fw, slot)] = _pipeline_lm_grads(
+            cfg, params, batch, s_stages * virtual_stages, 1, run_row)
+        grads["layers"] = _unstack(tree_map(lambda a: a[0],
+                                            grads["layers"]))
         params, opt_state = apply_updates(opt, params, grads, opt_state)
         metrics = {"loss": loss.detach(), "aux": torch.zeros(()),
                    "total": loss.detach(), "wire": dict(slot.wire)}
         new_states = ({"fw": new_fw, "bw": slot.state} if needs_state
                       else bstates)
         return params, opt_state, new_states, metrics
+
+    return step
+
+
+def _replica_row(state: Optional[FeedbackState], r: int):
+    """Replica row ``r`` of a ``(dp, S, ...)`` pipeline feedback state:
+    views, so the row's pipeline writes its buffers in place."""
+    if state is None:
+        return None
+    return state.replace(resid=state.resid[r], mirror=state.mirror[r])
+
+
+def _make_dp_pipeline_lm_train_step(cfg, bp: BoundaryPolicy,
+                                    opt: OptimizerConfig, *,
+                                    microbatches: Optional[int],
+                                    schedule: str, virtual_stages: int,
+                                    dp: int, dp_codec: str, dp_feedback: str,
+                                    dp_k_frac: float, s_stages: int):
+    """LM training on the ``(data, stage)`` grid: ``step(params,
+    opt_state, bstates, batch, ids, dp_state) -> (params, opt_state,
+    bstates, dp_state, metrics)``.
+
+    :func:`_pipeline_lm_grads` with ``dp`` replica rows: row ``r``
+    pipelines its contiguous batch shard (``microbatches`` microbatches
+    of it) through its own leaves of the stage-stacked layer stack.  The
+    rows' ``(dp, S*v, ...)`` stack gradients cross the compressed
+    all-reduce sharded into ``S`` stage columns, with ``average=False``:
+    the global mean loss already gives each row its ``1/dp`` share.  The
+    reduced stack folds back into ``params["layers"]``; the other
+    gradients are exact and skip the reduce.
+
+    With a feedback policy ``bstates`` is ``init_feedback_state(...,
+    dp=dp)``: row ``r`` reads and writes row ``r`` of every buffer in
+    place (AQ-SGD with its ids localized by ``shard_ids``), and the step
+    returns the same dict.  ``metrics["wire"]``: every row's hops and
+    bytes per direction, and the ring's ``dp_hops`` / ``dp_bytes`` over
+    the ``S`` columns."""
+    needs_state = bp.needs_fw_buffer or bp.needs_bw_buffer
+    per_example = needs_state and get_mode(bp.feedback).per_example
+    stage_fn = transformer.stage_stack_fn(cfg)
+    reduce_fn = make_grad_all_reduce(dp, dp_codec, k_frac=dp_k_frac,
+                                     feedback=dp_feedback, average=False,
+                                     shard_axis=s_stages)
+
+    def step(params, opt_state, bstates, batch, ids, dp_state):
+        b = ids.shape[0]
+        if b % dp:
+            raise ValueError(f"batch {b} is not divisible by dp {dp}")
+        ids_sh = ids.reshape(dp, b // dp)
+        fw = bstates["fw"] if needs_state else None
+        bw = bstates["bw"] if needs_state else None
+
+        def run_row(r, stack, x):
+            ids_r = ids_sh[r]
+            if per_example:
+                ns_shard = fw.resid.shape[2 if virtual_stages == 1 else 3]
+                ids_r = shard_ids(ids_r, r, ns_shard * dp, dp)
+            y, _, slot = pipeline_apply(
+                stage_fn, stack, x, num_stages=s_stages, policy=bp,
+                microbatches=microbatches, schedule=schedule,
+                virtual_stages=virtual_stages, fw_state=_replica_row(fw, r),
+                bw_state=_replica_row(bw, r), ids=ids_r)
+            return y, slot
+
+        params, loss, grads, slots = _pipeline_lm_grads(
+            cfg, params, batch, s_stages * virtual_stages, dp, run_row)
+        # the rows' gradients live on only until the reduce
+        g_stack, dp_state, ring = reduce_fn(grads["layers"], dp_state)
+        grads["layers"] = _unstack(g_stack)
+        params, opt_state = apply_updates(opt, params, grads, opt_state)
+        wire = {k: sum(sl.wire[k] for (sl,) in slots)
+                for k in slots[0][0].wire}
+        wire.update(ring)
+        metrics = {"loss": loss.detach(), "aux": torch.zeros(()),
+                   "total": loss.detach(), "wire": wire}
+        return params, opt_state, bstates, dp_state, metrics
 
     return step
 

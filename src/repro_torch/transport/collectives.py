@@ -37,6 +37,14 @@ reduce is bitwise the serial sum.  Error feedback:
 ``average=True`` divides each replica's contribution by a tensor holding
 ``dp``: on CUDA, PyTorch multiplies by the reciprocal when it divides by
 a Python scalar, which is not IEEE division.
+
+``shard_axis=S`` (the pipeline x DP reduce) splits the reduce into ``S``
+stage columns, as the reference's ``shard_map`` over ``P(stage)`` does:
+a leaf ``(dp, n, ...)`` whose ``n`` divides ``S`` gives column ``c`` its
+rows ``[c*n/S, (c+1)*n/S)``, and every column packs, fuses, rings,
+decodes and sums only its own slice (per-tensor scales, q4 row stats and
+TopK's ``k`` are the slice's).  A leaf that does not divide stays
+stage-replicated: every column carries all of it.
 """
 from __future__ import annotations
 
@@ -96,14 +104,42 @@ def grad_payload_structs(grads_like, codec_name: str,
     return out
 
 
+def _sharded(shape, s_shard: int) -> bool:
+    """Does a leaf of ``shape`` (replica dim stripped) split into
+    ``s_shard`` stage columns along its dim 0?"""
+    return (s_shard > 1 and len(shape) > 0 and shape[0] > 0
+            and shape[0] % s_shard == 0)
+
+
+def _column_struct(grads_like, s_shard: int) -> list:
+    """One stage column's leaves as :class:`LeafStruct`s: dim 0 cut to
+    ``1/s_shard`` where the leaf splits, else the whole leaf.  Every
+    column has these shapes."""
+    out = []
+    for leaf in payload_leaves(grads_like):
+        shape = tuple(leaf.shape)
+        if _sharded(shape, s_shard):
+            shape = (shape[0] // s_shard, *shape[1:])
+        out.append(LeafStruct(shape, leaf.dtype))
+    return out
+
+
 def dp_wire_report(grads_like, codec_name: str, *, k_frac: float = 0.1,
-                   dp: int = 2) -> dict:
+                   dp: int = 2, shard_axis: int = None) -> dict:
     """Exact and modeled wire bytes of ONE compressed DP all-reduce.
 
     ``payload_bytes_per_hop``: the fused uint8 buffer each replica sends
     per ring hop (exact, from the packed payload shapes).  ``model_bytes``:
     sum over leaves of ``n * wire_bytes_per_elem``.  One reduce = ``dp -
-    1`` hops per replica."""
+    1`` hops per replica.
+
+    ``shard_axis=S``: the numbers of ONE stage column, and ``columns`` =
+    S (all columns alike).  The whole ring then makes ``S * dp * (dp - 1)``
+    hops and moves ``S * dp * wire_bytes_per_reduce`` bytes, which is what
+    the pipeline x DP step's ``metrics["wire"]`` counts."""
+    s_shard = shard_axis or 1
+    if s_shard > 1:
+        grads_like = _column_struct(grads_like, s_shard)
     codec = get_codec(codec_name)
     structs = grad_payload_structs(grads_like, codec_name, k_frac)
     exact = wire_bytes(structs)
@@ -112,7 +148,7 @@ def dp_wire_report(grads_like, codec_name: str, *, k_frac: float = 0.1,
         n = _leaf_n(leaf.shape)
         elem = leaf.dtype.itemsize if codec.name == "none" else 2
         model += codec.wire_bytes_per_elem(n, elem, k_frac) * n
-    return {
+    rep = {
         "dp_codec": codec_name, "k_frac": k_frac, "dp": dp,
         "n_param_leaves": len(structs),
         "n_payload_leaves": len(payload_leaves(structs)),
@@ -121,6 +157,9 @@ def dp_wire_report(grads_like, codec_name: str, *, k_frac: float = 0.1,
         "hops_per_reduce": dp - 1,
         "wire_bytes_per_reduce": (dp - 1) * exact,
     }
+    if shard_axis is not None:
+        rep["columns"] = s_shard
+    return rep
 
 
 def init_dp_state(grads_like, dp: int, feedback: str = "none",
@@ -179,7 +218,7 @@ def _ring_gather(payloads: list, dp: int):
 def make_grad_all_reduce(dp: int, codec: str = "none", *,
                          k_frac: float = 0.1, feedback: str = "none",
                          average: bool = False, fused: bool = True,
-                         shard_axis: str = None, tp_axis: str = None,
+                         shard_axis: int = None, tp_axis: str = None,
                          tp_dims=None):
     """Build ``reduce(grads_dp, dp_state) -> (reduced, new_dp_state,
     wire)``.
@@ -192,12 +231,17 @@ def make_grad_all_reduce(dp: int, codec: str = "none", *,
     compression (per-replica mean losses); default is a plain sum.
     ``fused=False`` rings the per-leaf payload trees instead of one fused
     buffer -- same bytes -- and always decodes with the loop.
-    ``shard_axis`` / ``tp_axis`` (the pipeline x DP and DP x TP reduces)
-    are not ported yet."""
-    if shard_axis is not None:
-        raise NotImplementedError("make_grad_all_reduce(shard_axis=...): "
-                                  "the pipeline x DP reduce is not yet "
-                                  "ported to repro_torch")
+
+    ``shard_axis``: the size ``S`` of the stage axis of the pipeline x DP
+    step (the reference takes the axis' name and reads its size from the
+    mesh).  The reduce then runs once per stage column on the column's
+    slices (module doc), and ``wire`` counts ``S * dp * (dp - 1)`` hops:
+    the sum over columns of each column's ring.  ``tp_axis`` (the DP x TP
+    reduce) is not ported yet."""
+    if shard_axis is not None and (not isinstance(shard_axis, int)
+                                   or shard_axis < 1):
+        raise ValueError(f"shard_axis must be the stage axis' size, a "
+                         f"positive int, got {shard_axis!r}")
     if tp_axis is not None or tp_dims is not None:
         raise NotImplementedError("make_grad_all_reduce(tp_axis=...): the "
                                   "DP x TP reduce is not yet ported to "
@@ -211,6 +255,7 @@ def make_grad_all_reduce(dp: int, codec: str = "none", *,
                          "compensate — drop dp_feedback")
     codec_obj = get_codec(codec)
     lossy = codec_obj.name != "none"
+    s_shard = shard_axis or 1
 
     def contribution(a, e):
         """Replica ``a``'s compensated leaf, as the reference computes
@@ -226,16 +271,12 @@ def make_grad_all_reduce(dp: int, codec: str = "none", *,
             x = x - e                              # resid holds w_r
         return x
 
-    def reduce(grads_dp, dp_state: FeedbackState):
-        gl = payload_leaves(grads_dp)
+    def reduce_leaves(gl, rl, al):
+        """One ring's reduce of the leaves ``gl`` (each ``(dp, *leaf)``)
+        with their residuals ``rl`` and aggregates ``al``.  Returns the
+        reduced leaves, the new residuals and aggregates, and the ring's
+        counts."""
         shapes = [tuple(a.shape[1:]) for a in gl]
-        for a in gl:
-            if a.shape[0] != dp:
-                raise ValueError(f"gradient leaf {tuple(a.shape)} has no "
-                                 f"leading replica dim of {dp}")
-        rl = (payload_leaves(dp_state.resid) if feedback != "none"
-              else [None] * len(gl))
-        al = payload_leaves(dp_state.agg) if feedback == "ef21" else None
 
         # -- compensate + pack, replica by replica --------------------------
         xs, payloads = [], []
@@ -286,6 +327,45 @@ def make_grad_all_reduce(dp: int, codec: str = "none", *,
                                            for r in range(dp)]))
                 new_al.append(reduced)
                 out.append(reduced.to(a.dtype))
+        return out, new_rl, new_al, wire
+
+    def reduce_columns(gl, rl, al):
+        """:func:`reduce_leaves` once per stage column on the column's
+        slices, the results put back together along the split dim (one
+        column of whole leaves without ``shard_axis``)."""
+        cut = [_sharded(tuple(a.shape[1:]), s_shard) for a in gl]
+
+        def col(a, c, dim, i):
+            if not cut[i]:
+                return a
+            w = a.shape[dim] // s_shard
+            return a.narrow(dim, c * w, w)
+
+        cols = [reduce_leaves(
+            [col(a, c, 1, i) for i, a in enumerate(gl)],
+            [None if e is None else col(e, c, 1, i)
+             for i, e in enumerate(rl)],
+            None if al is None else [col(g, c, 0, i)
+                                     for i, g in enumerate(al)])
+            for c in range(s_shard)]
+
+        def join(j, dim):
+            return [torch.cat([cs[j][i] for cs in cols], dim) if cut[i]
+                    else cols[0][j][i] for i in range(len(cols[0][j]))]
+
+        wire = {k: sum(cs[3][k] for cs in cols) for k in cols[0][3]}
+        return join(0, 0), join(1, 1), join(2, 0), wire
+
+    def reduce(grads_dp, dp_state: FeedbackState):
+        gl = payload_leaves(grads_dp)
+        for a in gl:
+            if a.shape[0] != dp:
+                raise ValueError(f"gradient leaf {tuple(a.shape)} has no "
+                                 f"leading replica dim of {dp}")
+        rl = (payload_leaves(dp_state.resid) if feedback != "none"
+              else [None] * len(gl))
+        al = payload_leaves(dp_state.agg) if feedback == "ef21" else None
+        out, new_rl, new_al, wire = reduce_columns(gl, rl, al)
         reduced_tree = tree_unflatten(grads_dp, iter(out))
         if feedback != "none":
             dp_state = dp_state.replace(

@@ -1,11 +1,14 @@
 """Real pipeline with compressed, differentiable stage handoffs.
 
-Port of ``repro/transport/pipeline.py`` for one data-parallel replica and
-no tensor parallelism.  The reference runs the pipeline as one SPMD program
-over a mesh of S devices: every stage cut is a ``ppermute`` of a packed
-payload inside ``shard_map``.  This port is a SINGLE-CONTROLLER pipeline in
-one process: every logical stage runs on the device the caller's tensors
-live on, and a hop is what the wire would carry.  The sender packs the
+Port of ``repro/transport/pipeline.py`` without tensor parallelism.  The
+pipeline x DP step (``train/steps.py``) calls :func:`pipeline_apply` once
+per replica row, on the row's batch shard, stack copy and buffer rows:
+the reference's ``dp_axis``.  The reference runs the pipeline as one
+SPMD program over a mesh of S devices: every stage cut is a ``ppermute``
+of a packed payload inside ``shard_map``.  This port is a
+SINGLE-CONTROLLER pipeline in one process: every logical stage runs on
+the device the caller's tensors live on, and a hop is what the wire
+would carry.  The sender packs the
 payload with the boundary policy's codec and, when the schedule fuses its
 hops (1f1b, interleaved), frames it into one uint8 buffer
 (``codecs.fuse_payload``); the receiver unframes and unpacks it.  The
@@ -92,31 +95,44 @@ def init_feedback_state(policy: BoundaryPolicy, feat_shape, *,
                         num_stages: int, batch: int,
                         microbatches: Optional[int] = None,
                         num_samples: int = 0, dtype=torch.float32,
-                        virtual_stages: int = 1, device=None):
+                        virtual_stages: int = 1, dp: int = 1, device=None):
     """Per-stage feedback buffers for the pipeline: ``{"fw", "bw"}``
     feedback states whose ``resid`` / ``mirror`` carry leading
     dim ``num_stages`` (device ``d``'s slice), then a chunk dim when
     ``virtual_stages > 1``.  Global modes (ef/ef21/efmixed) keep
-    ``(S, [v,] mb, B/mb, *feat)``, AQ-SGD ``(S, [v,] num_samples, *feat)``;
-    unused buffers are size-0 ``(S, 0)`` placeholders.  The reference's
-    shapes with ``dp=1``."""
+    ``(S, [v,] mb, B/(mb*dp), *feat)``, AQ-SGD ``(S, [v,]
+    num_samples/dp, *feat)``; unused buffers are size-0 ``(S, 0)``
+    placeholders.  The reference's shapes.
+
+    ``dp > 1`` (the pipeline x DP step) puts a replica dim first: replica
+    row ``r`` compensates its own contiguous batch shard, and AQ-SGD's
+    buffer splits BY EXAMPLE ID (row ``r`` owns ids ``[r*ns/dp,
+    (r+1)*ns/dp)``, addressed with ids localized by
+    ``core/feedback.shard_ids``)."""
     mb = microbatches or num_stages
-    if batch % mb:
+    if batch % (mb * dp):
         raise ValueError(f"batch {batch} not divisible by microbatches "
-                         f"{mb}")
-    mbsz = batch // mb
+                         f"{mb} x dp {dp}")
+    mbsz = batch // (mb * dp)
     chunk = () if virtual_stages == 1 else (virtual_stages,)
+    rep = () if dp == 1 else (dp,)
 
     def buf(mode: str, mirror: bool):
         if mode == "none" or (mirror and not needs_recv_mirror(mode)):
-            shape = (num_stages, 0)
+            shape = (*rep, num_stages, 0)
         elif get_mode(mode).per_example:
             if num_samples <= 0:
                 raise ValueError("aqsgd needs the dataset size "
                                  "(num_samples > 0)")
-            shape = (num_stages, *chunk, num_samples, *feat_shape)
+            if num_samples % dp:
+                raise ValueError(
+                    f"aqsgd + dp shards the per-example buffer by id: "
+                    f"num_samples {num_samples} must be divisible by "
+                    f"dp {dp}")
+            shape = (*rep, num_stages, *chunk, num_samples // dp,
+                     *feat_shape)
         else:
-            shape = (num_stages, *chunk, mb, mbsz, *feat_shape)
+            shape = (*rep, num_stages, *chunk, mb, mbsz, *feat_shape)
         return torch.zeros(shape, dtype=dtype, device=device)
 
     def fbs(mode: str, direction: str) -> FeedbackState:

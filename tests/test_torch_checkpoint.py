@@ -22,6 +22,11 @@ from repro.configs.registry import get as jget
 from repro_torch.checkpoint import io as TIO
 from repro_torch.checkpoint.convert import params_from_numpy
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and a torch thread pool per worker that outnumbers the cores
+# slows its CPU ops by an order of magnitude.
+torch.set_num_threads(1)
+
 
 def _trees():
     return {
@@ -108,3 +113,25 @@ def test_restore_reports_a_missing_list_entry(tmp_path):
     TIO.save(str(tmp_path / "short"), short)
     with pytest.raises(TIO.CheckpointMismatch, match="stages/3/0/conv1"):
         TIO.restore_params(str(tmp_path / "short.npz"), port)
+
+
+def test_float32_file_restores_into_bfloat16_like_both_packages(tmp_path):
+    """A file of float32 leaves restored with a bfloat16 ``params_like``:
+    both packages check shapes only and return the file's float32 leaves,
+    the same values bit for bit."""
+    rng = np.random.default_rng(0)
+    tree = {"embed": rng.standard_normal((6, 4)).astype(np.float32),
+            "layers": {"w": rng.standard_normal((2, 4, 3)).astype(
+                np.float32)}}
+    path = str(tmp_path / "f32.npz")
+    JIO.save(path, jax.tree.map(jnp.asarray, tree), step=5)
+    ref, ref_step = JIO.restore_params(
+        path, jax.tree.map(lambda a: jnp.zeros(a.shape, jnp.bfloat16), tree))
+    got, step = TIO.restore_params(
+        path, jax.tree.map(lambda a: torch.zeros(a.shape,
+                                                 dtype=torch.bfloat16), tree))
+    assert step == ref_step == 5
+    for a, b in zip(jax.tree.leaves(ref), jax.tree.leaves(got), strict=True):
+        assert a.dtype == jnp.float32 and b.dtype == torch.float32
+        np.testing.assert_array_equal(np.asarray(a).view(np.uint32),
+                                      b.numpy().view(np.uint32))

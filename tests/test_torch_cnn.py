@@ -50,6 +50,11 @@ from repro_torch.data.synthetic import ImageClassData as TData
 from repro_torch.kernels import tiling as TT
 from repro_torch.transport import pipeline as TPIPE
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and a torch thread pool per worker that outnumbers the cores
+# slows its CPU ops by an order of magnitude.
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 WIDTH = 8
 

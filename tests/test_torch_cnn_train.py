@@ -85,6 +85,11 @@ from repro_torch.train import loop as TL
 
 from test_torch_pipeline import _real_slots
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and a torch thread pool per worker that outnumbers the cores
+# slows its CPU ops by an order of magnitude.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 LOSS_ATOL = 1e-5
 GRAD_RTOL = 1e-4

@@ -369,7 +369,7 @@ def test_init_dp_state_structure(feedback):
 
 
 def test_reduce_refuses_what_is_not_ported_or_wrong():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="stage axis' size"):
         TCOL.make_grad_all_reduce(2, "q8", shard_axis="stage")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         TCOL.make_grad_all_reduce(2, "q8", tp_axis="tensor", tp_dims={})

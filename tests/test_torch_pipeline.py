@@ -70,6 +70,11 @@ from repro_torch.train.loop import _pipeline_bstates, run_lm_experiment
 from repro_torch.transport import pipeline as TP
 from repro_torch.transport.schedules import get_schedule
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and a torch thread pool per worker that outnumbers the cores
+# slows its CPU ops by an order of magnitude.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 TOY_LOSS_RTOL = 1e-5
 TOY_GRAD_RTOL = 2e-3

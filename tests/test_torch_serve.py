@@ -50,6 +50,11 @@ from repro_torch.core.policy import POLICIES as TPOL
 from repro_torch.launch import serve as tserve
 from repro_torch.serve.engine import Request as TRequest, ServeEngine as TEngine
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and a torch thread pool per worker that outnumbers the cores
+# slows its CPU ops by an order of magnitude.
+torch.set_num_threads(1)
+
 LOGIT_ATOL = 0.03
 REL_TOL = 2.0 ** -5
 POLICY_NAMES = ["none", "q4q8", "top10"]

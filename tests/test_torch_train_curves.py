@@ -45,6 +45,11 @@ from repro_torch.core import policy as TP
 from repro_torch.core.boundary import init_boundary_state as tinit
 from repro_torch.optim import optimizers as TO
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and a torch thread pool per worker that outnumbers the cores
+# slows its CPU ops by an order of magnitude.
+torch.set_num_threads(1)
+
 CURVE_ATOL = 0.05
 B, S, STEPS, NUM_SAMPLES = 4, 32, 5, 8
 OPT = dict(kind="adamw", lr=1e-3, weight_decay=0.01, schedule="cosine",

@@ -16,7 +16,9 @@ DP state and boundary buffers the first wrote; batch 4 (2 per lane), seq
 revisits step 1's AQ-SGD rows.  Cases: DP codec ``none``; q8 with EF; q4
 with EF21; q8 under an EF21 TopK cut (its global buffers split by batch
 shard across the lanes); q8 under an AQ-SGD TopK cut (its buffer split by
-example id, the ids localized by ``shard_ids``).
+example id, the ids localized by ``shard_ids``); and, with
+``grad_accum=2`` on each lane (pieces of 1: accumulate locally, reduce
+once), q8 under the EF21 TopK cut, held to the same bounds.
 
 Bounds (measured on the CPU, then given headroom):
   * loss: ``LOSS_ATOL`` = 2e-3 without compression (the bound of
@@ -72,6 +74,11 @@ from repro_torch.train.loop import init_lm_dp_state, run_lm_experiment
 from repro_torch.transport.collectives import dp_wire_report
 from repro_torch.core.boundary import init_boundary_state
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and a torch thread pool per worker that outnumbers the cores
+# slows its CPU ops by an order of magnitude.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 LOSS_ATOL = 2e-3
 LM_LOSS_ATOL = 0.02
@@ -88,6 +95,9 @@ CASES = {
     "q8_ef21top10": ("ef21top10", "none", "q8", "none"),
     "q8_aqsgd": ("none", "aqsgd", "q8", "none"),
 }
+# the same, with grad_accum=2 on each lane (pieces of 1): accumulate
+# locally, reduce once
+ACCUM = {"q8_ef21top10_accum2": ("ef21top10", "none", "q8", "none")}
 
 
 def inputs(cfg):
@@ -126,7 +136,7 @@ cfg = get("gpt2-small", smoke=True)
 params = JT.init_params(jax.random.PRNGKey(0), cfg)
 opt = JO.OptimizerConfig(kind="sgd", lr=0.1)
 toks, ids = T.inputs(cfg)
-for name, (pname, fb, codec, dfb) in T.CASES.items():
+for name, (pname, fb, codec, dfb) in [*T.CASES.items(), *T.ACCUM.items()]:
     pol = (CompressionPolicy(num_stages=2, boundary=aqsgd_policy(0.1))
            if fb == "aqsgd" else POLICIES[pname]())
     pol = CompressionPolicy(num_stages=2, boundary=pol.boundary)
@@ -136,7 +146,8 @@ for name, (pname, fb, codec, dfb) in T.CASES.items():
     bst = [init_boundary_state(pol.at(0), (T.SEQ, cfg.d_model), batch=T.B,
                                num_samples=T.NS, dtype=jnp.bfloat16)]
     step = JS.make_lm_train_step(cfg, pol, opt, dp=T.DP, dp_codec=codec,
-                                 dp_feedback=dfb, donate=False)
+                                 dp_feedback=dfb, donate=False,
+                                 grad_accum=2 if name in T.ACCUM else 1)
     dst = init_lm_dp_state(cfg, params, pol, T.DP, dfb)
     for i in range(2):
         g, _, bst, dst, m = step(params, JO.init_opt_state(opt, params), bst,
@@ -212,8 +223,20 @@ def _policy(pname, fb):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_dp_step_matches_reference(name, ref, model, monkeypatch):
+    _check_dp_case(name, CASES[name], 1, ref, model, monkeypatch)
+
+
+@pytest.mark.parametrize("name", list(ACCUM))
+def test_dp_step_with_grad_accum_matches_reference(name, ref, model,
+                                                   monkeypatch):
+    """Gradient accumulation composes per lane: each lane sums its two
+    pieces' gradients in f32 and casts them to bf16, then one reduce."""
+    _check_dp_case(name, ACCUM[name], 2, ref, model, monkeypatch)
+
+
+def _check_dp_case(name, case, accum, ref, model, monkeypatch):
     cfg, params = model
-    pname, fb, codec, dfb = CASES[name]
+    pname, fb, codec, dfb = case
     monkeypatch.setattr(TS, "apply_updates", lambda opt, p, g, s: (g, s))
     pol = _policy(pname, fb)
     opt = TO.OptimizerConfig(kind="sgd", lr=0.1)
@@ -221,7 +244,7 @@ def test_dp_step_matches_reference(name, ref, model, monkeypatch):
                                num_samples=NS, dtype=torch.bfloat16)]
     with pytest.warns(TPAR.ParallelDeprecationWarning, match="deprecated"):
         step = TS.make_lm_train_step(cfg, pol, opt, dp=DP, dp_codec=codec,
-                                     dp_feedback=dfb)
+                                     dp_feedback=dfb, grad_accum=accum)
     dst = init_lm_dp_state(cfg, params, pol, DP, dfb)
     toks, ids = inputs(cfg)
     exact = codec == "none" and pname == "none" and fb == "none"
@@ -283,9 +306,9 @@ def test_dp_step_keeps_the_callers_params_and_refuses_bad_calls(model):
     with pytest.raises(ValueError, match="both parallel="):
         TS.make_lm_train_step(cfg, _policy("none", "none"), opt,
                               parallel=spec, dp=2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="grad_accum > 1"):
         TS.make_lm_train_step(cfg, _policy("q4q8", "none"), opt,
-                              transport="pipeline", parallel=TPAR.ParallelSpec(
+                              grad_accum=2, parallel=TPAR.ParallelSpec(
                                   {"data": 2, "stage": 2}))
     with pytest.raises(ValueError, match="divisible by dp"):
         TS._make_dp_simulated_step(
