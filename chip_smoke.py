@@ -127,10 +127,33 @@ failure fatal:
      select at the (4, 98,304) hop, bit-exact, and times them (4 rows fill
      no (8, n) wire tile, so the q8 hop packs per tensor and launches no
      ``quantize_wire``).
-  9. one ``{"kernels": [...]}`` line (launches summed over phases 3-8;
+  9. train state and rule policies, full-width gpt2-small, seed-0
+     weights, the launch/train AdamW (launch counters set to 0 just before
+     and read just after the in-process runs): four cases run 4 steps,
+     then again 2 steps, ``save_train_state``, ``restore_train_state``
+     into freshly initialised state and steps 3-4 (simulated cuts under
+     AQ-SGD TopK 10%, batch 8 x 128; the pipeline, 1f1b EF21 TopK 10%, 4
+     stages, 4 microbatches of 8; DP, 2 lanes of 8, q4 + EF21 around
+     q4q8 cuts; pipeline x DP, 2 rows x 4 stages, gpipe EF21 TopK 10% +
+     DP q4 + EF21): losses, final params, AdamW moments and step and every
+     feedback buffer bitwise equal to the uninterrupted run's, exact
+     launches every step, each file's bytes and save / restore seconds;
+     ``launch/train --steps 4``, the same run saving every 2 steps, and
+     ``--resume`` from its step-2 file, whose loss lines equal the
+     uninterrupted run's steps 3-4, then ``launch/serve --ckpt`` on the
+     step-4 train-state file exiting 0; the rule policy ``topk:0.1@depth<1,
+     dir=fw;q4@dir=bw;q8`` on the simulated cuts (5 ``quant_dequant`` and
+     1 ``topk_block`` a step, the plain backend's losses), a one-rule q8
+     set bitwise equal to the static q8 policy, ``run_cnn_experiment``
+     (1 epoch) under ``topk:0.1@size>=65536;q4@size>=32768;q8`` (2
+     ``topk_block`` + 4 ``quant_dequant`` a step, 1 + 2 a compressed test
+     batch) and ``launch/train --mesh data=2 --wire
+     'data=q4@size>=100000000;q8'`` giving the lines of ``--wire
+     data=q4``.  Every line carries the card's name and power limit.
+ 10. one ``{"kernels": [...]}`` line (launches summed over phases 3-9;
      the select kernels timed at the 38.6 M-element DP leaf), then the
-     ``{"ok": true, ...}`` line.  Every number's line of phase 8 carries
-     the card's name and power limit.
+     ``{"ok": true, ...}`` line.  Every number's line of phases 8 and 9
+     carries the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -2819,6 +2842,393 @@ def check_launcher_2d(smi):
         "exits 0: " + json.dumps({"card": smi, "steps": recs}))
 
 
+# ---------------------------------------------------------------------------
+# phase 9: train state (save, restore, resume) and rule policies
+# ---------------------------------------------------------------------------
+
+def _q4ef21_dp(dp):
+    """Launches a step of q4 + EF21 DP lanes around the 3 q4q8 cuts."""
+    return _per_step(quant_dequant=6 * dp, pack4_wire=dp * LEAVES,
+                     unpack4_wire=dp * LEAVES, frame_parts=dp,
+                     decode_sum_fused=1)
+
+
+# case -> (launch/train --policy, --feedback, transport, schedule, global
+#          batch, pipeline microbatches (a row), DP codec + feedback or
+#          None, AQ-SGD samples, launches per step (None: pd_expected's))
+RESUME_CASES = {
+    "simulated/aqsgd": ("none", "aqsgd", "simulated", None, TRAIN_BATCH,
+                        None, None, AQSGD_SAMPLES, _per_step(topk_block=6)),
+    "pipeline/1f1b/ef21top10": ("ef21top10", "none", "pipeline", "1f1b",
+                                PIPE_BATCH, PIPE_MB, None, PIPE_SAMPLES,
+                                _per_step(**_TOPK, **_FRAMED)),
+    "dp/q4+ef21/q4q8": ("q4q8", "none", "simulated", None, 2 * TRAIN_BATCH,
+                        None, ("q4", "ef21"), AQSGD_SAMPLES, _q4ef21_dp(2)),
+    "pipeline x dp/gpipe/ef21top10/q4+ef21": (
+        "ef21top10", "none", "pipeline", "gpipe", PD_BATCH, PD_MB,
+        ("q4", "ef21"), PD_SAMPLES, None),
+}
+RESUME_STEPS, RESUME_AT = 4, 2
+LM_RULES = "topk:0.1@depth<1,dir=fw;q4@dir=bw;q8"
+CNN_RULES = "topk:0.1@size>=65536;q4@size>=32768;q8"
+WIRE_RULES = "data=q4@size>=100000000;q8"
+
+
+def state_case(torch, cfg, case, policy=None):
+    """A phase 9 run as ``launch/train`` builds it: ``(step, fresh,
+    dp)``; ``fresh()`` makes its initial state (seed-0 params, AdamW
+    state, feedback buffers, DP state) on the card."""
+    import dataclasses
+    from repro_torch.core.boundary import init_boundary_state
+    from repro_torch.core.parallel import AxisSpec, ParallelSpec
+    from repro_torch.launch.train import build_policy
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.loop import _pipeline_bstates, init_lm_dp_state
+    from repro_torch.train.steps import make_lm_train_step
+
+    pname, fb, transport, sched, batch, mb, dp_wire, samples, _ = case
+    if policy is None:
+        policy = dataclasses.replace(build_policy(pname, fb, 0.1),
+                                     num_stages=4)
+    dp = 2 if dp_wire else 1
+    axes = {}
+    if dp_wire:
+        axes["data"] = AxisSpec(size=dp, codec=dp_wire[0],
+                                feedback=dp_wire[1])
+    if transport == "pipeline":
+        axes["stage"] = 4
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="cosine", t_max=RESUME_STEPS,
+                          grad_clip=1.0)
+    step = make_lm_train_step(
+        cfg, policy, opt, transport=transport, pipeline_microbatches=mb,
+        schedule=sched or "gpipe",
+        parallel=ParallelSpec(axes) if axes else None)
+    feat = (TRAIN_SEQ, cfg.d_model)
+
+    def fresh():
+        params = transformer.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        if transport == "pipeline":
+            bst = _pipeline_bstates(policy, feat, batch=batch,
+                                    microbatches=mb, num_samples=samples,
+                                    dtype=torch.bfloat16, dp=dp,
+                                    device="cuda")
+        else:
+            cuts = len(transformer.segment_bounds(cfg.num_groups,
+                                                  policy.num_stages)) - 1
+            bst = [init_boundary_state(policy.at(i), feat, batch=batch,
+                                       num_samples=samples,
+                                       dtype=torch.bfloat16, device="cuda")
+                   for i in range(cuts)]
+        dps = (init_lm_dp_state(cfg, params, policy, dp, dp_wire[1],
+                                transport=transport) if dp_wire else None)
+        return {"params": params, "opt": init_opt_state(opt, params),
+                "bst": bst, "dp": dps}
+
+    return step, fresh, dp
+
+
+def state_steps(torch, cfg, case, step, st, start, n, dp, build):
+    """``n`` steps of a phase 9 run from state ``st``, the token stream
+    from step ``start``.  Returns the losses, each step's launches and the
+    new state."""
+    from repro_torch.launch.train import synthetic_stream
+    batch, samples = case[4], case[7]
+    stream = synthetic_stream(cfg, batch, TRAIN_SEQ, 0, num_samples=samples,
+                              start_step=start, dp=dp)
+    losses, launches = [], []
+    for _ in range(n):
+        toks, ids = next(stream)
+        before = dict(build.LAUNCHES)
+        args = [st["params"], st["opt"], st["bst"],
+                {"tokens": torch.from_numpy(toks).to("cuda", torch.int64)},
+                torch.from_numpy(ids).to("cuda")]
+        if st["dp"] is not None:
+            args.append(st["dp"])
+        out = step(*args)
+        st = {"params": out[0], "opt": out[1], "bst": out[2],
+              "dp": out[3] if st["dp"] is not None else None}
+        losses.append(float(out[-1]["loss"]))
+        torch.cuda.synchronize()
+        launches.append({k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+                         for k in KERNELS})
+    return losses, launches, st
+
+
+def _state_tree(st):
+    feedback = {"boundary": st["bst"]}
+    if st["dp"] is not None:
+        feedback["dp"] = st["dp"]
+    return {"params": st["params"], "opt": st["opt"], "feedback": feedback}
+
+
+def state_bits_differ(torch, a, b):
+    """The keys of two train states whose tensors differ in any bit (or in
+    dtype or shape), through the checkpoint's own key walk."""
+    from repro_torch.checkpoint.io import _flatten
+    fa, fb = _flatten(_state_tree(a)), _flatten(_state_tree(b))
+    if sorted(fa) != sorted(fb):
+        return sorted(set(fa) ^ set(fb))
+    bad = []
+    for k, x in fa.items():
+        y = fb[k]
+        if (x.dtype != y.dtype or x.shape != y.shape
+                or x.numel() and not torch.equal(
+                    x.contiguous().reshape(-1).view(torch.uint8),
+                    y.contiguous().reshape(-1).view(torch.uint8))):
+            bad.append(k)
+    return bad
+
+
+def resume_case(torch, cfg, name, build, tmp, smi):
+    """Run ``name`` for 4 steps; then again for 2, ``save_train_state``,
+    restore into freshly initialised state and run steps 3-4.  Holds the
+    losses, the final params, moments and buffers bitwise and the resumed
+    steps' launches exact."""
+    from repro_torch.checkpoint import io as ckpt_io
+    case = RESUME_CASES[name]
+    step, fresh, dp = state_case(torch, cfg, case)
+    want_losses, want_launches, want = state_steps(
+        torch, cfg, case, step, fresh(), 0, RESUME_STEPS, dp, build)
+    first, _, mid = state_steps(torch, cfg, case, step, fresh(), 0,
+                                RESUME_AT, dp, build)
+    path = os.path.join(tmp, "resume.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt_io.save_train_state(path, mid["params"], mid["opt"], mid["bst"],
+                             step=RESUME_AT, dp_state=mid["dp"])
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    del mid
+    like = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ckpt_io.restore_train_state(path, like["params"], like["opt"],
+                                      like["bst"], dp_like=like["dp"])
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    os.remove(path)
+    back = {"params": out[0], "opt": out[1], "bst": out[2],
+            "dp": out[3] if like["dp"] is not None else None}
+    del like, out
+    rest, launches, got = state_steps(torch, cfg, case, step, back,
+                                      RESUME_AT, RESUME_STEPS - RESUME_AT,
+                                      dp, build)
+    per_step = (case[8] if case[8] is not None else
+                pd_expected("gpipe/ef21top10/q4+ef21", got["params"])[0])
+    bad = state_bits_differ(torch, got, want)
+    if first + rest != want_losses or bad:
+        raise AssertionError(f"resume {name}: losses {first + rest} vs "
+                             f"{want_losses}; tensors that differ: "
+                             f"{bad[:8]} ({len(bad)})")
+    for i, got_l in enumerate(want_launches + launches):
+        if got_l != per_step:
+            raise AssertionError(f"resume {name}: launches {got_l} in run "
+                                 f"step {i + 1}, expected {per_step}")
+    moved = [k for k, t in _flatten_feedback(got).items()
+             if t.numel() and bool(t.ne(0).any())]
+    if not moved:
+        raise AssertionError(f"resume {name}: no feedback buffer moved")
+    log("# resume " + json.dumps({
+        "case": name, "card": smi, "losses": want_losses,
+        "resumed_losses": first + rest, "bitwise": True,
+        "launches_per_step": {k: v for k, v in per_step.items() if v},
+        "file_bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+        "buffers_moved": len(moved)}))
+    del want, got, back
+    torch.cuda.empty_cache()
+
+
+def _flatten_feedback(st):
+    from repro_torch.checkpoint.io import _flatten
+    return _flatten(_state_tree(st)["feedback"])
+
+
+def launcher(argv, timeout=600):
+    """One ``launch/train`` or ``launch/serve`` run in a subprocess on the
+    card: ``(exit code, JSON lines, stdout and the tail of stderr)``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    recs = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")]
+    return proc.returncode, recs, proc.stdout + proc.stderr[-2000:]
+
+
+def _loss_lines(recs):
+    return [{k: v for k, v in r.items() if k not in ("tok_per_s", "wall_s")}
+            for r in recs]
+
+
+def launcher_resume(tmp, smi):
+    """``launch/train --steps 4``; the same run saving its train state
+    every 2 steps (one file a save); ``--resume`` from the step-2 file to
+    step 4: its lines equal the uninterrupted run's steps 3-4.  The cosine
+    schedule spans ``--steps``, so the interrupted run is a 4-step run
+    saved at step 2 (a ``--steps 2`` run is another run).  Then
+    ``launch/serve --ckpt`` restores the params from the step-4
+    train-state file and exits 0."""
+    base = ["repro_torch.launch.train", "--feedback", "aqsgd",
+            "--num-samples", str(AQSGD_SAMPLES), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--log-every", "1", "--steps",
+            str(RESUME_STEPS)]
+    ckpt = os.path.join(tmp, "run_{step}.npz")
+    runs = []
+    for extra in ([], ["--ckpt", ckpt, "--save-every", str(RESUME_AT)],
+                  ["--resume", ckpt.replace("{step}", str(RESUME_AT))]):
+        t0 = time.perf_counter()
+        rc, recs, tail = launcher(base + extra)
+        if rc != 0:
+            raise AssertionError(f"launch/train {' '.join(extra)} exited "
+                                 f"{rc}: {tail[-4000:]}")
+        runs.append((_loss_lines(recs), time.perf_counter() - t0))
+    (full, _), (saved, _), (resumed, _) = runs
+    files = sorted(os.listdir(tmp))
+    if (saved != full or resumed != full[RESUME_AT:]
+            or files != ["run_2.npz", "run_4.npz"]
+            or not all(math.isfinite(r["loss"]) for r in full)):
+        raise AssertionError(f"launcher resume: full {full}, saved {saved}, "
+                             f"resumed {resumed}, files {files}")
+    file_bytes = os.path.getsize(os.path.join(tmp, "run_2.npz"))
+    rc, _, tail = launcher(["repro_torch.launch.serve", "--arch",
+                            "gpt2-small", "--ckpt",
+                            os.path.join(tmp, "run_4.npz"), "--batch", "2",
+                            "--prompt-len", "16", "--new-tokens", "4"])
+    if rc != 0 or "restored step-4 params" not in tail:
+        raise AssertionError(f"launch/serve --ckpt exited {rc}: "
+                             f"{tail[-4000:]}")
+    for f in files:
+        os.remove(os.path.join(tmp, f))
+    log("# launcher resume " + json.dumps({
+        "card": smi, "steps": full, "resumed": resumed, "identical": True,
+        "train_state_bytes": file_bytes,
+        "seconds": [round(s, 1) for _, s in runs]}))
+    log("# launch/serve --ckpt <train-state file> exits 0: "
+        + json.dumps({"card": smi, "restored": [
+            ln for ln in tail.splitlines() if "restored" in ln]}))
+
+
+def rule_policies(torch, D, cfg, build, smi):
+    """The per-cut rule policy on the simulated cuts (exact launches, the
+    plain backend's losses), a one-rule q8 set against the static q8
+    policy, and ``run_cnn_experiment`` under a per-cut rule policy
+    (exact launches a step and a test batch)."""
+    from repro_torch.core.policy import (CompressionPolicy,
+                                         parse_policy_rules, quant_policy,
+                                         resolve_policy)
+    from repro_torch.data.synthetic import ImageClassData
+    from repro_torch.train.loop import run_cnn_experiment
+
+    case = RESUME_CASES["simulated/aqsgd"]       # its policy replaced
+    feat = TRAIN_SEQ * cfg.d_model
+    rules = resolve_policy(parse_policy_rules(LM_RULES), feat)
+    want = _per_step(quant_dequant=5, topk_block=1)
+    losses = {}
+    for name, pol in (("rules", rules),
+                      ("q8 rule", resolve_policy(parse_policy_rules("q8"),
+                                                 feat)),
+                      ("q8 static", CompressionPolicy(4,
+                                                      quant_policy(8, 8)))):
+        step, fresh, dp = state_case(torch, cfg, case, policy=pol)
+        losses[name], launches, _ = state_steps(
+            torch, cfg, case, step, fresh(), 0, RESUME_STEPS, dp, build)
+        if name == "rules" and any(l != want for l in launches):
+            raise AssertionError(f"rule policy {LM_RULES}: launches "
+                                 f"{launches}, expected {want} a step")
+        if not all(map(math.isfinite, losses[name])):
+            raise AssertionError(f"{name}: losses {losses[name]}")
+    if losses["q8 rule"] != losses["q8 static"]:
+        raise AssertionError(f"one-rule q8 {losses['q8 rule']} != static "
+                             f"q8 {losses['q8 static']}")
+    D.KERNEL_BACKEND = "plain"
+    try:
+        step, fresh, dp = state_case(torch, cfg, case, policy=rules)
+        plain = state_steps(torch, cfg, case, step, fresh(), 0,
+                            RESUME_STEPS, dp, build)[0]
+    finally:
+        D.KERNEL_BACKEND = "auto"
+    if plain != losses["rules"]:
+        raise AssertionError(f"rule policy: plain backend losses {plain} "
+                             f"!= {losses['rules']}")
+    log("# rule policy " + json.dumps({
+        "spec": LM_RULES, "card": smi, "resolved": rules.name,
+        "losses": losses["rules"], "plain_backend_losses_equal": True,
+        "launches_per_step": {k: v for k, v in want.items() if v}}))
+    log("# one-rule q8 set equals the static q8 policy bitwise: "
+        + json.dumps({"card": smi, "losses": losses["q8 rule"]}))
+
+    data = ImageClassData()
+    sizes = [32 * 32 * CNN_WIDTH >> s for s in range(3)]
+    cnn_pol = resolve_policy(parse_policy_rules(CNN_RULES), sizes)
+    before = dict(build.LAUNCHES)
+    t0 = time.perf_counter()
+    res = run_cnn_experiment(parse_policy_rules(CNN_RULES), epochs=1,
+                             width=CNN_WIDTH, data=data, batch=CNN_BATCH)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps, evals_n = CNN_TRAIN // CNN_BATCH, CNN_TEST // CNN_BATCH
+    # a step: fw and bw at each cut; the compressed eval: fw at each cut
+    want = _per_step(topk_block=2 * steps + evals_n,
+                     quant_dequant=4 * steps + 2 * evals_n)
+    got = {k: build.LAUNCHES.get(k, 0) - before.get(k, 0) for k in KERNELS}
+    vals = (res.acc_on, res.acc_off, res.loss_on, res.loss_off)
+    if got != want or not all(map(math.isfinite, vals)):
+        raise AssertionError(f"run_cnn_experiment {CNN_RULES}: launches "
+                             f"{got}, expected {want}; {vals}")
+    log("# cnn rule policy run_cnn_experiment " + json.dumps({
+        "spec": CNN_RULES, "card": smi, "cut_sizes": sizes,
+        "resolved": cnn_pol.name, "policy_curve": res.policy_curve,
+        "launches_per_step": {"topk_block": 2, "quant_dequant": 4},
+        "launches": {k: v for k, v in got.items() if v},
+        "acc_on": res.acc_on, "acc_off": res.acc_off,
+        "train_curve": res.train_curve, "seconds_with_eval": secs}))
+
+
+def launcher_rule_wire(smi):
+    """``--wire`` with a rule-coded data codec gives the lines of the
+    static codec it resolves to: gpt2-small's gradient resolves
+    ``q4@size>=100000000;q8`` to q4."""
+    base = ["repro_torch.launch.train", "--mesh", "data=2", "--policy",
+            "q4q8", "--steps", "2", "--batch", str(2 * TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--log-every", "1"]
+    lines = []
+    for wire in (WIRE_RULES, "data=q4"):
+        rc, recs, tail = launcher(base + ["--wire", wire])
+        if rc != 0 or not recs:
+            raise AssertionError(f"launch/train --wire {wire} exited {rc}: "
+                                 f"{tail[-4000:]}")
+        lines.append(_loss_lines(recs))
+    if lines[0] != lines[1]:
+        raise AssertionError(f"--wire {WIRE_RULES} {lines[0]} != --wire "
+                             f"data=q4 {lines[1]}")
+    log(f"# launch/train --wire '{WIRE_RULES}' equals --wire data=q4: "
+        + json.dumps({"card": smi, "steps": lines[0]}))
+
+
+def train_state(torch, D, build, smi):
+    """Phase 9: bitwise resumes of the four state layouts at full width,
+    the launcher's resume and serving from its train-state file, the rule
+    policies on the LM and the CNN and a rule-coded DP wire."""
+    import tempfile
+    from repro_torch.configs.registry import get
+
+    cfg = get("gpt2-small")
+    build.reset_launches()                  # the phase 9 paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in RESUME_CASES:
+            resume_case(torch, cfg, name, build, tmp, smi)
+        rule_policies(torch, D, cfg, build, smi)
+        torch.cuda.synchronize()
+        launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}  # here
+        log(f"# phase 9 launches {launches}")
+        torch.cuda.empty_cache()
+        launcher_resume(tmp, smi)
+    launcher_rule_wire(smi)
+    return launches
+
+
 def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -2947,7 +3357,7 @@ def main() -> int:
                     f"the launches; its times are not to be used")
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
-    # -- phases 3-8: each main path, its counts set to 0 just before it and
+    # -- phases 3-9: each main path, its counts set to 0 just before it and
     # read just after; the kernels line sums them
     paths = []
     for phase, run in ((3, lambda: serve(torch, np, D, _build)),
@@ -2955,7 +3365,8 @@ def main() -> int:
                        (5, lambda: pipeline(torch, D, _build)),
                        (6, lambda: data_parallel(torch, D, _build)),
                        (7, lambda: cnn(torch, D, _build)),
-                       (8, lambda: pipeline_dp(torch, D, _build, smi))):
+                       (8, lambda: pipeline_dp(torch, D, _build, smi)),
+                       (9, lambda: train_state(torch, D, _build, smi))):
         paths.append(run())
         log(f"# phase {phase} done at {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
@@ -2963,7 +3374,7 @@ def main() -> int:
         if not v:
             raise AssertionError(f"{k} was launched on no main path")
 
-    # -- phase 9 ------------------------------------------------------------
+    # -- phase 10 -----------------------------------------------------------
     line = []
     for name, (src, replaces) in KERNELS.items():
         row = (timed[DPQ8] if name in DP_KERNELS else

@@ -10,9 +10,12 @@ and warn with :class:`ParallelDeprecationWarning`.  The compact CLI forms
 ``--mesh data=2,stage=2`` and ``--wire data=q8+ef:0.1`` parse as in the
 reference, with its grammar and error messages.
 
-Not yet ported, and refused with ``NotImplementedError``: an axis codec
-that is a policy-rule list (``"q4@bandwidth<1e9;q8"``: ``PolicyRules``
-is not ported), and a tensor axis of size > 1 (tensor parallelism).
+An axis codec may be a plain codec name (``"q8"``) or a policy-rule list
+(``"q4@size>=100000000;q8"``, the grammar of ``core.policy.parse_rule``),
+resolved against the axis' wire size (and an optional measured
+bandwidth) by :meth:`ParallelSpec.resolved`.  Not yet ported, and
+refused with ``NotImplementedError``: a tensor axis of size > 1 (tensor
+parallelism).
 """
 from __future__ import annotations
 
@@ -20,9 +23,9 @@ import dataclasses
 import warnings
 from typing import Mapping, Optional, Tuple, Union
 
-from repro_torch.core.compressors import IDENTITY, Compressor, quant, topk
 from repro_torch.core.feedback import FEEDBACK_REGISTRY
-from repro_torch.core.policy import BoundaryPolicy, CompressionPolicy
+from repro_torch.core.policy import (BoundaryPolicy, CompressionPolicy,
+                                     _rule_compressor, parse_policy_rules)
 
 AXIS_NAMES = ("data", "stage", "tensor")
 
@@ -65,20 +68,12 @@ def _feedback_modes_for(axis: str) -> Tuple[str, ...]:
     )
 
 
-def _rule_compressor(codec: str, k_frac: float) -> Compressor:
-    if codec == "none":
-        return IDENTITY
-    if codec == "q8":
-        return quant(8)
-    if codec == "q4":
-        return quant(4)
-    return topk(k_frac)
-
-
 @dataclasses.dataclass(frozen=True)
 class AxisSpec:
     """One mesh axis: its size and the wire that crosses it.  ``codec`` is
-    a wire-codec name (``none/q8/q4/topk``)."""
+    a wire-codec name (``none/q8/q4/topk``) or an unresolved policy-rule
+    list (anything containing ``@``/``;``/``:``), picked per axis by the
+    rule engine."""
 
     size: int = 1
     codec: str = "none"
@@ -92,21 +87,36 @@ class AxisSpec:
         if not 0.0 < self.k_frac <= 1.0:
             raise ValueError(f"k_frac must be in (0, 1], got {self.k_frac}")
         if _is_rule_spec(self.codec):
-            raise NotImplementedError(
-                f"axis codec {self.codec!r} is a policy-rule spec: rule "
-                "specs are not yet ported to repro_torch (PolicyRules)")
-        from repro_torch.transport.codecs import registered_codecs
+            parse_policy_rules(self.codec)  # raises on a malformed rule list
+        else:
+            from repro_torch.transport.codecs import registered_codecs
 
-        if self.codec not in registered_codecs():
-            raise ValueError(
-                f"unknown wire codec {self.codec!r}; registered: "
-                f"{registered_codecs()} (or a policy-rule spec)"
-            )
+            if self.codec not in registered_codecs():
+                raise ValueError(
+                    f"unknown wire codec {self.codec!r}; registered: "
+                    f"{registered_codecs()} (or a policy-rule spec)"
+                )
         if self.feedback not in FEEDBACK_REGISTRY:
             raise ValueError(
                 f"unknown feedback mode {self.feedback!r}; "
                 f"known: {tuple(FEEDBACK_REGISTRY)}"
             )
+
+    @property
+    def is_rules(self) -> bool:
+        return _is_rule_spec(self.codec)
+
+    def resolve(self, wire_size: int,
+                bandwidth: Optional[float] = None) -> "AxisSpec":
+        """Collapse a rule-spec codec to a concrete one for this axis'
+        wire size (per-example element count crossing the axis) and an
+        optional measured ``bandwidth`` (bytes/s)."""
+        if not self.is_rules:
+            return self
+        rule = parse_policy_rules(self.codec).pick(
+            wire_size, 0, "fw", bandwidth=bandwidth)
+        return dataclasses.replace(self, codec=rule.codec,
+                                   k_frac=rule.k_frac)
 
 
 _AXES_T = Tuple[Tuple[str, AxisSpec], ...]
@@ -210,13 +220,28 @@ class ParallelSpec:
 
     # -- derived plans -----------------------------------------------------
 
-    def stage_policy(self) -> Optional[CompressionPolicy]:
+    def resolved(
+        self,
+        wire_sizes: Optional[Mapping[str, int]] = None,
+        bandwidth: Optional[float] = None,
+    ) -> "ParallelSpec":
+        """Resolve any rule-spec axis codecs (see :meth:`AxisSpec.resolve`).
+        ``wire_sizes`` maps axis name -> per-example element count on that
+        axis' wire; axes without an entry resolve with size 0."""
+        sizes = dict(wire_sizes or {})
+        return ParallelSpec(
+            {n: s.resolve(sizes.get(n, 0), bandwidth) for n, s in self.axes})
+
+    def stage_policy(self):
         """A uniform boundary :class:`CompressionPolicy` from the stage
-        axis' wire spec, or None when the stage wire is uncompressed with
-        no feedback (callers then keep their explicit ``policy``)."""
+        axis' wire spec (the unresolved ``PolicyRules`` of a rule-spec
+        stage codec), or None when the stage wire is uncompressed with no
+        feedback (callers then keep their explicit ``policy``)."""
         s = self.stage
         if s.codec == "none" and s.feedback == "none":
             return None
+        if s.is_rules:
+            return parse_policy_rules(s.codec, num_stages=s.size)
         comp = _rule_compressor(s.codec, s.k_frac)
         return CompressionPolicy(
             num_stages=s.size,

@@ -19,6 +19,12 @@ Runs on ``cuda`` unless ``--device cpu``.
       --pipeline-microbatches 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
       --smoke --device cpu --grad-accum 2 --policy q4q8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
+      --smoke --device cpu --steps 4 --policy 'topk:0.1@depth<1;q4@dir=bw;q8'
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
+      --smoke --device cpu --steps 2 --feedback aqsgd --ckpt /tmp/s.npz
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
+      --smoke --device cpu --steps 4 --feedback aqsgd --resume /tmp/s.npz
 
 ``--transport simulated`` compresses simulated stage cuts;
 ``--transport pipeline`` runs the layer stack through the real
@@ -33,9 +39,17 @@ gradient all-reduce: lanes around the simulated cuts, or, with
 whose layer-stack gradients cross the reduce in S stage columns; the
 JSON lines add the ring's ``dp_bytes`` per step.  ``--grad-accum K``
 (deprecated alias ``--microbatches``) splits each step's batch into K
-pieces on the simulated transport.  Static named policies only; the
-reference's other flags (a mesh with a tensor axis, rule-spec policies
-and axis codecs, checkpoints, telemetry) exit with an error saying so.
+pieces on the simulated transport.  ``--policy`` takes a named policy
+or a rule spec (``'q4@size>=65536;q8@size>=16384;none'``, first match
+wins per cut, resolved against ``seq * d_model``), and a ``--wire`` axis
+codec a quoted rule spec (``data=q4@size>=100000000;q8``, resolved
+against the parameter count for the data axis).  ``--ckpt PATH`` saves
+the whole train state (params, AdamW moments, the cuts' and the DP
+reduce's feedback buffers) every ``--save-every`` steps and at the end
+(``{step}`` in PATH keeps one file a save); ``--resume PATH`` restores it
+and restarts the token stream at the saved step, so that the resumed run
+is the uninterrupted one bit for bit.  The reference's other flags (a
+mesh with a tensor axis, telemetry) exit with an error saying so.
 """
 from __future__ import annotations
 
@@ -50,21 +64,23 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs.registry import ARCHS, get
 from repro_torch.core.boundary import init_boundary_state
 from repro_torch.core.parallel import spec_from_cli
 from repro_torch.core.policy import (POLICIES, CompressionPolicy,
-                                     aqsgd_policy, ef_policy)
+                                     aqsgd_policy, ef_policy,
+                                     parse_policy_rules, resolve_policy)
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.models.config import param_count
 from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
 from repro_torch.train.loop import _pipeline_bstates, init_lm_dp_state
 from repro_torch.train.steps import _resolve_parallel, make_lm_train_step
 from repro_torch.transport.schedules import get_schedule
 
 # Flags of the reference launcher that belong to features not ported yet.
-NOT_PORTED = ("--ckpt", "--save-every", "--ckpt-every", "--resume",
-              "--trace", "--perfetto", "--metrics")
+NOT_PORTED = ("--trace", "--perfetto", "--metrics")
 
 
 def synthetic_stream(cfg, batch: int, seq: int, seed: int = 0,
@@ -102,11 +118,13 @@ def synthetic_stream(cfg, batch: int, seq: int, seed: int = 0,
         step += 1
 
 
-def build_policy(name: str, feedback: str = "none",
-                 k_frac: float = 0.1) -> CompressionPolicy:
-    """The named policy; ``feedback`` replaces every cut with TopK(k_frac)
-    under that compensation, as the reference's ``--feedback`` does."""
-    policy = POLICIES[name]()
+def build_policy(name: str, feedback: str = "none", k_frac: float = 0.1):
+    """The named policy, or the unresolved ``PolicyRules`` of a rule spec
+    (a bad one raises ``ValueError``); ``feedback`` replaces every cut
+    with TopK(k_frac) under that compensation, as the reference's
+    ``--feedback`` does."""
+    policy = (POLICIES[name]() if name in POLICIES
+              else parse_policy_rules(name))
     if feedback != "none":
         bp = (aqsgd_policy(k_frac) if feedback == "aqsgd"
               else ef_policy(k_frac, feedback))
@@ -124,8 +142,15 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--policy", default="none",
-                    help="a named policy: %s (rule specs are not yet "
-                         "ported)" % ", ".join(sorted(POLICIES)))
+                    help="a named policy (%s) OR an adaptive rule spec: "
+                         "';'-separated 'codec[:k_frac][@cond,...]' rules, "
+                         "conds size>=N | size<N | depth>=N | depth<N | "
+                         "bandwidth>=X | bandwidth<X (fires only under a "
+                         "probe, which is not ported) | dir=fw|bw — first "
+                         "match wins per cut, e.g. "
+                         "'q4@size>=65536;q8@size>=16384;none' (resolved "
+                         "against seq*d_model)"
+                         % ", ".join(sorted(POLICIES)))
     ap.add_argument("--transport", default="simulated",
                     choices=("simulated", "pipeline"),
                     help="simulated boundary (paper) or the real "
@@ -153,8 +178,9 @@ def main(argv=None) -> int:
     ap.add_argument("--wire", default=None, metavar="SPEC",
                     help="per-axis wire config "
                          "'axis=codec[+feedback][:k_frac]', e.g. "
-                         "'data=q8+ef:0.1'.  Codecs none|q8|q4|topk; "
-                         "feedback ef|ef21.  Replaces --dp-codec/"
+                         "'data=q8+ef:0.1'.  Codecs none|q8|q4|topk (or a "
+                         "quoted rule spec); feedback ef|ef21.  Replaces "
+                         "--dp-codec/"
                          "--dp-feedback/--dp-k-frac")
     ap.add_argument("--dp", type=int, default=1,
                     help="DEPRECATED (use --mesh data=N): data-parallel "
@@ -191,6 +217,20 @@ def main(argv=None) -> int:
                          "--transport pipeline, for "
                          "--pipeline-microbatches)")
     ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint path (npz); saves the FULL train "
+                         "state: params + optimizer moments + feedback "
+                         "buffers (checkpoint/io.save_train_state).  A "
+                         "'{step}' placeholder keeps one file per save "
+                         "instead of overwriting")
+    ap.add_argument("--save-every", type=int, default=None,
+                    help="checkpoint every N steps (default 100)")
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="DEPRECATED alias for --save-every")
+    ap.add_argument("--resume", default=None,
+                    help="resume from a --ckpt train-state file: restores "
+                         "params, optimizer state, feedback buffers, and "
+                         "the data-stream position")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default=None, help="write metrics here")
@@ -220,10 +260,15 @@ def main(argv=None) -> int:
             warnings.warn("--microbatches is deprecated: use --grad-accum "
                           "for gradient accumulation", DeprecationWarning)
             grad_accum = args.microbatches
-    if args.policy not in POLICIES:
-        ap.error(f"--policy {args.policy!r}: rule-spec policies are not yet "
-                 f"ported to repro_torch (named: "
-                 f"{', '.join(sorted(POLICIES))})")
+    save_every = args.save_every
+    if args.ckpt_every is not None:
+        if save_every is not None:
+            ap.error("--ckpt-every (deprecated) conflicts with "
+                     "--save-every — drop --ckpt-every")
+        warnings.warn("--ckpt-every is deprecated: use --save-every",
+                      DeprecationWarning)
+        save_every = args.ckpt_every
+    save_every = 100 if save_every is None else save_every
 
     cfg = get(args.arch, smoke=args.smoke)
     try:
@@ -232,9 +277,16 @@ def main(argv=None) -> int:
         ap.error(str(e))
     dev = resolve_device(args.device)
     seq = min(args.seq, cfg.max_seq)
-    policy = build_policy(args.policy, args.feedback, args.k_frac)
+    try:
+        policy = build_policy(args.policy, args.feedback, args.k_frac)
+    except ValueError as e:
+        ap.error(f"--policy {args.policy!r} is neither a named policy "
+                 f"({', '.join(sorted(POLICIES))}) nor a valid rule "
+                 f"spec: {e}")
     if args.stages:
         policy = dataclasses.replace(policy, num_stages=args.stages)
+    # rules -> concrete per-cut codecs, keyed by the LM's uniform cut size
+    policy = resolve_policy(policy, seq * cfg.d_model)
     virtual_stages = (args.virtual_stages if args.virtual_stages is not None
                       else (2 if args.schedule == "interleaved" else 1))
     parallel = None
@@ -250,7 +302,11 @@ def main(argv=None) -> int:
                      f"{', '.join(legacy_used)} — configure every axis "
                      "through --mesh/--wire")
         try:
-            parallel = spec_from_cli(args.mesh, args.wire)
+            # rule-coded axis wires resolve statically: data carries the
+            # gradient tree, stage the per-example cut
+            parallel = spec_from_cli(args.mesh, args.wire).resolved(
+                {"data": param_count(cfg), "stage": seq * cfg.d_model,
+                 "tensor": seq * cfg.d_model})
             _, policy_eff, transport = _resolve_parallel(
                 "launch.train", parallel, policy, args.transport, {})
         except (ValueError, NotImplementedError) as e:
@@ -330,10 +386,23 @@ def main(argv=None) -> int:
                                     virtual_stages=virtual_stages)
         print(f"# dp={dp_n} gradient all-reduce: codec={dp_codec} "
               f"feedback={dp_feedback}", flush=True)
+    start_step = 0
+    if args.resume:
+        if dp_n > 1:
+            params, opt_state, bstates, dp_state, start_step = \
+                ckpt_io.restore_train_state(args.resume, params, opt_state,
+                                            bstates, dp_like=dp_state)
+        else:
+            params, opt_state, bstates, start_step = \
+                ckpt_io.restore_train_state(args.resume, params, opt_state,
+                                            bstates)
+        print(f"# resumed step-{start_step} train state from {args.resume}",
+              flush=True)
     stream = synthetic_stream(cfg, args.batch, seq, args.seed,
-                              num_samples=args.num_samples, dp=dp_n)
+                              num_samples=args.num_samples,
+                              start_step=start_step, dp=dp_n)
     metrics, t0 = [], time.time()
-    for step in range(1, args.steps + 1):
+    for step in range(start_step + 1, args.steps + 1):
         toks, ids = next(stream)
         extra = [] if dp_state is None else [dp_state]
         out = step_fn(
@@ -348,7 +417,8 @@ def main(argv=None) -> int:
             dt = time.time() - t0
             rec = {"step": step, "loss": round(loss, 4),
                    "ppl": round(math.exp(min(loss, 20.0)), 2),
-                   "tok_per_s": round(step * args.batch * seq / dt, 1),
+                   "tok_per_s": round((step - start_step) * args.batch
+                                      * seq / dt, 1),
                    "wall_s": round(dt, 1)}
             if pipeline:
                 rec.update(fw_bytes=m["wire"]["fw_bytes"],
@@ -357,10 +427,19 @@ def main(argv=None) -> int:
                 rec["dp_bytes"] = m["wire"]["dp_bytes"]
             metrics.append(rec)
             print(json.dumps(rec), flush=True)
+        if args.ckpt and (step % save_every == 0 or step == args.steps):
+            ckpt_io.save_train_state(
+                args.ckpt.replace("{step}", str(step)), params, opt_state,
+                bstates, step=step,
+                extra={"arch": cfg.arch_id, "policy": args.policy,
+                       "feedback": args.feedback, "dp": dp_n,
+                       "dp_codec": dp_codec, "tp": 1},
+                dp_state=dp_state)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(metrics, f, indent=1)
-    print(f"# done: final loss {metrics[-1]['loss'] if metrics else 'n/a'}",
+    print("# done: final loss "
+          f"{metrics[-1]['loss'] if metrics else 'n/a (already at --steps)'}",
           flush=True)
     return 0
 

@@ -4,12 +4,15 @@ fine-tuning (Sec. 3.2).
 Port of ``run_cnn_experiment``, ``_cnn_eval``, ``_cnn_bstates``,
 ``run_lm_experiment``, ``_lm_eval``, ``pretrain_lm``,
 ``_pipeline_bstates`` and ``init_lm_dp_state`` from
-``repro/train/loop.py`` for a static policy on the simulated transport
-or the real pipeline, the LM on either with or without the compressed
-data-parallel gradient reduce: train with boundary compression, then
-evaluate with compression on AND off (finding F3: a model trained
-compressed must be served compressed).  Rule policies, rule-spec axis
-codecs, bandwidth probes and trace spans are not ported yet.
+``repro/train/loop.py`` on the simulated transport or the real pipeline,
+the LM on either with or without the compressed data-parallel gradient
+reduce: train with boundary compression, then evaluate with compression
+on AND off (finding F3: a model trained compressed must be served
+compressed).  A rule policy (``PolicyRules``) and rule-spec axis codecs
+resolve once, statically, against the run's cut and gradient sizes, and
+``run_lm_experiment``'s ``ExperimentResult.policy_curve`` holds the
+resolved name per epoch.  Bandwidth probes (which would re-resolve
+between epochs) and trace spans are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,15 +26,16 @@ import torch
 from repro_torch.core.boundary import init_boundary_state
 from repro_torch.core.parallel import ParallelSpec, from_legacy, warn_legacy
 from repro_torch.core.policy import (NO_POLICY, BoundaryPolicy,
-                                     CompressionPolicy)
+                                     CompressionPolicy, PolicyRules,
+                                     resolve_policy)
 from repro_torch.data.synthetic import ImageClassData, LMData
 from repro_torch.device import resolve_device
 from repro_torch.models import cnn, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.optimizers import (OptimizerConfig, init_opt_state,
-                                          tree_map)
+                                          tree_leaves, tree_map)
 from repro_torch.train.steps import (_LEGACY_DEFAULTS, _UNSET,
-                                     _refuse_rules, _resolve_parallel,
+                                     _resolve_parallel,
                                      make_cnn_eval_step, make_cnn_train_step,
                                      make_lm_eval_step, make_lm_train_step)
 from repro_torch.transport.collectives import init_dp_state
@@ -47,6 +51,9 @@ class ExperimentResult:
     loss_off: float = 0.0          # eval loss with compression OFF
     train_curve: List[float] = dataclasses.field(default_factory=list)
     seconds: float = 0.0
+    # the LM run's resolved policy name per epoch (flat: no probe
+    # re-resolves it); the CNN run leaves it empty, as the reference does
+    policy_curve: List[str] = dataclasses.field(default_factory=list)
     params: Optional[dict] = None
 
     def row(self) -> str:
@@ -100,14 +107,22 @@ def run_cnn_experiment(policy: CompressionPolicy, *, epochs: int = 8,
     only).  ``transport="pipeline"`` trains the homogeneous-stage CNN
     through the real compressed pipeline under ``schedule`` (gpipe | 1f1b
     | interleaved, the latter with ``num_stages * virtual_stages`` stage
-    slices), the same boundary policy at every cut.  Fresh params come
-    from a generator seeded with ``seed``.  Runs on ``cuda`` unless
-    ``device`` says otherwise."""
-    _refuse_rules(policy)
+    slices), the same boundary policy at every cut.  A ``PolicyRules``
+    policy resolves per cut against the real element counts: the three
+    ResNet cuts differ (``cnn.boundary_shapes``), the pipeline's stages
+    are homogeneous (``image² · width``).  Fresh params come from a
+    generator seeded with ``seed``.  Runs on ``cuda`` unless ``device``
+    says otherwise."""
     if transport not in ("simulated", "pipeline"):
         raise ValueError(f"unknown transport {transport!r}")
     dev = resolve_device(device)
     data = data or ImageClassData()
+    if isinstance(policy, PolicyRules):
+        sizes = (data.image * data.image * width
+                 if transport == "pipeline" else
+                 [int(np.prod(s)) for s in
+                  cnn.boundary_shapes(width, data.image)])
+        policy = resolve_policy(policy, sizes)
     opt = opt or cnn_sgd(epochs, data.num_train, batch)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if transport == "pipeline":
@@ -217,11 +232,21 @@ def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
     the stage axis; the ``dp``/``dp_codec``/``dp_feedback``/``dp_k_frac``
     kwargs are its deprecated alias family (warns
     ``ParallelDeprecationWarning``; passing both is an error).
+    ``policy`` may be a ``PolicyRules`` rule set, resolved against the
+    LM's uniform cut ``seq_len * d_model``; axis codecs may be rule specs,
+    resolved against the wire sizes (``data``: the gradient's element
+    count; ``stage``: the cut).  Without a bandwidth probe (not ported)
+    the resolution is the static one, made once; ``policy_curve`` repeats
+    its name each epoch.
     ``pretrained_params``: a params tree on ``device`` (default: fresh
     params from a generator seeded with ``seed``).  Runs on ``cuda``
     unless ``device`` says otherwise."""
     if transport not in ("simulated", "pipeline"):
         raise ValueError(f"unknown transport {transport!r}")
+    dev = resolve_device(device)
+    data = data or LMData()
+    bsize = data.seq_len * cfg.d_model
+    policy = resolve_policy(policy, bsize)
     legacy = {"dp": dp, "dp_codec": dp_codec, "dp_feedback": dp_feedback,
               "dp_k_frac": dp_k_frac}
     explicit = tuple(sorted(k for k, v in legacy.items() if v is not _UNSET))
@@ -240,15 +265,16 @@ def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
         raise ValueError(
             f"run_lm_experiment: both parallel= and the legacy kwarg(s) "
             f"{list(explicit)} were passed — drop the legacy kwargs")
-    spec, policy_eff, transport = _resolve_parallel(
-        "run_lm_experiment", spec, policy, transport, {})
-    dev = resolve_device(device)
-    data = data or LMData()
     opt = opt or OptimizerConfig(kind="adamw", lr=3e-4, weight_decay=0.01,
                                  schedule="constant", grad_clip=1.0)
     params = pretrained_params or transformer.init_params(
         torch.Generator(device=dev).manual_seed(seed), cfg)
     opt_state = init_opt_state(opt, params)
+    # the data wire carries the gradient tree, the stage wire the cut
+    n_grad = sum(p.numel() for p in tree_leaves(params))
+    spec = spec.resolved({"data": n_grad, "stage": bsize, "tensor": bsize})
+    spec, policy_eff, transport = _resolve_parallel(
+        "run_lm_experiment", spec, policy, transport, {})
     feat = (data.seq_len, cfg.d_model)
     if transport == "pipeline":
         bstates = _pipeline_bstates(policy_eff, feat, batch=batch,
@@ -272,8 +298,9 @@ def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
                                  virtual_stages=virtual_stages)
                 if spec.dp > 1 else None)
     t0 = time.time()
-    curve = []
+    curve, policy_curve = [], []
     for ep in range(epochs):
+        policy_curve.append(policy_eff.name)
         for toks, ids in data.epoch(batch, ep):
             args = [params, opt_state, bstates,
                     {"tokens": torch.from_numpy(toks).to(dev, torch.int64)},
@@ -286,7 +313,8 @@ def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
                 dp_state = out[3]
             curve.append(float(m["loss"]))
     res = ExperimentResult(name=name or policy_eff.boundary.name,
-                           train_curve=curve, seconds=time.time() - t0)
+                           train_curve=curve, seconds=time.time() - t0,
+                           policy_curve=policy_curve)
     res.loss_on = _lm_eval(params, cfg, data, policy_eff, True, batch, dev)
     res.loss_off = _lm_eval(params, cfg, data, policy_eff, False, batch,
                             dev)

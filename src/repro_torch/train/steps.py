@@ -23,7 +23,9 @@ lane computes its gradient, and one compressed all-reduce
 pipeline, ``data`` > 1 runs the pipeline x DP step: each replica row
 pipelines its batch shard through its own copy of the layer stack, and
 the per-replica stack gradients cross the stage-column-sharded reduce.
-The DP x TP step and TP are not ported yet.
+A :class:`~repro_torch.core.policy.PolicyRules` policy resolves per
+cut through ``boundary_feat=`` before the step is built.  The DP x TP
+step and TP are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ import torch.nn.functional as F
 from repro_torch.core.feedback import FeedbackState, get_mode, shard_ids
 from repro_torch.core.parallel import ParallelSpec, from_legacy, warn_legacy
 from repro_torch.core.policy import (NO_COMPRESSION, BoundaryPolicy,
-                                     CompressionPolicy)
+                                     CompressionPolicy, PolicyRules,
+                                     resolve_policy)
 from repro_torch.models import cnn, transformer
 from repro_torch.optim.optimizers import (OptimizerConfig, apply_updates,
                                           tree_leaves, tree_map)
@@ -78,6 +81,12 @@ def _resolve_parallel(api: str, parallel, policy, transport: str, legacy):
         spec = from_legacy(
             num_stages=(policy.num_stages if transport == "pipeline" else 1),
             **vals)
+    for name in ("data", "stage", "tensor"):
+        if spec.axis(name).is_rules:
+            raise ValueError(
+                f"{api}: the {name!r} axis codec is an unresolved rule "
+                "spec — call ParallelSpec.resolved(wire_sizes, bandwidth) "
+                "first (run_lm_experiment does this per epoch)")
     if parallel is not None and spec.stages > 1:
         if transport == "simulated":
             transport = "pipeline"
@@ -98,6 +107,24 @@ def _resolve_parallel(api: str, parallel, policy, transport: str, legacy):
                 f"{api}: policy.num_stages={policy.num_stages} != "
                 f"parallel stage size {spec.stages}")
     return spec, policy, transport
+
+
+def _resolve_rules(policy, boundary_feat):
+    """A :class:`~repro_torch.core.policy.PolicyRules` rule set resolved
+    into a concrete :class:`CompressionPolicy` before the step is built.
+
+    ``boundary_feat``: per-cut tensor element count (one int for uniform
+    cuts, or one entry per cut).  A plain ``CompressionPolicy`` passes
+    through untouched, so a one-rule set gives a static policy's run bit
+    for bit."""
+    if isinstance(policy, PolicyRules):
+        if boundary_feat is None:
+            raise ValueError(
+                "policy is a PolicyRules rule set — pass boundary_feat= "
+                "(elements crossing each cut, e.g. seq_len * d_model for "
+                "the LM) so rules can resolve to concrete codecs")
+        return resolve_policy(policy, boundary_feat)
+    return policy
 
 
 def _map_tensors(f, tree):
@@ -154,10 +181,14 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
                        pipeline_microbatches: Optional[int] = None,
                        schedule: str = "gpipe", virtual_stages: int = 1,
                        dp=_UNSET, dp_codec=_UNSET, dp_feedback=_UNSET,
-                       dp_k_frac=_UNSET,
+                       dp_k_frac=_UNSET, boundary_feat=None,
                        parallel: Optional[ParallelSpec] = None):
     """Returns ``step(params, opt_state, bstates, batch, ids) -> (params,
     opt_state, bstates, metrics)``.
+
+    ``policy`` may be a :class:`~repro_torch.core.policy.PolicyRules`
+    rule set, resolved against ``boundary_feat`` (the elements crossing
+    each cut per example: ``seq * d_model`` for the LM's uniform cuts).
 
     batch: {"tokens": (B, S) int}; ``bstates``: one ``{"fw", "bw"}`` dict
     per cut (``[]`` without compression); ``ids``: (B,) example ids.  The
@@ -191,6 +222,7 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
     ``(data, stage)`` grid, whose reduced tree is the layer stack (see
     :func:`_make_dp_pipeline_lm_train_step`)."""
     transformer.check_supported(cfg)
+    policy = _resolve_rules(policy, boundary_feat)
     grad_accum = _resolve_grad_accum(grad_accum, microbatches)
     spec, policy, transport = _resolve_parallel(
         "make_lm_train_step", parallel, policy, transport,
@@ -350,7 +382,8 @@ def _make_dp_simulated_step(policy, opt, compute_grads, dp, dp_codec,
 
 
 def _uniform_boundary(policy: CompressionPolicy) -> BoundaryPolicy:
-    """The single per-cut policy the pipeline runs at every cut."""
+    """The single per-cut policy the pipeline runs at every cut (a rule
+    policy that resolved to different codecs per cut is refused)."""
     if policy.num_boundaries == 0:
         return BoundaryPolicy()
     bps = [policy.at(i) for i in range(policy.num_boundaries)]
@@ -539,21 +572,17 @@ def _accuracy(logits, labels):
     return (logits.detach().argmax(-1) == labels).to(torch.float32).mean()
 
 
-def _refuse_rules(policy):
-    if not isinstance(policy, CompressionPolicy):
-        raise NotImplementedError(
-            f"policy {type(policy).__name__}: only a CompressionPolicy is "
-            "ported to repro_torch (rule policies, PolicyRules, are not)")
-
-
 def make_cnn_train_step(policy: CompressionPolicy, opt: OptimizerConfig,
                         transport: str = "simulated",
                         pipeline_microbatches: Optional[int] = None,
-                        schedule: str = "gpipe", virtual_stages: int = 1):
+                        schedule: str = "gpipe", virtual_stages: int = 1,
+                        boundary_feat=None):
     """Returns ``step(params, opt_state, bstates, images, labels, ids) ->
     (params, opt_state, bstates, metrics)`` with ``metrics`` ``loss`` and
     ``acc``.  ``images``: (B, H, W, 3) NHWC float32; ``bstates``: one
-    ``{"fw", "bw"}`` dict per cut (``[]`` without feedback).
+    ``{"fw", "bw"}`` dict per cut (``[]`` without feedback).  A
+    ``PolicyRules`` policy resolves against ``boundary_feat`` (one element
+    count per cut: the CNN's cuts differ).
 
     ``transport="pipeline"`` trains the homogeneous-stage CNN
     (``models/cnn.py::init_pipeline_params``, ``num_stages *
@@ -561,7 +590,7 @@ def make_cnn_train_step(policy: CompressionPolicy, opt: OptimizerConfig,
     under ``schedule``; ``bstates`` is then ``[]`` or the
     ``init_feedback_state`` dict, and ``metrics["wire"]`` holds the
     step's hops and bytes per direction."""
-    _refuse_rules(policy)
+    policy = _resolve_rules(policy, boundary_feat)
     if transport == "pipeline":
         return _make_pipeline_cnn_train_step(
             policy, opt, microbatches=pipeline_microbatches,

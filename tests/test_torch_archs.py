@@ -1,0 +1,130 @@
+"""The dense archs that no other test names, against the JAX package:
+granite-8b, glm4-9b and starcoder2-7b at their smoke configs (2 layer
+groups, d=256; granite and glm4 SwiGLU + RMSNorm, starcoder2 GELU +
+LayerNorm), reference params carried over through numpy, batch 4, seq 32.
+
+Bounds (bf16 activations in both; nothing model-level is bitwise):
+  * eval loss within ``LOSS_ATOL`` = 2e-3, the bound of
+    tests/test_torch_train.py (measured 1.5e-4, 8.2e-5 and 2.4e-4 in the
+    order above);
+  * logits within ``LOGIT_RTOL`` = 2**-5 of their largest magnitude, the
+    bf16 bound of tests/test_torch_serve.py (measured 0.95%, 0.85% and
+    0.66%);
+  * one simulated q4q8 train step (the launcher's preset: 4 stages,
+    capped at the smoke model's 2 groups, so one cut), the optimizer
+    swapped for one that hands back the gradient: the loss within
+    ``STEP_LOSS_ATOL`` = 0.05 and the gradient tree within
+    ``GRAD_RTOL`` = 0.3 of its norm, tests/test_torch_train.py's bounds
+    for a compressed step.  The reference runs its kernel path
+    (``KERNEL_BACKEND = "pallas"``).
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import repro.core.compressors as JCC
+import repro.models.transformer as JT
+import repro.train.steps as JS
+from repro.configs.registry import get as jget
+from repro.core.boundary import init_boundary_state as jinit
+from repro.core.policy import NO_POLICY as JNONE
+from repro.launch.train import POLICIES as JPOL
+from repro.optim import optimizers as JO
+
+import repro_torch.models.transformer as TT
+import repro_torch.train.steps as TS
+from repro_torch.checkpoint.convert import params_from_numpy
+from repro_torch.configs.registry import get as tget
+from repro_torch.core.boundary import init_boundary_state as tinit
+from repro_torch.core.policy import NO_POLICY as TNONE
+from repro_torch.core.policy import POLICIES as TPOL
+from repro_torch.optim import optimizers as TO
+
+# One intra-op thread: the suite runs in several worker processes at
+# once, and a torch thread pool per worker that outnumbers the cores
+# slows its CPU ops by an order of magnitude.
+torch.set_num_threads(1)
+
+ARCHS = ("granite-8b", "glm4-9b", "starcoder2-7b")
+B, S = 4, 32
+LOSS_ATOL = 2e-3
+LOGIT_RTOL = 2.0 ** -5
+STEP_LOSS_ATOL = 0.05
+GRAD_RTOL = 0.3
+OPT = dict(kind="adamw", lr=1e-3, weight_decay=0.01, schedule="cosine",
+           t_max=5, grad_clip=1.0)
+
+
+def _model(arch):
+    jcfg, tcfg = jget(arch, smoke=True), tget(arch, smoke=True)
+    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    toks = np.random.RandomState(1).randint(0, jcfg.vocab_size, (B, S))
+    return jcfg, tcfg, jp, tp, toks
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy()
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_eval_loss_and_logits_match_reference(arch):
+    jcfg, tcfg, jp, tp, toks = _model(arch)
+    assert tcfg.arch_id == jcfg.arch_id
+    TT.check_supported(tcfg)
+    want = JS.make_lm_eval_step(jcfg, JNONE, True)(
+        jp, {"tokens": jnp.asarray(toks, jnp.int32)})
+    got = TS.make_lm_eval_step(tcfg, TNONE, True)(
+        tp, {"tokens": torch.from_numpy(toks)})
+    assert abs(float(got) - float(want)) <= LOSS_ATOL, (got, want)
+    jl = _f32(JT.forward_eval(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                              jcfg))
+    with torch.no_grad():
+        tl = _f32(TT.forward_eval(tp, {"tokens": torch.from_numpy(toks)},
+                                  tcfg))
+    assert tl.shape == jl.shape == (B, S, jcfg.vocab_size)
+    gap = float(np.abs(tl - jl).max())
+    assert gap <= LOGIT_RTOL * float(np.abs(jl).max()), (gap,
+                                                         np.abs(jl).max())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_q4q8_train_step_matches_reference(arch, monkeypatch):
+    jcfg, tcfg, jp, tp, toks = _model(arch)
+    grads_out = lambda opt, p, g, s: (g, s)  # noqa: E731
+    monkeypatch.setattr(JS, "apply_updates", grads_out)
+    monkeypatch.setattr(TS, "apply_updates", grads_out)
+    monkeypatch.setattr(JCC, "KERNEL_BACKEND", "pallas")
+    jpol, tpol = JPOL["q4q8"](), TPOL["q4q8"]()
+    cuts = len(TT.segment_bounds(tcfg.num_groups, tpol.num_stages)) - 1
+    assert cuts == 1
+    jst = [jinit(jpol.at(i), (S, jcfg.d_model), batch=B,
+                 dtype=jnp.bfloat16) for i in range(cuts)]
+    tst = [tinit(tpol.at(i), (S, tcfg.d_model), batch=B,
+                 dtype=torch.bfloat16) for i in range(cuts)]
+    jopt, topt = JO.OptimizerConfig(**OPT), TO.OptimizerConfig(**OPT)
+    jg, _, _, jm = JS.make_lm_train_step(jcfg, jpol, jopt, donate=False)(
+        jp, JO.init_opt_state(jopt, jp), jst,
+        {"tokens": jnp.asarray(toks, jnp.int32)}, jnp.arange(B))
+    tg, _, _, tm = TS.make_lm_train_step(tcfg, tpol, topt)(
+        tp, TO.init_opt_state(topt, tp), tst,
+        {"tokens": torch.from_numpy(toks)}, torch.arange(B))
+    assert np.isfinite(float(tm["loss"]))
+    assert abs(float(tm["loss"]) - float(jm["loss"])) <= STEP_LOSS_ATOL
+    jl, tl = dict(_leaves(jg)), dict(_leaves(tg))
+    assert sorted(jl) == sorted(tl)
+    got = np.concatenate([_f32(tl[n]).ravel() for n in sorted(tl)])
+    want = np.concatenate([_f32(jl[n]).ravel() for n in sorted(tl)])
+    assert np.linalg.norm(got - want) <= GRAD_RTOL * np.linalg.norm(want)

@@ -307,8 +307,8 @@ def test_run_cnn_experiment_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="warmup_params"):
         TL.run_cnn_experiment(_policy(TP, "q4q8"), transport="pipeline",
                               warmup_params={}, device="cpu")
-    with pytest.raises(NotImplementedError, match="PolicyRules"):
-        TS.make_cnn_train_step(object(), _opt(TO))
+    with pytest.raises(ValueError, match="boundary_feat"):
+        TS.make_cnn_train_step(TP.parse_policy_rules("q8"), _opt(TO))
     with pytest.raises(ValueError, match="transport"):
         TL.run_cnn_experiment(_policy(TP, "q4q8"), transport="ring",
                               device="cpu")

@@ -286,12 +286,9 @@ def test_launch_train_pipeline_cpu(argv, capsys):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--wire", "data=q4@size>=1"], "--wire"),
-    (["--save-every", "5"], "--save-every"),
     (["--mesh", "tensor=2"], "--mesh"),
-    (["--perfetto", "t.json"], "--perfetto"), (["--ckpt", "x.npz"], "--ckpt"),
-    (["--resume", "x.npz"], "--resume"), (["--trace", "t.jsonl"], "--trace"),
-    (["--policy", "q4@size>=1;none"], "rule-spec")])
+    (["--perfetto", "t.json"], "--perfetto"),
+    (["--trace", "t.jsonl"], "--trace"), (["--metrics", "5"], "--metrics")])
 def test_launch_train_refuses_what_is_not_ported(argv, what, capsys):
     from repro_torch.launch import train as ttrain
     with pytest.raises(SystemExit):

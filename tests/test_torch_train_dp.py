@@ -406,7 +406,7 @@ def test_from_legacy_matches_reference(kw):
 
 @pytest.mark.parametrize("mesh,wire,err", [
     ("tensor=2", None, NotImplementedError),
-    (None, "data=q4@size>=1", NotImplementedError),
+    (None, "data=q4@size>=1e8", ValueError),
     ("data=x", None, ValueError), ("data=0", None, ValueError),
     ("bogus=2", None, ValueError), (None, "data=q9", ValueError),
     (None, "stage=q8+ef21,data=q8+aqsgd", ValueError)])
