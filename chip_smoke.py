@@ -42,7 +42,14 @@ failure fatal:
      and h, views at element and byte offsets 1-3, many short rows, exact
      ties, NaN and +-inf, constant rows), the decode at dp = 4 on the q8
      and q4 payloads, and the framing pair on the four DP payloads as
-     well as at their serving and pipeline shapes.
+     well as at their serving and pipeline shapes.  At phase 10's shapes
+     (``tp_kernels``): bit-exact ``quantize_wire`` and the q4 pair at
+     pipeline x TP's (8, 49,152) hop, the q4 pair on the tensor wire's
+     (1, 393,216) and (1, 196,608) f32 rows and the select on the
+     latter, framing of each of those payloads, and the decode at dp = 2
+     on one tensor coordinate's block of the DP x TP stack (q8, q4) and
+     one (stage column, tensor coordinate) block of the 3D stack; timed:
+     the tensor rows' q4 pair and select, the DP x TP q8 decode.
   3. serve full-width gpt2-small (random weights from a seeded generator)
      with ``ServeEngine`` under the policies none, q4q8 and top10, launch
      counters set to 0 just before and read just after: each compressed
@@ -80,7 +87,8 @@ failure fatal:
      ``decode_sum_fused`` per q8/q4 step, one framing launch a replica's
      payload), the ring's bytes ==
      ``dp_wire_report`` x dp(dp-1) hops, falling losses, the same losses
-     under the plain backend, and the smoke model's DP step on the card
+     under the plain backend (topk's first 2 steps: ``DP_PLAIN_STEPS``),
+     and the smoke model's DP step on the card
      against the CPU; tokens/s and the reduce's share of the step (CUDA
      events) per run, a profile of one step.
   7. the paper's CNN experiment on the card (launch counters set to 0
@@ -150,10 +158,36 @@ failure fatal:
      batch) and ``launch/train --mesh data=2 --wire
      'data=q4@size>=100000000;q8'`` giving the lines of ``--wire
      data=q4``.  Every line carries the card's name and power limit.
- 10. one ``{"kernels": [...]}`` line (launches summed over phases 3-9;
+ 10. the tensor axis (launch counters set to 0 just before and read just
+     after): full-width gpt2-small, seed-0 weights, the launch/train
+     AdamW (cosine over 4 steps), every tensor rank a lane of the card, 3
+     steps and a 4th, profiled (the card's activity only), under (a) TP
+     alone, batch 8 x 128: tp 2 with the tensor wire none, q8, q8+EF and
+     q4+EF21, tp 4 with TopK 10%; (b) DP x TP, 2 lanes of 8 x 128 x tp 2:
+     DP q8 + tensor q8, DP q4+EF21 + tensor none; (c) pipeline x TP, 4
+     stages x tp 2, 32 x 128 as 4 microbatches of 8 (each rank's hop (8,
+     64, 768) bf16), gpipe and 1f1b, q4q8 cuts + tensor q4; (d) data 2 x
+     stage 2 x tensor 2, 32 x 128 (rows of 16 as 4 microbatches of 4),
+     gpipe, stage q8 + tensor q4 + DP q8.  Holds exact launches per step
+     (``tp_expected``: 2 x 24 all-gathers and 2 x 24 reduce-scatters a
+     run of the stack, tp and tp^2 packs each), ``tp_hops`` / ``tp_bytes``
+     == ``tp_wire_report`` x ranks x 2 directions, the stage hops and the
+     DP ring (one per (stage column, tensor coordinate)) against
+     ``wire_telemetry`` and ``dp_wire_report(tp_axis=...)``, falling
+     losses, 1f1b == gpipe bitwise, t2/none against the tp = 1 step
+     (losses ``TP_REL_1`` / ``TP_REL_N`` relative, the step-1 gradient
+     within ``TP_GRAD_REL``), the plain backend's losses bitwise for
+     every lossy run (``TP_LOSSY``), and one smoke TP step card vs CPU
+     under ``TP_CPU``'s
+     bounds; tokens/s over steps 2-3 and the idle share per run.
+ 11. one ``{"kernels": [...]}`` line (launches summed over phases 3-10;
      the select kernels timed at the 38.6 M-element DP leaf), then the
-     ``{"ok": true, ...}`` line.  Every number's line of phases 8 and 9
+     ``{"ok": true, ...}`` line.  Every number's line of phases 8-10
      carries the card's name and power limit.
+
+Every profiled step of phases 3-10 records the card's activity only and
+is read from the profiler's raw records (``device_records``): a host
+trace of a train step takes seconds to minutes to read.
 """
 from __future__ import annotations
 
@@ -164,6 +198,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import namedtuple
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -317,6 +352,10 @@ DP_RUNS = {
     "q8/q4q8/accum2": ("q8", "none", 0.1, "q4q8", "none",
                        _per_step(quant_dequant=12 * DP, **_Q_RING)),
 }
+# the plain backend's run of topk/q4q8 takes 2 steps: its plain compaction
+# takes about 12 s a lane a step; step 2's loss already reads the ring's
+# first reduce
+DP_PLAIN_STEPS = {"topk/q4q8": 2}
 DP_KERNELS = ("decode_sum_fused",)
 DPQ8 = f"DP decode dp={DP} q8, full-width gpt2-small payload"
 DPQ4 = f"DP decode dp={DP} q4, full-width gpt2-small payload"
@@ -402,6 +441,68 @@ PD_GRAD_REL = 1e-2
 # CPU's differ in a last bit (measured 0.20 / 0.30; the port and the JAX
 # package part by up to 0.24 there, tests/test_torch_pipeline.py)
 PD_CPU_GRAD_RTOL = {"q4q8": 0.1, "ef21top10": 0.4}
+# the tensor axis phase: full-width gpt2-small with its layer stack over a
+# tensor ring of tp ranks (lanes of the one card), seq 128, 3 steps and a
+# 4th, profiled (the cosine spans 4); 24 all-gather (and 24 reduce-scatter)
+# cut points a forward pass
+TP_SEQ, TP_STEPS, TP_SITES = 128, 3, 24
+TPRun = namedtuple(
+    "TPRun", "dp dp_codec dp_fb stages stage_wire policy schedule tp "
+             "tp_codec tp_fb batch mb")
+TP_RUNS = {
+    # (a) TP alone, batch 8 x 128
+    "t2/none": TPRun(1, "none", "none", 1, "none", "none", "gpipe", 2,
+                     "none", "none", 8, 1),
+    "t2/q8": TPRun(1, "none", "none", 1, "none", "none", "gpipe", 2, "q8",
+                   "none", 8, 1),
+    "t2/q8+ef": TPRun(1, "none", "none", 1, "none", "none", "gpipe", 2,
+                      "q8", "ef", 8, 1),
+    "t2/q4+ef21": TPRun(1, "none", "none", 1, "none", "none", "gpipe", 2,
+                        "q4", "ef21", 8, 1),
+    "t4/topk": TPRun(1, "none", "none", 1, "none", "none", "gpipe", 4,
+                     "topk", "none", 8, 1),
+    # (b) DP x TP, 2 lanes of 8 x 128
+    "d2t2/q8/q8": TPRun(2, "q8", "none", 1, "none", "none", "gpipe", 2,
+                        "q8", "none", 16, 1),
+    "d2t2/q4+ef21/none": TPRun(2, "q4", "ef21", 1, "none", "none", "gpipe",
+                               2, "none", "none", 16, 1),
+    # (c) pipeline x TP, 4 stages, 32 x 128 as 4 microbatches of 8: each
+    # rank's hop (8, 64, 768) bf16
+    "s4t2/gpipe/q4q8/q4": TPRun(1, "none", "none", 4, "none", "q4q8",
+                                "gpipe", 2, "q4", "none", 32, 4),
+    "s4t2/1f1b/q4q8/q4": TPRun(1, "none", "none", 4, "none", "q4q8",
+                               "1f1b", 2, "q4", "none", 32, 4),
+    # (d) data 2 x stage 2 x tensor 2, 32 x 128, rows of 16 as 4
+    # microbatches of 4
+    "d2s2t2/gpipe/q8/q4/q8": TPRun(2, "q8", "none", 2, "q8", "none",
+                                   "gpipe", 2, "q4", "none", 32, 4),
+}
+# the runs held to the plain backend's losses bitwise: every run with a
+# lossy wire (1f1b through its bitwise equality with gpipe)
+TP_LOSSY = ("t2/q8", "t2/q8+ef", "t2/q4+ef21", "t4/topk", "d2t2/q8/q8",
+            "d2t2/q4+ef21/none", "s4t2/gpipe/q4q8/q4",
+            "d2s2t2/gpipe/q8/q4/q8")
+# phase 2 at the tensor axis' shapes: a rank's (8, 64, 768) stage hop in
+# pipeline x TP, and the tensor wire's shards and slices as
+# pack_grad_leaf packs them, (1, n) f32: (8, 64, 768) at tp 2, (8, 32,
+# 768) at tp 4 and 3D's (4, 64, 768)
+TP_HOP = (8, 64 * D_MODEL)
+TP_ROW2, TP_ROW4 = (1, 8 * 64 * D_MODEL), (1, 8 * 32 * D_MODEL)
+TP_HOP_LABEL = f"pipeline x TP hop {TP_HOP}"
+TP_ROW2_LABEL = f"tensor wire row {TP_ROW2} f32, the codec's pair"
+TP_ROW4_LABEL = f"tensor wire row {TP_ROW4} f32"
+TP_BLK8 = "DP decode dp=2 q8, one tensor coordinate of the DP x TP stack"
+TP_BLK4 = "DP decode dp=2 q4, one tensor coordinate of the DP x TP stack"
+TP_BLK3D = "DP decode dp=2 q8, one (stage column, tensor coordinate) block"
+# t2/none against the tp = 1 step on the same batch: every sharded matmul
+# group adds two bf16-rounded partial outputs where one device rounds
+# once, 24 groups a pass.  Relative loss gap at step 1 / after, and the
+# step-1 gradient the optimizer is given (tree and layer stack) relative
+# to its norm
+TP_REL_1, TP_REL_N, TP_GRAD_REL = 1e-3, 1e-2, 2e-2
+# the smoke TP step (tp 2), card vs CPU: loss absolutely, the gradient
+# relative to its norm, by tensor wire
+TP_CPU = {"none": (LOSS_ATOL, 2e-2), "q8+ef": (LM_LOSS_ATOL, 0.1)}
 # a ragged gradient tree: an odd leaf (misaligned meta), a rank-3 stack,
 # a constant leaf (one code) and a leaf of 3 tiles and a bit
 RAGGED = [(7,), (5, 33), (2, 3, 17), (6,), (3 * 8192 + 5,)]
@@ -438,6 +539,19 @@ def device_events(prof):
     from torch.autograd import DeviceType
     return [(ev.self_device_time_total / 1e3, ev.key)
             for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+
+
+def device_records(prof):
+    """What :func:`device_events` gives, summed by name straight from the
+    profiler's raw records: ``key_averages`` first builds the host-side
+    event tree, which takes seconds on a train step's records."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + \
+                e.duration_ns() / 1e6
+    return [(ms, key) for key, ms in by_name.items()]
 
 
 def device_ms(torch, fn, kernel=None, iters=20, warm=True, profiles=1):
@@ -1329,6 +1443,97 @@ def pd_kernels(torch, D, pack4, topk, codecs, collectives, tiling):
     return err, timed
 
 
+def tp_kernels(torch, D, quantize, pack4, topk, framing, codecs,
+               collectives, tiling):
+    """Phase 2 at the tensor axis' shapes (phase 10): at pipeline x TP's
+    (8, 49,152) stage hop ``quantize_wire`` on the tiled q8 backward hop
+    (bf16) and the q4 pair (f32, the codec's expanded pair); the q4 pair
+    on the tensor wire's rows at tp 2 and at tp 4 / 3D, and the select on
+    the latter; the framing pair on each of those payloads; the decode +
+    sum at dp = 2 on one tensor coordinate's block of the DP x TP stack
+    (q8, q4) and one (stage column, tensor coordinate) block of the 3D
+    stack (q8).  Every one bit-exact against its plain version; then the
+    tensor rows' q4 pair and select, and the DP x TP q8 decode, timed
+    with their bounds.  Returns ({kernel: max error}, {label: {name:
+    row}})."""
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels import dp_reduce
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.transport.collectives import _column_struct
+    err = dict.fromkeys(KERNELS, 0.0)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    hop32 = torch.randn(TP_HOP, generator=gen, device="cuda")
+    hop = hop32.to(torch.bfloat16)
+    row2 = torch.randn(TP_ROW2, generator=gen, device="cuda")
+    row4 = torch.randn(TP_ROW4, generator=gen, device="cuda")
+    block = tiling.wire_tiling(TP_HOP)
+    assert block is not None          # 8 rows fill the q8 wire tile
+    got, want = kernel_and_plain(
+        torch, D, lambda: quantize.quantize_wire(hop, 8, block))
+    err["quantize_wire"] = max_err(torch, got, want)
+    for x in (hop32, row2, row4):
+        for name, e in zip(("pack4_wire", "unpack4_wire"), check_q4(
+                torch, D, pack4, x, *per_tensor_pair(pack4, x))):
+            err[name] = max(err[name], e)
+    check_select(torch, D, topk, row4)
+    log(f"# quantize_wire bit-exact vs plain: {TP_HOP_LABEL} bf16 tile "
+        f"{block}; the q4 pair at it (f32) and at {TP_ROW2_LABEL} and "
+        f"{TP_ROW4_LABEL}, the select at the latter")
+    for codec, x in (("q8", hop), ("q4", hop), ("q4", row2), ("q4", row4),
+                     ("topk", row4)):
+        parts = hop_payload_parts(torch, codecs, x, codec)
+        sizes = [p.numel() for p in parts]
+        got, want = kernel_and_plain(torch, D,
+                                     lambda: framing.frame_parts(parts))
+        err["frame_parts"] = max(err["frame_parts"],
+                                 max_err(torch, [got], [torch.cat(parts)]))
+        max_err(torch, [got], [want])
+        segs, plain = kernel_and_plain(
+            torch, D, lambda: framing.unframe_parts(want, sizes))
+        err["unframe_parts"] = max(err["unframe_parts"],
+                                   max_err(torch, segs, plain))
+        max_err(torch, segs, [p.contiguous() for p in parts])
+        log(f"# framing bit-exact vs plain: {codec} payload of "
+            f"{tuple(x.shape)} {str(x.dtype)[6:]} {sizes}")
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(0), get("gpt2-small"))
+    timed, dec = {}, {}
+    for label, codec, stages in ((TP_BLK8, "q8", 1), (TP_BLK4, "q4", 1),
+                                 (TP_BLK3D, "q8", 2)):
+        like = (transformer.stack_layer_stages(params, stages)
+                if stages > 1 else params["layers"])
+        dims = tree_leaves(transformer.tp_param_dims(like))
+        shapes = [lf.shape for lf in _column_struct(like, stages, 2, dims)]
+        bank, plans, _, _ = dp_bank(torch, codecs, collectives, codec,
+                                    shapes, 19, dp=2)
+        got, want = kernel_and_plain(
+            torch, D, lambda: dp_reduce.decode_sum_fused(bank, plans, 2))
+        err["decode_sum_fused"] = max(err["decode_sum_fused"],
+                                      max_err(torch, got, want))
+        log(f"# decode_sum_fused bit-exact vs plain: {label} "
+            f"({bank.shape[1]} B a replica)")
+        if label == TP_BLK8:
+            dec = (bank, plans)
+        else:
+            del bank
+    del params
+    bank, plans = dec
+    total = sum(p.n for p in plans)
+    timed[TP_BLK8] = time_cases(torch, D, {"decode_sum_fused": (
+        lambda: dp_reduce.decode_sum_fused(bank, plans, 2),
+        "decode_sum_kernel", None, 2 * bank.shape[1] + 4 * total,
+        2 * 2 * total)})
+    del bank, dec
+    timed[TP_ROW2_LABEL] = time_pack4(torch, D, pack4, row2,
+                                      per_tensor=True)
+    timed[TP_ROW4_LABEL] = time_select(torch, D, topk, [row4])
+    for label, rows in timed.items():
+        for name, row in rows.items():
+            log(f"# {name} {label}: " + json.dumps(row))
+    return err, timed
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving
 # ---------------------------------------------------------------------------
@@ -1403,13 +1608,12 @@ def profile_generate(torch, name, eng, requests):
     from torch.profiler import ProfilerActivity, profile
     eng.generate(requests)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.generate(requests)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = sorted(device_events(prof), reverse=True)
+    dev = sorted(device_records(prof), reverse=True)
     busy_ms = sum(ms for ms, _ in dev)
     log("# profile " + json.dumps({
         "policy": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -1488,8 +1692,7 @@ def train_run(torch, cfg, params, name, build, steps=TRAIN_STEPS,
         t0 = time.perf_counter()
         if i == profile_step:
             from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 params, opt_state, bstates, m = step(params, opt_state,
                                                      bstates, batch, ids)
                 torch.cuda.synchronize()
@@ -1580,7 +1783,7 @@ def train(torch, D, build):
     for name in TRAIN_POLICIES:
         prof = train_run(torch, cfg, params, name, build, steps=3,
                          profile_step=3)
-        dev = sorted(device_events(prof["profile"]), reverse=True)
+        dev = sorted(device_records(prof["profile"]), reverse=True)
         busy_ms = sum(ms for ms, _ in dev)
         wall_ms = prof["seconds"][2] * 1e3
         # the profiler inflates the wall time; the unprofiled steps 2-4 of
@@ -1679,8 +1882,7 @@ def pipe_run(torch, cfg, params, name, build, steps=PIPE_STEPS,
         t0 = time.perf_counter()
         if i == profile_step:
             from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 params, opt_state, bstates, m = step(params, opt_state,
                                                      bstates, batch, ids)
                 torch.cuda.synchronize()
@@ -1788,7 +1990,7 @@ def pipeline(torch, D, build):
     for name in ("gpipe/q4q8", "1f1b/q4q8", "interleaved/q4q8"):
         prof = pipe_run(torch, cfg, params, name, build, steps=2,
                         profile_step=2)
-        dev = sorted(device_events(prof["profile"]), reverse=True)
+        dev = sorted(device_records(prof["profile"]), reverse=True)
         busy_ms = sum(ms for ms, _ in dev)
         wall_ms = prof["seconds"][1] * 1e3
         step_ms = 1e3 * min(runs[name]["seconds"][1:])
@@ -1881,9 +2083,9 @@ def dp_run(torch, cfg, params, name, build, steps=DP_STEPS,
            profile_step=None):
     """``steps`` data-parallel train steps of run ``name`` from ``params``,
     built as ``launch/train --mesh data=4 --wire data=...`` builds its
-    run.  Returns the losses, each step's launches, ring bytes, wall
-    seconds, CUDA-event step and reduce ms, and the profile of
-    ``profile_step``."""
+    run (the cosine over ``DP_STEPS``).  Returns the losses, each step's
+    launches, ring bytes, wall seconds, CUDA-event step and reduce ms,
+    and the profile of ``profile_step``."""
     from repro_torch.core.boundary import init_boundary_state
     from repro_torch.launch.train import build_policy, synthetic_stream
     from repro_torch.models.transformer import segment_bounds
@@ -1893,7 +2095,7 @@ def dp_run(torch, cfg, params, name, build, steps=DP_STEPS,
     _, dfb, _, pname, fb, _ = DP_RUNS[name]
     policy = build_policy(pname, fb, 0.1)
     opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
-                          schedule="cosine", t_max=steps, grad_clip=1.0)
+                          schedule="cosine", t_max=DP_STEPS, grad_clip=1.0)
     cuts = len(segment_bounds(cfg.num_groups, policy.num_stages)) - 1
     bstates = [init_boundary_state(policy.at(i), (DP_SEQ, cfg.d_model),
                                    batch=DP_BATCH, num_samples=DP_SAMPLES,
@@ -1919,8 +2121,7 @@ def dp_run(torch, cfg, params, name, build, steps=DP_STEPS,
         ev[0].record()
         if i == profile_step:
             from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 params, opt_state, bstates, dp_state, m = step(
                     params, opt_state, bstates, batch, ids, dp_state)
                 torch.cuda.synchronize()
@@ -1997,8 +2198,9 @@ def data_parallel(torch, D, build):
     D.KERNEL_BACKEND = "plain"
     try:
         for name in DP_RUNS:
-            plain = dp_run(torch, cfg, params, name, build)["losses"]
-            if plain != runs[name]["losses"]:
+            plain = dp_run(torch, cfg, params, name, build,
+                           steps=DP_PLAIN_STEPS.get(name, DP_STEPS))["losses"]
+            if plain != runs[name]["losses"][:len(plain)]:
                 raise AssertionError(f"dp {name}: plain backend losses "
                                      f"{plain} != {runs[name]['losses']}")
     finally:
@@ -2009,7 +2211,7 @@ def data_parallel(torch, D, build):
     check_dp_against_cpu(torch, transformer, get)
     name = "q8/q4q8"
     prof = dp_run(torch, cfg, params, name, build, steps=2, profile_step=2)
-    dev = sorted(device_events(prof["profile"]), reverse=True)
+    dev = sorted(device_records(prof["profile"]), reverse=True)
     busy_ms = sum(ms for ms, _ in dev)
     wall_ms = prof["seconds"][1] * 1e3
     step_ms = 1e3 * min(runs[name]["seconds"][1:])
@@ -2176,8 +2378,7 @@ def cnn_steps(torch, build, step, state, batches, profile_step=None):
         t0 = time.perf_counter()
         if i == profile_step:
             from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 params, opt_state, bstates, m = step(params, opt_state,
                                                      bstates, x, y, ids)
                 torch.cuda.synchronize()
@@ -2255,7 +2456,7 @@ def cnn_expected_wire(name):
 
 
 def cnn_profile(torch, run, unprofiled_s, what):
-    dev = sorted(device_events(run["profile"]), reverse=True)
+    dev = sorted(device_records(run["profile"]), reverse=True)
     busy_ms = sum(ms for ms, _ in dev)
     wall_ms = run["seconds"][-1] * 1e3
     step_ms = 1e3 * unprofiled_s
@@ -2551,8 +2752,7 @@ def pd_run(torch, cfg, params, name, build, steps=PD_STEPS,
         args = (params, opt_state, bstates, batch, ids, dp_state)
         if i == profile_step:
             from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 params, opt_state, bstates, dp_state, m = step(*args)
                 torch.cuda.synchronize()
             out["profile"] = prof
@@ -2718,7 +2918,7 @@ def pipeline_dp(torch, D, build, smi):
     check_pipeline_dp_against_cpu(torch, transformer, get)
     check_launcher_2d(smi)
     prof = pd_run(torch, cfg, params, name, build, steps=2, profile_step=2)
-    dev = sorted(device_events(prof["profile"]), reverse=True)
+    dev = sorted(device_records(prof["profile"]), reverse=True)
     busy_ms = sum(ms for ms, _ in dev)
     wall_ms = prof["seconds"][1] * 1e3
     step_ms = 1e3 * min(runs[name]["seconds"][1:])
@@ -3229,6 +3429,348 @@ def train_state(torch, D, build, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the tensor axis (TP alone, DP x TP, pipeline x TP, 3D)
+# ---------------------------------------------------------------------------
+
+def tp_spec(r):
+    from repro_torch.core.parallel import AxisSpec, ParallelSpec
+    return ParallelSpec({
+        "data": AxisSpec(size=r.dp, codec=r.dp_codec, feedback=r.dp_fb),
+        "stage": AxisSpec(size=r.stages, codec=r.stage_wire),
+        "tensor": AxisSpec(size=r.tp, codec=r.tp_codec, feedback=r.tp_fb)})
+
+
+def tp_run(torch, cfg, params, name, build, steps=TP_STEPS + 1,
+           profile_step=TP_STEPS + 1):
+    """``steps`` train steps of run ``name`` from ``params``, built as
+    ``launch/train --mesh ...,tensor=T --wire ...`` builds its run (the
+    cosine over ``TP_STEPS + 1`` steps).  Returns the losses, each step's
+    launches, wire counters and wall seconds, the final params and the
+    profile of ``profile_step``."""
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.launch.train import build_policy, synthetic_stream
+    from repro_torch.models.transformer import tp_sites
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.loop import init_lm_dp_state
+    from repro_torch.train.steps import make_lm_train_step
+    from repro_torch.transport.tp_collectives import init_tp_state
+
+    r = TP_RUNS[name]
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="cosine", t_max=TP_STEPS + 1,
+                          grad_clip=1.0)
+    step = make_lm_train_step(cfg, build_policy(r.policy), opt,
+                              pipeline_microbatches=r.mb,
+                              schedule=r.schedule, parallel=tp_spec(r))
+    extra = []
+    if r.dp > 1:
+        extra.append(init_lm_dp_state(
+            cfg, params, CompressionPolicy(num_stages=r.stages), r.dp,
+            r.dp_fb, transport="pipeline" if r.stages > 1 else "simulated",
+            tp=r.tp))
+    if r.stages == 1:
+        extra.append(init_tp_state((r.batch, TP_SEQ, cfg.d_model),
+                                   tp_sites(cfg), r.tp_fb, device="cuda"))
+    stream = synthetic_stream(cfg, r.batch, TP_SEQ, 0, dp=r.dp)
+    opt_state = init_opt_state(opt, params)
+    out = {"losses": [], "launches": [], "wire": [], "seconds": [],
+           "profile": None}
+    for i in range(1, steps + 1):
+        toks, ids = next(stream)
+        args = (params, opt_state, [],
+                {"tokens": torch.from_numpy(toks).to("cuda", torch.int64)},
+                torch.from_numpy(ids).to("cuda"), *extra)
+        before = dict(build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == profile_step:
+            # the card's activity only: the idle share needs the kernels,
+            # and a host trace of a step's ~10^5 ops takes minutes to read
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                res = step(*args)
+                torch.cuda.synchronize()
+            out["profile"] = prof
+        else:
+            res = step(*args)
+            torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        params, opt_state, m = res[0], res[1], res[-1]
+        extra = list(res[3:-1])
+        out["losses"].append(float(m["loss"]))
+        out["wire"].append(m["wire"])
+        out["launches"].append({k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+                                for k in KERNELS})
+    return out
+
+
+def tp_expected(name, params):
+    """Launches, hops and bytes per step of run ``name``, worked out from
+    its parts.  The tensor rings: every run of the whole layer stack (a
+    lane, or a row's microbatch through the stages) makes ``2 *
+    TP_SITES`` all-gathers (the forward gathers, and the backward's of
+    the scatters) and as many reduce-scatters; an all-gather packs and
+    decodes the tp shards and, fused, frames each rank's buffer once and
+    unframes each source's; a reduce-scatter packs and decodes tp^2
+    slices and frames the tp (tp - 1) that leave their rank.  A shard
+    packs as one (1, n) row, the reference's per-tensor packing: q8 in
+    torch ops (one row fills no wire tile), q4 through the pack pair,
+    TopK through the select; raw (none) payloads are one leaf, which no
+    framing kernel touches.  Bytes: ``tp_wire_report`` (per device, both
+    collectives) x ranks x 2 directions x runs.  The stage hops: one a
+    rank's shard, from ``wire_telemetry``, as ``pd_expected`` counts
+    them; the DP ring: ``dp_wire_report`` of one (stage column, tensor
+    coordinate) block, each block a ring of its own."""
+    from repro_torch.kernels.tiling import wire_tiling
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train.steps import _resolve_parallel, _uniform_boundary
+    from repro_torch.transport.collectives import dp_wire_report
+    from repro_torch.transport.pipeline import (PipelineTransport,
+                                                wire_telemetry)
+    from repro_torch.transport.schedules import get_schedule
+    from repro_torch.transport.tp_collectives import tp_wire_report
+    from repro_torch.launch.train import build_policy
+    r = TP_RUNS[name]
+    launches = dict.fromkeys(KERNELS, 0)
+    runs = r.dp * r.mb
+    rep = tp_wire_report((r.batch // runs, TP_SEQ, D_MODEL), r.tp,
+                         r.tp_codec, sites=TP_SITES)
+    colls = 2 * TP_SITES * runs
+    packs = colls * (r.tp + r.tp ** 2)
+    if r.tp_codec == "q4":
+        launches["pack4_wire"] += packs
+        launches["unpack4_wire"] += packs
+    elif r.tp_codec == "topk":
+        launches["topk_threshold"] += packs
+        launches["topk_compact"] += packs
+    if r.tp_codec != "none":
+        launches["frame_parts"] += colls * r.tp ** 2
+        launches["unframe_parts"] += colls * r.tp ** 2
+    wire = {"tp_hops": 2 * colls * r.tp * (r.tp - 1),
+            "tp_bytes": runs * 2 * r.tp * rep["wire_bytes_per_forward"]}
+    if r.stages > 1:
+        _, policy, _ = _resolve_parallel("phase 10", tp_spec(r),
+                                         build_policy(r.policy),
+                                         "pipeline", {})
+        bp = _uniform_boundary(policy)
+        schedule = get_schedule(r.schedule, 1)
+        shard = (r.batch // runs, TP_SEQ // r.tp, D_MODEL)
+        tel = wire_telemetry(PipelineTransport(bp, r.stages,
+                                               fused=schedule.fused_wire),
+                             schedule, shard, microbatches=r.mb)
+        hops = r.dp * r.tp * r.mb * tel["wire_cuts"]
+        flat = (shard[0], shard[1] * shard[2])
+        for comp in (bp.fw, bp.bw):
+            if comp.kind == "quant" and comp.bits == 4:
+                launches["pack4_wire"] += hops
+                launches["unpack4_wire"] += hops
+            elif comp.kind == "quant" and wire_tiling(flat) is not None:
+                launches["quantize_wire"] += hops
+            elif comp.kind == "topk":
+                launches["topk_threshold"] += hops
+                launches["topk_compact"] += hops
+        if schedule.fused_wire:
+            launches["frame_parts"] += 2 * hops
+            launches["unframe_parts"] += 2 * hops
+        wire.update(fw_hops=hops, bw_hops=hops,
+                    fw_bytes=hops * tel["fw_payload_bytes_per_hop"],
+                    bw_bytes=hops * tel["bw_payload_bytes_per_hop"])
+    if r.dp > 1:
+        like = (transformer.stack_layer_stages(params, r.stages)
+                if r.stages > 1 else params["layers"])
+        ring = dp_wire_report(like, r.dp_codec, dp=r.dp,
+                              shard_axis=r.stages if r.stages > 1 else None,
+                              tp_axis=r.tp,
+                              tp_dims=transformer.tp_param_dims(like))
+        blocks = ring.get("columns", 1) * ring["tensor_columns"]
+        n_leaves = len(tree_leaves(like))
+        for _ in range(blocks):
+            launches["frame_parts"] += r.dp
+            if r.dp_codec in ("q8", "q4"):
+                launches["decode_sum_fused"] += 1
+            else:
+                launches["unframe_parts"] += r.dp
+            if r.dp_codec == "q4":
+                launches["pack4_wire"] += r.dp * n_leaves
+                if r.dp_fb == "ef21":
+                    launches["unpack4_wire"] += r.dp * n_leaves
+        wire.update(dp_hops=blocks * r.dp * (r.dp - 1),
+                    dp_bytes=blocks * r.dp * ring["wire_bytes_per_reduce"])
+    return launches, wire
+
+
+def tp_solo(torch, cfg, params):
+    """The tp = 1 step on t2/none's batch and schedule: (losses, step-1
+    gradient)."""
+    from repro_torch.core.policy import NO_POLICY
+    from repro_torch.launch.train import synthetic_stream
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.steps import make_lm_train_step
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="cosine", t_max=TP_STEPS + 1,
+                          grad_clip=1.0)
+    step = make_lm_train_step(cfg, NO_POLICY, opt)
+    stream = synthetic_stream(cfg, 8, TP_SEQ, 0)
+    opt_state, losses, grads = init_opt_state(opt, params), [], []
+    with first_gradient(grads):
+        for _ in range(TP_STEPS):
+            toks, ids = next(stream)
+            params, opt_state, _, m = step(
+                params, opt_state, [],
+                {"tokens": torch.from_numpy(toks).to("cuda", torch.int64)},
+                torch.from_numpy(ids).to("cuda"))
+            losses.append(float(m["loss"]))
+    return losses, grads[0]
+
+
+def tensor_axis(torch, D, build, smi):
+    """Phase 10: the four compositions of the tensor axis at full width,
+    exact launches and ring bytes, the plain backend's losses, the
+    uncompressed ring against tp = 1, the smoke step card vs CPU, and a
+    profile of one step per run."""
+    from repro_torch.configs.registry import get
+    from repro_torch.models import transformer
+
+    cfg = get("gpt2-small")
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    t0 = time.perf_counter()
+    build.reset_launches()                  # the tensor-axis paths start
+    runs, grad_tp = {}, []
+    for name in TP_RUNS:
+        with first_gradient(grad_tp if name == "t2/none" else []):
+            runs[name] = tp_run(torch, cfg, params, name, build)
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}  # read here
+    log(f"# tensor axis path launches {launches} (runs done at "
+        f"{time.perf_counter() - t0:.1f} s)")
+    for name, run in runs.items():
+        want, wire = tp_expected(name, params)
+        for i, got in enumerate(run["launches"]):
+            if got != want:
+                raise AssertionError(f"tensor axis {name} step {i + 1}: "
+                                     f"launches {got}, expected {want}")
+        for i, got in enumerate(run["wire"]):
+            if got != wire:
+                raise AssertionError(f"tensor axis {name} step {i + 1}: "
+                                     f"wire {got}, expected {wire}")
+        losses = run["losses"]
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"tensor axis {name}: losses {losses}")
+        r = TP_RUNS[name]
+        dev = sorted(device_records(run["profile"]), reverse=True)
+        busy_ms = sum(ms for ms, _ in dev)
+        if name == "t2/none":       # the raw records against key_averages
+            slow = sum(ms for ms, _ in device_events(run["profile"]))
+            log(f"# tensor axis {name}: device busy {busy_ms} ms from the "
+                f"raw records, {slow} ms from key_averages")
+        wall_ms = run["seconds"][-1] * 1e3
+        step_ms = 1e3 * min(run["seconds"][1:TP_STEPS])
+        log("# tensor axis " + json.dumps({
+            "run": name, "card": smi, "losses": losses,
+            "launches_per_step": {k: x for k, x in run["launches"][0].items()
+                                  if x},
+            "wire_per_step": run["wire"][0], "step_s": run["seconds"],
+            "tokens_per_s_steps_2_to_3": r.batch * TP_SEQ * (TP_STEPS - 1)
+            / sum(run["seconds"][1:TP_STEPS]),
+            "profiled_step_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "device_idle_share_unprofiled": 1 - busy_ms / step_ms,
+            "top_device_ms": [[key[:60], ms] for ms, key in dev[:6]]}))
+        del run["profile"]
+    if runs["s4t2/gpipe/q4q8/q4"]["losses"] != \
+            runs["s4t2/1f1b/q4q8/q4"]["losses"]:
+        raise AssertionError("pipeline x TP: 1f1b losses differ from gpipe")
+    log(f"# tensor axis: pipeline x TP 1f1b equals gpipe bitwise (checks "
+        f"done at {time.perf_counter() - t0:.1f} s)")
+
+    # t2/none against the tp = 1 step
+    solo, grad_solo = tp_solo(torch, cfg, params)
+    got = runs["t2/none"]["losses"][:TP_STEPS]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(got, solo)]
+    grad_gaps = {"tree": tree_rel_gap(grad_tp[0], grad_solo),
+                 "stack": tree_rel_gap(grad_tp[0]["layers"],
+                                       grad_solo["layers"])}
+    del grad_tp, grad_solo
+    log("# tensor axis t2/none vs tp = 1 " + json.dumps({
+        "card": smi, "tp2": got, "tp1": solo, "relative_gap": gaps,
+        "bounds": [TP_REL_1] + [TP_REL_N] * (TP_STEPS - 1),
+        "step_1_gradient_relative_gap": grad_gaps,
+        "gradient_bound": TP_GRAD_REL}))
+    if not (gaps[0] <= TP_REL_1 and all(g <= TP_REL_N for g in gaps[1:])
+            and all(g <= TP_GRAD_REL for g in grad_gaps.values())):
+        raise AssertionError(f"tensor axis t2/none vs tp = 1: loss gaps "
+                             f"{gaps}, step 1 gradient {grad_gaps}")
+
+    D.KERNEL_BACKEND = "plain"
+    try:
+        for name in TP_LOSSY:
+            plain = tp_run(torch, cfg, params, name, build, steps=TP_STEPS,
+                           profile_step=None)["losses"]
+            if plain != runs[name]["losses"][:TP_STEPS]:
+                raise AssertionError(f"tensor axis {name}: plain backend "
+                                     f"losses {plain} != "
+                                     f"{runs[name]['losses']}")
+            log(f"# plain backend on the card gives identical tensor axis "
+                f"losses under {name}: {plain} (at "
+                f"{time.perf_counter() - t0:.1f} s)")
+    finally:
+        D.KERNEL_BACKEND = "auto"
+    check_tp_against_cpu(torch, transformer, get)
+    return launches
+
+
+def check_tp_against_cpu(torch, transformer, get):
+    """One TP step (tp 2) of the smoke model on the card and on the CPU,
+    which the CPU tests hold to the JAX package, under the uncompressed
+    and the q8 + EF tensor wire: the loss and the gradient the optimizer
+    is given (the tree, and the layer stack alone) within ``TP_CPU``."""
+    import numpy as np
+    import repro_torch.train.steps as TS
+    from repro_torch.core.parallel import AxisSpec, ParallelSpec
+    from repro_torch.core.policy import NO_POLICY
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.transport.tp_collectives import init_tp_state
+    cfg = get("gpt2-small", smoke=True)
+    params = transformer.init_params(torch.Generator().manual_seed(1), cfg)
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="cosine", t_max=1, grad_clip=1.0)
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (8, 32)))
+    for wire, (atol, rtol) in TP_CPU.items():
+        codec, _, fb = wire.partition("+")
+        spec = ParallelSpec({"tensor": AxisSpec(2, codec, fb or "none")})
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = _tree_to(params, dev)
+            step = TS.make_lm_train_step(cfg, NO_POLICY, opt, parallel=spec)
+            grads = []
+            with first_gradient(grads):
+                *_, m = step(p, init_opt_state(opt, p), [],
+                             {"tokens": toks.to(dev)},
+                             torch.arange(8, device=dev),
+                             init_tp_state((8, 32, cfg.d_model),
+                                           transformer.tp_sites(cfg),
+                                           fb or "none", device=dev))
+            out[dev] = (float(m["loss"]), _tree_to(grads[0], "cpu"))
+        (loss, grads), (cpu_loss, cpu_grads) = out["cuda"], out["cpu"]
+        gap = abs(loss - cpu_loss)
+        rel = tree_rel_gap(grads, cpu_grads)
+        rel_stack = tree_rel_gap(grads["layers"], cpu_grads["layers"])
+        if not (math.isfinite(loss) and gap <= atol and rel <= rtol
+                and rel_stack <= rtol):
+            raise AssertionError(f"smoke TP step {wire}: card loss {loss} "
+                                 f"vs CPU {cpu_loss}; gradient off by "
+                                 f"{rel}, the stack's by {rel_stack}")
+        log(f"# smoke TP step tensor={wire}, card vs CPU: loss {loss} vs "
+            f"{cpu_loss}, gap {gap} (<= {atol}); gradient |card - CPU| / "
+            f"|CPU| {rel}, the stack's {rel_stack} (<= {rtol})")
+
+
 def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -3344,9 +3886,13 @@ def main() -> int:
                                      framing, codecs, tiling)
     pd_err, pd_timed = pd_kernels(torch, D, pack4, topk, codecs,
                                   collectives, tiling)
-    err = {k: max(err.get(k, 0.0), cnn_err[k], pd_err[k]) for k in KERNELS}
+    tp_err, tp_timed = tp_kernels(torch, D, quantize, pack4, topk, framing,
+                                  codecs, collectives, tiling)
+    err = {k: max(err.get(k, 0.0), cnn_err[k], pd_err[k], tp_err[k])
+           for k in KERNELS}
     timed.update(cnn_timed)
     timed.update(pd_timed)
+    timed.update(tp_timed)
     torch.cuda.empty_cache()
     for label, rows in timed.items():
         for name, row in ({"decode_sum_fused": rows} if "ms" in rows
@@ -3357,7 +3903,7 @@ def main() -> int:
                     f"the launches; its times are not to be used")
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
-    # -- phases 3-9: each main path, its counts set to 0 just before it and
+    # -- phases 3-10: each main path, its counts set to 0 just before it and
     # read just after; the kernels line sums them
     paths = []
     for phase, run in ((3, lambda: serve(torch, np, D, _build)),
@@ -3366,7 +3912,8 @@ def main() -> int:
                        (6, lambda: data_parallel(torch, D, _build)),
                        (7, lambda: cnn(torch, D, _build)),
                        (8, lambda: pipeline_dp(torch, D, _build, smi)),
-                       (9, lambda: train_state(torch, D, _build, smi))):
+                       (9, lambda: train_state(torch, D, _build, smi)),
+                       (10, lambda: tensor_axis(torch, D, _build, smi))):
         paths.append(run())
         log(f"# phase {phase} done at {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
@@ -3374,7 +3921,7 @@ def main() -> int:
         if not v:
             raise AssertionError(f"{k} was launched on no main path")
 
-    # -- phase 10 -----------------------------------------------------------
+    # -- phase 11 -----------------------------------------------------------
     line = []
     for name, (src, replaces) in KERNELS.items():
         row = (timed[DPQ8] if name in DP_KERNELS else

@@ -13,9 +13,10 @@ reference, with its grammar and error messages.
 An axis codec may be a plain codec name (``"q8"``) or a policy-rule list
 (``"q4@size>=100000000;q8"``, the grammar of ``core.policy.parse_rule``),
 resolved against the axis' wire size (and an optional measured
-bandwidth) by :meth:`ParallelSpec.resolved`.  Not yet ported, and
-refused with ``NotImplementedError``: a tensor axis of size > 1 (tensor
-parallelism).
+bandwidth) by :meth:`ParallelSpec.resolved`.  The tensor axis takes the
+"tp" scope's feedback modes (``none``, ``ef``, ``ef21``); a lossless
+codec under feedback is refused where the wire is built
+(``transport/tp_collectives.TPCollectives``), as in the reference.
 """
 from __future__ import annotations
 
@@ -164,10 +165,6 @@ class ParallelSpec:
                     f"{name!r} axis (scope {AXIS_SCOPES[name]!r} supports "
                     f"{modes})"
                 )
-        if self.tp > 1:
-            raise NotImplementedError(
-                f"tensor axis of size {self.tp}: tensor parallelism is not "
-                "yet ported to repro_torch")
 
     # -- accessors ---------------------------------------------------------
 

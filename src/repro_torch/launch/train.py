@@ -18,6 +18,12 @@ Runs on ``cuda`` unless ``--device cpu``.
       --mesh data=2,stage=4 --wire data=q8 --policy q4q8 --batch 32 \\
       --pipeline-microbatches 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
+      --smoke --device cpu --mesh tensor=2 --wire tensor=q8+ef
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
+      --smoke --device cpu --mesh data=2,stage=2,tensor=2 \\
+      --wire data=q8,stage=q8,tensor=q4 --batch 8 --seq 32 \\
+      --pipeline-microbatches 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
       --smoke --device cpu --grad-accum 2 --policy q4q8
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
       --smoke --device cpu --steps 4 --policy 'topk:0.1@depth<1;q4@dir=bw;q8'
@@ -37,7 +43,13 @@ deprecated ``--dp`` / ``--dp-codec`` / ``--dp-feedback`` /
 gradient all-reduce: lanes around the simulated cuts, or, with
 ``stage=S`` too (or ``--transport pipeline``), N pipelines of S stages
 whose layer-stack gradients cross the reduce in S stage columns; the
-JSON lines add the ring's ``dp_bytes`` per step.  ``--grad-accum K``
+JSON lines add the ring's ``dp_bytes`` per step.  ``tensor=T`` (with
+``--wire tensor=codec[+ef|+ef21][:k]``) runs the layer stack over a
+tensor ring of T ranks with the compressed all-gather / reduce-scatter,
+alone, with the data lanes, or inside every pipeline stage (there with a
+feedback-free tensor wire); the JSON lines add ``tp_bytes`` per step.
+The tensor wire's feedback buffers are not saved: ``--resume`` restarts
+them from zero, as the reference does.  ``--grad-accum K``
 (deprecated alias ``--microbatches``) splits each step's batch into K
 pieces on the simulated transport.  ``--policy`` takes a named policy
 or a rule spec (``'q4@size>=65536;q8@size>=16384;none'``, first match
@@ -48,8 +60,8 @@ the whole train state (params, AdamW moments, the cuts' and the DP
 reduce's feedback buffers) every ``--save-every`` steps and at the end
 (``{step}`` in PATH keeps one file a save); ``--resume PATH`` restores it
 and restarts the token stream at the saved step, so that the resumed run
-is the uninterrupted one bit for bit.  The reference's other flags (a
-mesh with a tensor axis, telemetry) exit with an error saying so.
+is the uninterrupted one bit for bit.  The reference's telemetry flags
+exit with an error saying so.
 """
 from __future__ import annotations
 
@@ -78,6 +90,7 @@ from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
 from repro_torch.train.loop import _pipeline_bstates, init_lm_dp_state
 from repro_torch.train.steps import _resolve_parallel, make_lm_train_step
 from repro_torch.transport.schedules import get_schedule
+from repro_torch.transport.tp_collectives import init_tp_state
 
 # Flags of the reference launcher that belong to features not ported yet.
 NOT_PORTED = ("--trace", "--perfetto", "--metrics")
@@ -173,13 +186,16 @@ def main(argv=None) -> int:
                     help="mesh sizes, 'data=2' (axis aliases dp/pp/tp/model "
                          "accepted; missing axes default to 1).  stage>1 "
                          "implies --transport pipeline, and data>1 with "
-                         "stage>1 runs the 2D (data, stage) grid; a tensor "
-                         "axis is not yet ported.  Replaces --dp/--stages")
+                         "stage>1 runs the 2D (data, stage) grid; tensor>1 "
+                         "shards the layer stack over a compressed tensor "
+                         "ring (alone, with data, or in every stage: "
+                         "data=2,stage=2,tensor=2).  Replaces --dp/--stages")
     ap.add_argument("--wire", default=None, metavar="SPEC",
                     help="per-axis wire config "
                          "'axis=codec[+feedback][:k_frac]', e.g. "
                          "'data=q8+ef:0.1'.  Codecs none|q8|q4|topk (or a "
-                         "quoted rule spec); feedback ef|ef21.  Replaces "
+                         "quoted rule spec); feedback ef|ef21 (the tensor "
+                         "wire: feedback-free inside a pipeline).  Replaces "
                          "--dp-codec/"
                          "--dp-feedback/--dp-k-frac")
     ap.add_argument("--dp", type=int, default=1,
@@ -303,19 +319,23 @@ def main(argv=None) -> int:
                      "through --mesh/--wire")
         try:
             # rule-coded axis wires resolve statically: data carries the
-            # gradient tree, stage the per-example cut
-            parallel = spec_from_cli(args.mesh, args.wire).resolved(
+            # gradient tree, stage the per-example cut, tensor its 1/tp
+            # sequence shard
+            parallel = spec_from_cli(args.mesh, args.wire)
+            parallel = parallel.resolved(
                 {"data": param_count(cfg), "stage": seq * cfg.d_model,
-                 "tensor": seq * cfg.d_model})
+                 "tensor": seq * cfg.d_model // max(parallel.tp, 1)})
             _, policy_eff, transport = _resolve_parallel(
                 "launch.train", parallel, policy, args.transport, {})
         except (ValueError, NotImplementedError) as e:
             ap.error(f"--mesh/--wire: {e}")
         dp_n, dp_codec, dp_feedback = (parallel.dp, parallel.data.codec,
                                        parallel.data.feedback)
+        tp_n = parallel.tp
     else:
         policy_eff, transport = policy, args.transport
         dp_n, dp_codec, dp_feedback = args.dp, args.dp_codec, args.dp_feedback
+        tp_n = 1
     pipeline = transport == "pipeline"
     if args.batch % (dp_n * grad_accum):
         ap.error(f"--batch {args.batch} is not divisible by the {dp_n} "
@@ -383,9 +403,18 @@ def main(argv=None) -> int:
     if dp_n > 1:
         dp_state = init_lm_dp_state(cfg, params, policy_eff, dp_n,
                                     dp_feedback, transport=transport,
-                                    virtual_stages=virtual_stages)
+                                    virtual_stages=virtual_stages, tp=tp_n)
         print(f"# dp={dp_n} gradient all-reduce: codec={dp_codec} "
               f"feedback={dp_feedback}", flush=True)
+    tp_state = None
+    if tp_n > 1:
+        t_ax = parallel.tensor
+        print(f"# tp={tp_n} tensor collectives: codec={t_ax.codec} "
+              f"feedback={t_ax.feedback}", flush=True)
+        if not pipeline:
+            tp_state = init_tp_state((args.batch, seq, cfg.d_model),
+                                     transformer.tp_sites(cfg),
+                                     t_ax.feedback, device=dev)
     start_step = 0
     if args.resume:
         if dp_n > 1:
@@ -398,20 +427,26 @@ def main(argv=None) -> int:
                                             bstates)
         print(f"# resumed step-{start_step} train state from {args.resume}",
               flush=True)
+        if tp_state is not None and parallel.tensor.feedback != "none":
+            print("# note: tensor-wire feedback residuals are not "
+                  "checkpointed — resuming with zeroed tp_state", flush=True)
     stream = synthetic_stream(cfg, args.batch, seq, args.seed,
                               num_samples=args.num_samples,
                               start_step=start_step, dp=dp_n)
     metrics, t0 = [], time.time()
     for step in range(start_step + 1, args.steps + 1):
         toks, ids = next(stream)
-        extra = [] if dp_state is None else [dp_state]
+        extra = [s for s in (dp_state, tp_state) if s is not None]
         out = step_fn(
             params, opt_state, bstates,
             {"tokens": torch.from_numpy(toks).to(dev, torch.int64)},
             torch.from_numpy(ids).to(dev), *extra)
         params, opt_state, bstates, m = out[0], out[1], out[2], out[-1]
+        rest = list(out[3:-1])
         if dp_state is not None:
-            dp_state = out[3]
+            dp_state = rest.pop(0)
+        if tp_state is not None:
+            tp_state = rest.pop(0)
         if step % args.log_every == 0 or step == args.steps:
             loss = float(m["loss"])       # waits for the device
             dt = time.time() - t0
@@ -425,6 +460,8 @@ def main(argv=None) -> int:
                            bw_bytes=m["wire"]["bw_bytes"])
             if dp_state is not None:
                 rec["dp_bytes"] = m["wire"]["dp_bytes"]
+            if tp_n > 1:
+                rec["tp_bytes"] = m["wire"]["tp_bytes"]
             metrics.append(rec)
             print(json.dumps(rec), flush=True)
         if args.ckpt and (step % save_every == 0 or step == args.steps):
@@ -433,7 +470,7 @@ def main(argv=None) -> int:
                 bstates, step=step,
                 extra={"arch": cfg.arch_id, "policy": args.policy,
                        "feedback": args.feedback, "dp": dp_n,
-                       "dp_codec": dp_codec, "tp": 1},
+                       "dp_codec": dp_codec, "tp": tp_n},
                 dp_state=dp_state)
     if args.json:
         with open(args.json, "w") as f:

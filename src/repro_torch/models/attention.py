@@ -5,15 +5,17 @@ Port of ``repro/models/attention.py`` (full attention).  The reference has
 no Pallas attention, so this is plain torch ops following ``_sdpa_block``'s
 arithmetic: bf16 einsums, fp32 logits / sqrt(hd), -1e30 mask, fp32 softmax
 cast back to bf16, queries in chunks of ``_qchunk`` beyond 2048 tokens.
-Sliding windows, softcaps, decode spans, paging and TP are not ported yet.
+Sliding windows, softcaps, decode spans and paging are not ported yet.
 
 Cache layout: ``{"k": (B, C, KV, hd), "v": (B, C, KV, hd)}``, RoPE applied
 at write time.  :func:`attn_decode` writes the new K/V row IN PLACE (the
 reference returns a new cache; its engine donates the old one).
+:func:`attn_train_tp` is the head-sharded attention of the tensor axis.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import DTYPE, apply_rope
 
@@ -90,6 +92,42 @@ def attn_train(params, x, *, num_heads, num_kv_heads, head_dim,
     bool, True = real token; pad keys are masked out of every query."""
     return _attend(params, x, num_heads, num_kv_heads, head_dim, pos_embed,
                    rope_theta, pad_mask)[0]
+
+
+def tp_local_heads(num_heads, num_kv_heads, tp):
+    """Per-rank head counts for tp-way head-sharded attention."""
+    if num_heads % tp or num_kv_heads % tp:
+        raise ValueError(
+            f"tensor parallelism shards attention heads: num_heads "
+            f"{num_heads} and num_kv_heads {num_kv_heads} must both be "
+            f"divisible by tp={tp}")
+    return num_heads // tp, num_kv_heads // tp
+
+
+def attn_train_tp(ps, xs, tpc, *, num_heads, num_kv_heads, head_dim,
+                  pos_embed="rope", rope_theta=10_000.0, buf=None,
+                  remat=False):
+    """Column / row-parallel :func:`attn_train` over a compressed tensor
+    ring (``transport/tp_collectives.py``), every rank in lock step.
+
+    ``ps``: the ranks' weights (wq/wk/wv cut on the head out-dim, wo on
+    its head in-dim); ``xs``: the ranks' sequence shards of the normed
+    residual.  The in-gather crosses the compressed wire (``buf``: this
+    site's feedback buffer), each rank attends with its local heads over
+    the FULL sequence, and the partial ``wo`` outputs reduce-scatter back
+    to the shards.  ``remat`` recomputes each rank's attention in the
+    backward pass (never a collective).  Returns ``(shards, buf)``."""
+    lh, lkv = tp_local_heads(num_heads, num_kv_heads, tpc.tp)
+    fulls, buf = tpc.gather_site(xs, buf)
+
+    def local(p, full):
+        return attn_train(p, full, num_heads=lh, num_kv_heads=lkv,
+                          head_dim=head_dim, pos_embed=pos_embed,
+                          rope_theta=rope_theta)
+
+    partials = [checkpoint(local, p, f, use_reentrant=False) if remat
+                else local(p, f) for p, f in zip(ps, fulls)]
+    return tpc.scatter(partials), buf
 
 
 def init_cache(batch: int, cache_len: int, num_kv_heads: int, head_dim: int,

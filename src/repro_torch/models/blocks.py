@@ -2,8 +2,9 @@
 
 Port of the dense attention block of ``repro/models/blocks.py``
 (``_attn_block_train`` / ``_prefill`` / ``_decode`` / ``_cache``):
-pre-norm GQA attention + MLP with residuals.  Other kinds (moe, rwkv,
-hymba, local/global) are not ported yet and raise.
+pre-norm GQA attention + MLP with residuals, and its tensor-parallel
+twin :func:`attn_block_train_tp`.  Other kinds (moe, rwkv, hymba,
+local/global) are not ported yet and raise.
 
 Uniform interface, params stacked per group by the caller:
   block_init(gen, cfg, kind, groups)                   -> stacked params
@@ -15,6 +16,7 @@ Uniform interface, params stacked per group by the caller:
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models.common import (DTYPE, dense_init, mlp_apply, mlp_init,
@@ -53,6 +55,47 @@ def _attn_block_train(p, x, cfg: ModelConfig):
     x = x + A.attn_train(p["attn"], norm_apply(p["ln1"], x, cfg.norm),
                          **_attn_kwargs(cfg))
     return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.mlp)
+
+
+# Block kinds whose weights shard over the tensor ring (the dense family:
+# heads over tp for attention, d_ff over tp for the MLP); of these the port
+# has "dense" (PORTED_KINDS).
+TP_BLOCK_KINDS = ("dense", "attn_local", "attn_global")
+
+
+def attn_block_train_tp(ps, xs, cfg: ModelConfig, kind: str, tpc,
+                        bufs=(None, None), remat: bool = False):
+    """The dense block on the ranks' SEQUENCE-SHARDED residuals ``xs``
+    (Megatron-SP layout), every rank in lock step: norms and residual adds
+    run on each shard; the attention and MLP in-gathers cross the
+    compressed tensor wire and the partial outputs reduce-scatter back
+    (``transport/tp_collectives.py``).
+
+    ``ps``: the ranks' weights (``transport/tp_collectives.tp_local``);
+    ``bufs``: this block's two per-site feedback buffers (attention
+    gather, MLP gather) or Nones.  ``remat`` recomputes each rank's
+    attention and MLP in the backward pass, never a collective."""
+    if kind not in TP_BLOCK_KINDS:
+        raise ValueError(
+            f"tensor parallelism covers the dense family "
+            f"{TP_BLOCK_KINDS}, got kind={kind!r}")
+    _check_kind(kind)
+    b1, b2 = bufs
+    hs, b1 = A.attn_train_tp([p["attn"] for p in ps],
+                             [norm_apply(p["ln1"], x, cfg.norm)
+                              for p, x in zip(ps, xs)],
+                             tpc, buf=b1, remat=remat, **_attn_kwargs(cfg))
+    xs = [x + h for x, h in zip(xs, hs)]
+    fulls, b2 = tpc.gather_site([norm_apply(p["ln2"], x, cfg.norm)
+                                 for p, x in zip(ps, xs)], b2)
+
+    def local(p, full):
+        return mlp_apply(p, full, cfg.mlp)
+
+    partials = [checkpoint(local, p["mlp"], f, use_reentrant=False) if remat
+                else local(p["mlp"], f) for p, f in zip(ps, fulls)]
+    hs = tpc.scatter(partials)
+    return [x + h for x, h in zip(xs, hs)], (b1, b2)
 
 
 def _attn_block_prefill(p, x, cfg: ModelConfig, cache_len: int,

@@ -20,6 +20,9 @@ Entry points:
   lm_loss(logits, labels, mask)                           -> loss
   stage_stack_fn(cfg)            -> stage_fn(gp_stack, x) -> x (pipeline)
   stack_layer_stages(params, num_slices)  -> (S*v, groups/(S*v), ...) views
+  tp_param_dims(stack), tp_sites(cfg)        (the tensor axis)
+  tp_stage_stack_fn(cfg, tpc, remat)
+                   -> stage_fn(rank_stacks, xs, resid, mirror) (TP stages)
   init_caches(cfg, batch, cache_len, dtype, device)
   prefill(params, batch, cfg, policy, cache_len, compress, pad_len, wire)
                                                   -> (logits (B,1,V), caches)
@@ -191,6 +194,75 @@ def stack_layer_stages(params, num_stages: int):
                 "layer-group count (--stages for launch/train)")
         return tree.reshape(num_stages, g // num_stages, *tree.shape[1:])
     return reshape(params["layers"])
+
+
+_TP_LAST_DIM = ("wq", "wk", "wv", "wi", "wg")
+
+
+def tp_param_dims(stack):
+    """The tensor-sharded dim of every leaf of a layer stack (any number
+    of leading group / stage / replica dims), as a tree of ints: wq, wk,
+    wv and the MLP in-projections split on their OUT dim (column
+    parallel), every ``wo`` on its IN dim (row parallel), and -1
+    (replicated) for the rest, the norms' scale and bias."""
+    def dims(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: dims(v, k) for k, v in tree.items()}
+        if name in _TP_LAST_DIM:
+            return tree.ndim - 1
+        if name == "wo":
+            return tree.ndim - 2
+        return -1
+    return dims(stack)
+
+
+def tp_sites(cfg: ModelConfig, groups: Optional[int] = None) -> int:
+    """All-gather cut points per forward pass: 2 per block (attention and
+    MLP in-gathers), the ``sites`` of ``init_tp_state``."""
+    g = cfg.num_groups if groups is None else groups
+    return 2 * len(cfg.layer_kinds()) * g
+
+
+def tp_stage_stack_fn(cfg: ModelConfig, tpc, remat: bool = False):
+    """``stage_fn(rank_stacks, xs, resid, mirror) -> (xs, resid, mirror)``:
+    the tensor-parallel twin of :func:`stage_stack_fn`.  ``rank_stacks``
+    is every rank's group-stacked weights
+    (``transport/tp_collectives.tp_local``), ``xs`` every rank's sequence
+    shard, and ``resid`` / ``mirror`` the site-stacked feedback buffers
+    (size-0 placeholders for feedback "none"); the new buffers come back
+    as new tensors.  ``remat`` recomputes each rank's attention and MLP in
+    the backward pass, never a collective."""
+    kinds = cfg.layer_kinds()
+    for kind in kinds:
+        if kind not in B.TP_BLOCK_KINDS:
+            raise ValueError(
+                f"tensor parallelism covers the dense family "
+                f"{B.TP_BLOCK_KINDS}; layer kind {kind!r} shards "
+                f"differently (expert/state parallel) — run it with tp=1")
+    nb = len(kinds)
+
+    def stage_fn(rank_stacks, xs, resid, mirror):
+        st = {"ef": resid, "ef21": mirror}.get(tpc.feedback)
+        leaf = rank_stacks[0]
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        new_bufs = []
+        for g in range(leaf.shape[0]):
+            gps = [_group(p, g) for p in rank_stacks]
+            for i, kind in enumerate(kinds):
+                site = 2 * (g * nb + i)
+                bufs = ((None, None) if st is None
+                        else (st[site], st[site + 1]))
+                xs, bufs = B.attn_block_train_tp(
+                    [p[f"b{i}"] for p in gps], xs, cfg, kind, tpc,
+                    bufs=bufs, remat=remat)
+                new_bufs += bufs
+        if st is None:
+            return xs, resid, mirror
+        st = torch.stack(new_bufs)
+        return (xs, st, mirror) if tpc.feedback == "ef" else (xs, resid, st)
+
+    return stage_fn
 
 
 def forward_eval(params, batch, cfg: ModelConfig,

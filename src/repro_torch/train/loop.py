@@ -6,13 +6,14 @@ Port of ``run_cnn_experiment``, ``_cnn_eval``, ``_cnn_bstates``,
 ``_pipeline_bstates`` and ``init_lm_dp_state`` from
 ``repro/train/loop.py`` on the simulated transport or the real pipeline,
 the LM on either with or without the compressed data-parallel gradient
-reduce: train with boundary compression, then evaluate with compression
-on AND off (finding F3: a model trained compressed must be served
-compressed).  A rule policy (``PolicyRules``) and rule-spec axis codecs
-resolve once, statically, against the run's cut and gradient sizes, and
-``run_lm_experiment``'s ``ExperimentResult.policy_curve`` holds the
-resolved name per epoch.  Bandwidth probes (which would re-resolve
-between epochs) and trace spans are not ported yet.
+reduce, and with a tensor axis: train with boundary compression, then
+evaluate with compression on AND off (finding F3: a model trained
+compressed must be served compressed).  A rule policy (``PolicyRules``)
+and rule-spec axis codecs resolve once, statically, against the run's
+cut and gradient sizes, and ``run_lm_experiment``'s
+``ExperimentResult.policy_curve`` holds the resolved name per epoch.
+Bandwidth probes (which would re-resolve between epochs) and trace spans
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from repro_torch.train.steps import (_LEGACY_DEFAULTS, _UNSET,
                                      make_lm_eval_step, make_lm_train_step)
 from repro_torch.transport.collectives import init_dp_state
 from repro_torch.transport.pipeline import init_feedback_state
+from repro_torch.transport.tp_collectives import init_tp_state
 
 
 @dataclasses.dataclass
@@ -195,20 +197,23 @@ def _pipeline_bstates(policy: CompressionPolicy, feat_shape, *, batch: int,
 
 def init_lm_dp_state(cfg, params, policy: CompressionPolicy, dp: int,
                      dp_feedback: str = "none", *,
-                     transport: str = "simulated", virtual_stages: int = 1):
+                     transport: str = "simulated", virtual_stages: int = 1,
+                     tp: int = 1):
     """DP-reduce state for an LM train step: the residual / aggregate
     trees mirror what crosses the data axis, on ``params``' device: the
     FULL param tree on the simulated transport (every lane differentiates
     everything), the stage-stacked layer stack (``policy.num_stages *
-    virtual_stages`` slices) on the pipeline, whose embedding and head
-    gradients stay exact."""
+    virtual_stages`` slices) on the pipeline, and the raw layer stack on
+    the DP x TP step (``tp > 1``); in both sharded cases the embedding and
+    head gradients stay exact."""
     if transport == "pipeline":
         like = transformer.stack_layer_stages(
             params, policy.num_stages * virtual_stages)
         return init_dp_state(like, dp, dp_feedback)
     if transport != "simulated":
         raise ValueError(f"unknown transport {transport!r}")
-    return init_dp_state(params, dp, dp_feedback)
+    return init_dp_state(params["layers"] if tp > 1 else params, dp,
+                         dp_feedback)
 
 
 def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
@@ -228,14 +233,18 @@ def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
     ``transport="pipeline"`` runs the layer stack as the real compressed
     pipeline under ``schedule`` (gpipe | 1f1b | interleaved).
     ``parallel=`` (a :class:`~repro_torch.core.parallel.ParallelSpec`)
-    sizes and wires the data axis (the compressed gradient all-reduce) and
-    the stage axis; the ``dp``/``dp_codec``/``dp_feedback``/``dp_k_frac``
+    sizes and wires the data axis (the compressed gradient all-reduce),
+    the stage axis and the tensor axis (the compressed TP collectives; the
+    step threads a ``tp_state`` on the simulated transport, and
+    ``policy_curve`` then names ``policy/spec``); the
+    ``dp``/``dp_codec``/``dp_feedback``/``dp_k_frac``
     kwargs are its deprecated alias family (warns
     ``ParallelDeprecationWarning``; passing both is an error).
     ``policy`` may be a ``PolicyRules`` rule set, resolved against the
     LM's uniform cut ``seq_len * d_model``; axis codecs may be rule specs,
     resolved against the wire sizes (``data``: the gradient's element
-    count; ``stage``: the cut).  Without a bandwidth probe (not ported)
+    count; ``stage``: the cut; ``tensor``: the cut's ``1/tp`` sequence
+    shard).  Without a bandwidth probe (not ported)
     the resolution is the static one, made once; ``policy_curve`` repeats
     its name each epoch.
     ``pretrained_params``: a params tree on ``device`` (default: fresh
@@ -270,9 +279,11 @@ def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
     params = pretrained_params or transformer.init_params(
         torch.Generator(device=dev).manual_seed(seed), cfg)
     opt_state = init_opt_state(opt, params)
-    # the data wire carries the gradient tree, the stage wire the cut
+    # the data wire carries the gradient tree, the stage wire the cut, the
+    # tensor wire the cut's 1/tp sequence shard
     n_grad = sum(p.numel() for p in tree_leaves(params))
-    spec = spec.resolved({"data": n_grad, "stage": bsize, "tensor": bsize})
+    spec = spec.resolved({"data": n_grad, "stage": bsize,
+                          "tensor": bsize // max(spec.tp, 1)})
     spec, policy_eff, transport = _resolve_parallel(
         "run_lm_experiment", spec, policy, transport, {})
     feat = (data.seq_len, cfg.d_model)
@@ -295,22 +306,29 @@ def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
                               virtual_stages=virtual_stages, parallel=spec)
     dp_state = (init_lm_dp_state(cfg, params, policy_eff, spec.dp,
                                  spec.data.feedback, transport=transport,
-                                 virtual_stages=virtual_stages)
+                                 virtual_stages=virtual_stages, tp=spec.tp)
                 if spec.dp > 1 else None)
+    tp_state = (init_tp_state((batch, data.seq_len, cfg.d_model),
+                              transformer.tp_sites(cfg),
+                              spec.tensor.feedback, device=dev)
+                if spec.tp > 1 and transport == "simulated" else None)
     t0 = time.time()
     curve, policy_curve = [], []
     for ep in range(epochs):
-        policy_curve.append(policy_eff.name)
+        policy_curve.append(policy_eff.name if spec.tp == 1
+                            else f"{policy_eff.name}/{spec.name}")
         for toks, ids in data.epoch(batch, ep):
             args = [params, opt_state, bstates,
                     {"tokens": torch.from_numpy(toks).to(dev, torch.int64)},
                     torch.from_numpy(ids).to(dev)]
-            if dp_state is not None:
-                args.append(dp_state)
+            args += [s for s in (dp_state, tp_state) if s is not None]
             out = step(*args)
             params, opt_state, bstates, m = out[0], out[1], out[2], out[-1]
+            rest = list(out[3:-1])
             if dp_state is not None:
-                dp_state = out[3]
+                dp_state = rest.pop(0)
+            if tp_state is not None:
+                tp_state = rest.pop(0)
             curve.append(float(m["loss"]))
     res = ExperimentResult(name=name or policy_eff.boundary.name,
                            train_curve=curve, seconds=time.time() - t0,

@@ -2,7 +2,8 @@
 
 Port of ``repro/train/steps.py``: ``make_lm_train_step`` on the
 simulated transport (with gradient accumulation) and on the real
-pipeline (alone, or on the ``(data, stage)`` grid; ``tp=1``),
+pipeline (alone, or on the ``(data, stage)`` grid), with or without a
+tensor axis,
 ``make_lm_eval_step``, and the CNN's
 ``make_cnn_train_step`` (simulated and pipeline) and
 ``make_cnn_eval_step``.  The step is eager
@@ -24,8 +25,14 @@ pipeline, ``data`` > 1 runs the pipeline x DP step: each replica row
 pipelines its batch shard through its own copy of the layer stack, and
 the per-replica stack gradients cross the stage-column-sharded reduce.
 A :class:`~repro_torch.core.policy.PolicyRules` policy resolves per
-cut through ``boundary_feat=`` before the step is built.  The DP x TP
-step and TP are not ported yet.
+cut through ``boundary_feat=`` before the step is built.
+
+The tensor axis (``parallel=`` with ``tensor`` > 1): the layer stack
+runs tensor-parallel over a ring of ``tp`` ranks with the compressed
+all-gather / reduce-scatter (``transport/tp_collectives.py``), alone, on
+``dp`` data lanes (the DP x TP step: each lane's stack gradient crosses
+the tensor-sharded reduce), or inside every pipeline stage (pipeline x
+TP and the 3D step).
 """
 from __future__ import annotations
 
@@ -46,6 +53,8 @@ from repro_torch.optim.optimizers import (OptimizerConfig, apply_updates,
                                           tree_leaves, tree_map)
 from repro_torch.transport.collectives import make_grad_all_reduce
 from repro_torch.transport.pipeline import pipeline_apply
+from repro_torch.transport.schedules import as_schedule
+from repro_torch.transport.tp_collectives import TPCollectives, tp_apply
 
 # Sentinel distinguishing "caller passed the legacy kwarg" (deprecation
 # shim -> ParallelSpec) from "default" on make_lm_train_step.
@@ -220,7 +229,18 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
     replicas are lanes around the cuts (``grad_accum`` composes per lane:
     accumulate locally, reduce once); on the pipeline it is the
     ``(data, stage)`` grid, whose reduced tree is the layer stack (see
-    :func:`_make_dp_pipeline_lm_train_step`)."""
+    :func:`_make_dp_pipeline_lm_train_step`).
+
+    ``tp > 1`` (``parallel=`` with a tensor axis) shards the dense layer
+    stack over the tensor ring (sequence-sharded residual, head / d_ff
+    sharded weights) with the all-gather / reduce-scatter packed by the
+    tensor wire codec.  On the simulated transport the step gains a
+    trailing ``tp_state`` (``transport/tp_collectives.init_tp_state``):
+    ``step(params, opt_state, bstates, batch, ids[, dp_state], tp_state)
+    -> (params, opt_state, bstates[, dp_state], tp_state, metrics)``; on
+    the pipeline the tensor wire is feedback-free and the signature stays.
+    ``metrics["wire"]`` adds the ring's ``tp_hops`` / ``tp_bytes`` (both
+    collectives, forward and backward, every rank)."""
     transformer.check_supported(cfg)
     policy = _resolve_rules(policy, boundary_feat)
     grad_accum = _resolve_grad_accum(grad_accum, microbatches)
@@ -228,12 +248,19 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
         "make_lm_train_step", parallel, policy, transport,
         {"dp": dp, "dp_codec": dp_codec, "dp_feedback": dp_feedback,
          "dp_k_frac": dp_k_frac})
+    t_ax = spec.tensor
     if transport == "pipeline":
         if grad_accum > 1:
             raise NotImplementedError(
                 "grad_accum > 1 is not supported with transport='pipeline' "
                 "— bound activation memory with pipeline_microbatches (the "
                 "1f1b schedule keeps the stash at the boundary tensors)")
+        if spec.tp > 1 and t_ax.feedback != "none":
+            raise NotImplementedError(
+                "pipeline + tensor parallelism: feedback-free tensor wires "
+                "only (EF/EF21 state does not thread through pipeline_apply "
+                "yet)")
+        tp_kw = dict(tp=spec.tp, tp_codec=t_ax.codec, tp_k_frac=t_ax.k_frac)
         if spec.dp > 1:
             d_ax = spec.data
             return _make_dp_pipeline_lm_train_step(
@@ -241,12 +268,21 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
                 microbatches=pipeline_microbatches, schedule=schedule,
                 virtual_stages=virtual_stages, dp=spec.dp,
                 dp_codec=d_ax.codec, dp_feedback=d_ax.feedback,
-                dp_k_frac=d_ax.k_frac, s_stages=policy.num_stages)
+                dp_k_frac=d_ax.k_frac, s_stages=policy.num_stages, **tp_kw)
         return _make_pipeline_lm_train_step(
             cfg, policy, opt, microbatches=pipeline_microbatches,
-            schedule=schedule, virtual_stages=virtual_stages)
+            schedule=schedule, virtual_stages=virtual_stages, **tp_kw)
     if transport != "simulated":
         raise ValueError(f"unknown transport {transport!r}")
+    if spec.tp > 1:
+        if grad_accum > 1:
+            raise NotImplementedError("grad_accum > 1 + tensor parallelism")
+        d_ax = spec.data
+        return _make_tp_lm_train_step(
+            cfg, policy, opt, dp=spec.dp, tp=spec.tp, dp_codec=d_ax.codec,
+            dp_feedback=d_ax.feedback, dp_k_frac=d_ax.k_frac,
+            tp_codec=t_ax.codec, tp_feedback=t_ax.feedback,
+            tp_k_frac=t_ax.k_frac)
 
     def piece_grads(params, bstates, batch, ids):
         """One replica's (grads, new bstates, metrics) over its batch,
@@ -393,12 +429,37 @@ def _uniform_boundary(policy: CompressionPolicy) -> BoundaryPolicy:
     return bps[0]
 
 
+def _tp_stage_fn(cfg, tp: int, tp_codec: str, tp_k_frac: float,
+                 remat: bool):
+    """The pipeline's stage function and ``pipeline_apply`` kwargs for an
+    optional tensor axis: the dense stage function and none for ``tp ==
+    1``; else a feedback-free TP stage over a :class:`TPCollectives` of
+    ``tp`` ranks (``remat``: the schedule rematerializes, and the stage
+    recomputes its local compute itself) and the ``tp_axis`` /
+    ``tp_param_dims`` / ``seq_dim`` kwargs.  Returns ``(stage_fn,
+    tp_kwargs, tpc)``, ``tpc`` None for ``tp == 1``."""
+    if tp == 1:
+        return transformer.stage_stack_fn(cfg), lambda stack: {}, None
+    tpc = TPCollectives(tp, codec=tp_codec, k_frac=tp_k_frac)
+    tp_fn = transformer.tp_stage_stack_fn(cfg, tpc, remat=remat)
+
+    def stage_fn(rank_stacks, xs):
+        return tp_fn(rank_stacks, xs, None, None)[0]
+
+    def tp_kwargs(stack):
+        return {"tp_axis": tp,
+                "tp_param_dims": transformer.tp_param_dims(stack),
+                "seq_dim": 1}
+
+    return stage_fn, tp_kwargs, tpc
+
+
 def _pipeline_lm_grads(cfg, params, batch, n_slices: int, rows: int,
                        run_row):
-    """The pipeline LM step's forward and backward.  The embedding, final
-    norm, LM head and loss run once on the whole batch and keep exact
-    gradients.  The stage-stacked layer stack goes to each of ``rows``
-    replica rows as the row's own leaves (the reference's
+    """The pipeline, TP and DP x TP LM steps' forward and backward.  The
+    embedding, final norm, LM head and loss run once on the whole batch
+    and keep exact gradients.  The stage-stacked layer stack goes to each
+    of ``rows`` replica rows as the row's own leaves (the reference's
     ``broadcast_to(stack[None], (dp, ...))``), so autograd never sums
     the rows' stack gradients.  ``run_row(r, stack, x_r) -> (y_r, *out)``
     pipelines row ``r``'s contiguous batch shard.
@@ -435,33 +496,45 @@ def _make_pipeline_lm_train_step(cfg, policy: CompressionPolicy,
                                  opt: OptimizerConfig, *,
                                  microbatches: Optional[int] = None,
                                  schedule: str = "gpipe",
-                                 virtual_stages: int = 1):
+                                 virtual_stages: int = 1, tp: int = 1,
+                                 tp_codec: str = "none",
+                                 tp_k_frac: float = 0.1):
     """LM training through the real compressed pipeline: the embedding
     and the chunked loss run on the whole batch, the layer stack as
     ``policy.num_stages * virtual_stages`` logical stage slices (one
-    replica row of :func:`_pipeline_lm_grads`).  MoE aux losses are not
+    replica row of :func:`_pipeline_lm_grads`), each tensor-parallel over
+    ``tp`` ranks when ``tp > 1`` (pipeline x TP).  MoE aux losses are not
     threaded through the pipeline, as in the reference."""
     bp = _uniform_boundary(policy)
     s_stages = policy.num_stages
     needs_state = bp.needs_fw_buffer or bp.needs_bw_buffer
-    stage_fn = transformer.stage_stack_fn(cfg)
+    stage_fn, tp_kwargs, tpc = _tp_stage_fn(
+        cfg, tp, tp_codec, tp_k_frac,
+        as_schedule(schedule, virtual_stages).remat_ticks)
 
     def step(params, opt_state, bstates, batch, ids):
+        if tpc is not None:
+            tpc.reset_wire()
+
         def run_row(r, stack, x):
             return pipeline_apply(
                 stage_fn, stack, x, num_stages=s_stages, policy=bp,
                 microbatches=microbatches, schedule=schedule,
                 virtual_stages=virtual_stages,
                 fw_state=bstates["fw"] if needs_state else None,
-                bw_state=bstates["bw"] if needs_state else None, ids=ids)
+                bw_state=bstates["bw"] if needs_state else None, ids=ids,
+                **tp_kwargs(stack))
 
         params, loss, grads, [(new_fw, slot)] = _pipeline_lm_grads(
             cfg, params, batch, s_stages * virtual_stages, 1, run_row)
         grads["layers"] = _unstack(tree_map(lambda a: a[0],
                                             grads["layers"]))
         params, opt_state = apply_updates(opt, params, grads, opt_state)
+        wire = dict(slot.wire)
+        if tpc is not None:
+            wire.update(tpc.wire)
         metrics = {"loss": loss.detach(), "aux": torch.zeros(()),
-                   "total": loss.detach(), "wire": dict(slot.wire)}
+                   "total": loss.detach(), "wire": wire}
         new_states = ({"fw": new_fw, "bw": slot.state} if needs_state
                       else bstates)
         return params, opt_state, new_states, metrics
@@ -482,7 +555,9 @@ def _make_dp_pipeline_lm_train_step(cfg, bp: BoundaryPolicy,
                                     microbatches: Optional[int],
                                     schedule: str, virtual_stages: int,
                                     dp: int, dp_codec: str, dp_feedback: str,
-                                    dp_k_frac: float, s_stages: int):
+                                    dp_k_frac: float, s_stages: int,
+                                    tp: int = 1, tp_codec: str = "none",
+                                    tp_k_frac: float = 0.1):
     """LM training on the ``(data, stage)`` grid: ``step(params,
     opt_state, bstates, batch, ids, dp_state) -> (params, opt_state,
     bstates, dp_state, metrics)``.
@@ -501,15 +576,23 @@ def _make_dp_pipeline_lm_train_step(cfg, bp: BoundaryPolicy,
     place (AQ-SGD with its ids localized by ``shard_ids``), and the step
     returns the same dict.  ``metrics["wire"]``: every row's hops and
     bytes per direction, and the ring's ``dp_hops`` / ``dp_bytes`` over
-    the ``S`` columns."""
+    the ``S`` columns.
+
+    ``tp > 1`` (the 3D step): every stage of every row runs over its own
+    ring of ``tp`` ranks, and the reduce splits by tensor coordinate too
+    (``S * tp`` columns); ``metrics["wire"]`` adds ``tp_hops`` /
+    ``tp_bytes`` over every ring."""
     needs_state = bp.needs_fw_buffer or bp.needs_bw_buffer
     per_example = needs_state and get_mode(bp.feedback).per_example
-    stage_fn = transformer.stage_stack_fn(cfg)
-    reduce_fn = make_grad_all_reduce(dp, dp_codec, k_frac=dp_k_frac,
-                                     feedback=dp_feedback, average=False,
-                                     shard_axis=s_stages)
+    stage_fn, tp_kwargs, tpc = _tp_stage_fn(
+        cfg, tp, tp_codec, tp_k_frac,
+        as_schedule(schedule, virtual_stages).remat_ticks)
+    reduce_fn = _stack_reducer(dp, dp_codec, dp_k_frac, dp_feedback,
+                               s_stages, tp)
 
     def step(params, opt_state, bstates, batch, ids, dp_state):
+        if tpc is not None:
+            tpc.reset_wire()
         b = ids.shape[0]
         if b % dp:
             raise ValueError(f"batch {b} is not divisible by dp {dp}")
@@ -526,7 +609,7 @@ def _make_dp_pipeline_lm_train_step(cfg, bp: BoundaryPolicy,
                 stage_fn, stack, x, num_stages=s_stages, policy=bp,
                 microbatches=microbatches, schedule=schedule,
                 virtual_stages=virtual_stages, fw_state=_replica_row(fw, r),
-                bw_state=_replica_row(bw, r), ids=ids_r)
+                bw_state=_replica_row(bw, r), ids=ids_r, **tp_kwargs(stack))
             return y, slot
 
         params, loss, grads, slots = _pipeline_lm_grads(
@@ -538,9 +621,113 @@ def _make_dp_pipeline_lm_train_step(cfg, bp: BoundaryPolicy,
         wire = {k: sum(sl.wire[k] for (sl,) in slots)
                 for k in slots[0][0].wire}
         wire.update(ring)
+        if tpc is not None:
+            wire.update(tpc.wire)
         metrics = {"loss": loss.detach(), "aux": torch.zeros(()),
                    "total": loss.detach(), "wire": wire}
         return params, opt_state, bstates, dp_state, metrics
+
+    return step
+
+
+def _stack_reducer(dp: int, codec: str, k_frac: float, feedback: str,
+                   s_stages: Optional[int], tp: int):
+    """``reduce(g_stack_dp, dp_state) -> (reduced, dp_state, ring
+    counts)``: the replica rows' layer-stack gradients ``(dp, ...)``
+    through the compressed all-reduce without averaging (the global mean
+    loss already gives each row its ``1/dp``), split into ``s_stages``
+    stage columns and, when ``tp > 1``, ``tp`` tensor coordinates.  The
+    all-reduce is built once, at the first call, from the stack's
+    ``tp_param_dims`` (leaf names and ranks, the same every step)."""
+    built = []
+
+    def reduce(g_stack_dp, dp_state):
+        if not built:
+            tp_kw = ({} if tp == 1 else
+                     {"tp_axis": tp,
+                      "tp_dims": transformer.tp_param_dims(g_stack_dp)})
+            built.append(make_grad_all_reduce(
+                dp, codec, k_frac=k_frac, feedback=feedback, average=False,
+                shard_axis=s_stages, **tp_kw))
+        return built[0](g_stack_dp, dp_state)
+
+    return reduce
+
+
+def _make_tp_lm_train_step(cfg, policy: CompressionPolicy,
+                           opt: OptimizerConfig, *, dp: int, tp: int,
+                           dp_codec: str, dp_feedback: str,
+                           dp_k_frac: float, tp_codec: str,
+                           tp_feedback: str, tp_k_frac: float):
+    """LM training with the dense layer stack sharded over a tensor ring
+    of ``tp`` ranks (``transport/tp_collectives.py``), alone or on ``dp``
+    data lanes (DP x TP).
+
+    :func:`_pipeline_lm_grads` with one stack slice and ``dp`` rows: the
+    embedding and the chunked loss run on the whole batch with exact
+    gradients; row ``r`` runs :func:`tp_apply` on its contiguous batch
+    shard and its own copy of the stack, with its rows of ``tp_state``.
+    With ``dp > 1`` the rows' stack gradients cross the compressed reduce
+    split by tensor coordinate (``tp_param_dims``), without averaging.
+    ``step(params, opt_state, bstates, batch, ids[, dp_state], tp_state)
+    -> (params, opt_state, bstates[, dp_state], tp_state, metrics)``; the
+    new ``tp_state`` is made of new tensors."""
+    if policy.num_boundaries:
+        raise NotImplementedError(
+            "simulated boundary cuts + tensor parallelism: run the stage "
+            "wire through the pipeline transport (3D mesh) instead")
+    tpc = TPCollectives(tp, codec=tp_codec, k_frac=tp_k_frac,
+                        feedback=tp_feedback)
+    stage_fn = transformer.tp_stage_stack_fn(cfg, tpc)
+    sites = transformer.tp_sites(cfg)
+    reduce_fn = (_stack_reducer(dp, dp_codec, dp_k_frac, dp_feedback, None,
+                                tp) if dp > 1 else None)
+
+    def step(params, opt_state, bstates, batch, ids, *states):
+        dp_state, tp_state = states if dp > 1 else (None, states[0])
+        b = ids.shape[0]
+        if b % dp:
+            raise ValueError(f"batch {b} is not divisible by dp {dp}")
+        sh = b // dp
+        tpc.reset_wire()
+        dims = transformer.tp_param_dims(params["layers"])
+
+        def lane(state, r):
+            """Row ``r``'s batch rows of a (sites, B, ...) buffer."""
+            return state if state.numel() == 0 else state[:, r * sh:
+                                                         (r + 1) * sh]
+
+        def run_row(r, stack, x):
+            st = tp_state.replace(resid=lane(tp_state.resid, r),
+                                  mirror=lane(tp_state.mirror, r))
+            return tp_apply(stage_fn, _unstack(stack), x, tpc,
+                            param_dims=dims, state=st, sites=sites)
+
+        params, loss, grads, outs = _pipeline_lm_grads(
+            cfg, params, batch, 1, dp, run_row)
+
+        def merge(slot):
+            parts = [getattr(st, slot) for (st,) in outs]
+            return (parts[0] if parts[0].numel() == 0
+                    else torch.cat(parts, dim=1))
+
+        new_tp = tp_state.replace(resid=merge("resid"),
+                                  mirror=merge("mirror"))
+        wire = dict(tpc.wire)
+        # (dp, 1, groups, ...) -> the rows' raw layer stacks
+        g_stack = tree_map(lambda a: a[:, 0], grads["layers"])
+        if dp > 1:
+            g_stack, dp_state, ring = reduce_fn(g_stack, dp_state)
+            wire.update(ring)
+        else:
+            g_stack = tree_map(lambda a: a[0], g_stack)
+        grads["layers"] = g_stack
+        params, opt_state = apply_updates(opt, params, grads, opt_state)
+        metrics = {"loss": loss.detach(), "aux": torch.zeros(()),
+                   "total": loss.detach(), "wire": wire}
+        if dp > 1:
+            return params, opt_state, bstates, dp_state, new_tp, metrics
+        return params, opt_state, bstates, new_tp, metrics
 
     return step
 

@@ -45,6 +45,14 @@ rows ``[c*n/S, (c+1)*n/S)``, and every column packs, fuses, rings,
 decodes and sums only its own slice (per-tensor scales, q4 row stats and
 TopK's ``k`` are the slice's).  A leaf that does not divide stays
 stage-replicated: every column carries all of it.
+
+``tp_axis=T`` with ``tp_dims`` (the DP x TP and 3D reduces) splits it
+further by tensor coordinate: a leaf whose ``tp_dims`` entry ``d >= 1``
+(an index into the ``(dp, *leaf)`` array) gives coordinate ``t`` its
+``1/T`` slice along ``d``, and each coordinate rings only its own weight
+shards over the data axis (scales and ``k`` are the shard's).  A
+replicated leaf (-1) rings whole in every coordinate, which all get the
+same bits.  The reduce runs once per (stage column, tensor coordinate).
 """
 from __future__ import annotations
 
@@ -111,21 +119,26 @@ def _sharded(shape, s_shard: int) -> bool:
             and shape[0] % s_shard == 0)
 
 
-def _column_struct(grads_like, s_shard: int) -> list:
-    """One stage column's leaves as :class:`LeafStruct`s: dim 0 cut to
-    ``1/s_shard`` where the leaf splits, else the whole leaf.  Every
-    column has these shapes."""
+def _column_struct(grads_like, s_shard: int, t_shard: int = 1,
+                   tdims=None) -> list:
+    """One (stage column, tensor coordinate) block's leaves as
+    :class:`LeafStruct`s: dim 0 cut to ``1/s_shard`` where the leaf
+    splits, the tensor dim ``tdims[i]`` (of the leaf, -1 for none) cut to
+    ``1/t_shard``.  Every block has these shapes."""
     out = []
-    for leaf in payload_leaves(grads_like):
-        shape = tuple(leaf.shape)
-        if _sharded(shape, s_shard):
-            shape = (shape[0] // s_shard, *shape[1:])
-        out.append(LeafStruct(shape, leaf.dtype))
+    for i, leaf in enumerate(payload_leaves(grads_like)):
+        shape = list(leaf.shape)
+        if _sharded(tuple(shape), s_shard):
+            shape[0] //= s_shard
+        if tdims is not None and tdims[i] >= 0:
+            shape[tdims[i]] //= t_shard
+        out.append(LeafStruct(tuple(shape), leaf.dtype))
     return out
 
 
 def dp_wire_report(grads_like, codec_name: str, *, k_frac: float = 0.1,
-                   dp: int = 2, shard_axis: int = None) -> dict:
+                   dp: int = 2, shard_axis: int = None, tp_axis: int = None,
+                   tp_dims=None) -> dict:
     """Exact and modeled wire bytes of ONE compressed DP all-reduce.
 
     ``payload_bytes_per_hop``: the fused uint8 buffer each replica sends
@@ -134,12 +147,20 @@ def dp_wire_report(grads_like, codec_name: str, *, k_frac: float = 0.1,
     1`` hops per replica.
 
     ``shard_axis=S``: the numbers of ONE stage column, and ``columns`` =
-    S (all columns alike).  The whole ring then makes ``S * dp * (dp - 1)``
-    hops and moves ``S * dp * wire_bytes_per_reduce`` bytes, which is what
-    the pipeline x DP step's ``metrics["wire"]`` counts."""
-    s_shard = shard_axis or 1
-    if s_shard > 1:
-        grads_like = _column_struct(grads_like, s_shard)
+    S (all columns alike).  ``tp_axis=T`` with ``tp_dims`` (the leaves'
+    tensor dims in ``grads_like``'s own layout, ``tp_param_dims`` of it):
+    the numbers of ONE tensor coordinate's shards, per device, and
+    ``tensor_columns`` = T.  The whole ring then makes ``S * T * dp * (dp
+    - 1)`` hops and moves ``S * T * dp * wire_bytes_per_reduce`` bytes,
+    which is what the steps' ``metrics["wire"]`` counts."""
+    if (tp_axis is None) != (tp_dims is None):
+        raise ValueError("tp_axis and tp_dims come together (see "
+                         "models/transformer.tp_param_dims)")
+    s_shard, t_shard = shard_axis or 1, tp_axis or 1
+    if s_shard > 1 or t_shard > 1:
+        grads_like = _column_struct(
+            grads_like, s_shard, t_shard,
+            None if tp_dims is None else payload_leaves(tp_dims))
     codec = get_codec(codec_name)
     structs = grad_payload_structs(grads_like, codec_name, k_frac)
     exact = wire_bytes(structs)
@@ -159,6 +180,8 @@ def dp_wire_report(grads_like, codec_name: str, *, k_frac: float = 0.1,
     }
     if shard_axis is not None:
         rep["columns"] = s_shard
+    if tp_axis is not None:
+        rep["tensor_columns"] = t_shard
     return rep
 
 
@@ -236,16 +259,23 @@ def make_grad_all_reduce(dp: int, codec: str = "none", *,
     step (the reference takes the axis' name and reads its size from the
     mesh).  The reduce then runs once per stage column on the column's
     slices (module doc), and ``wire`` counts ``S * dp * (dp - 1)`` hops:
-    the sum over columns of each column's ring.  ``tp_axis`` (the DP x TP
-    reduce) is not ported yet."""
-    if shard_axis is not None and (not isinstance(shard_axis, int)
-                                   or shard_axis < 1):
-        raise ValueError(f"shard_axis must be the stage axis' size, a "
-                         f"positive int, got {shard_axis!r}")
-    if tp_axis is not None or tp_dims is not None:
-        raise NotImplementedError("make_grad_all_reduce(tp_axis=...): the "
-                                  "DP x TP reduce is not yet ported to "
-                                  "repro_torch")
+    the sum over columns of each column's ring.
+
+    ``tp_axis``: the size ``T`` of the tensor axis (the DP x TP and 3D
+    reduces), with ``tp_dims``: a tree matching ``grads_dp`` of each
+    leaf's tensor-sharded dim as an index into its ``(dp, *leaf)`` array,
+    -1 for a replicated leaf (``models/transformer.tp_param_dims`` of the
+    replica-stacked tree).  The reduce then also runs once per tensor
+    coordinate on its shards (module doc), and ``wire`` counts ``S * T *
+    dp * (dp - 1)`` hops."""
+    for nm, axis, size in (("shard_axis", "stage", shard_axis),
+                           ("tp_axis", "tensor", tp_axis)):
+        if size is not None and (not isinstance(size, int) or size < 1):
+            raise ValueError(f"{nm} must be the {axis} axis' size, a "
+                             f"positive int, got {size!r}")
+    if (tp_axis is None) != (tp_dims is None):
+        raise ValueError("tp_axis and tp_dims come together (see "
+                         "models/transformer.tp_param_dims)")
     if feedback not in DP_FEEDBACK_MODES:
         raise ValueError(f"unknown dp feedback {feedback!r}; "
                          f"known: {DP_FEEDBACK_MODES}")
@@ -255,7 +285,7 @@ def make_grad_all_reduce(dp: int, codec: str = "none", *,
                          "compensate — drop dp_feedback")
     codec_obj = get_codec(codec)
     lossy = codec_obj.name != "none"
-    s_shard = shard_axis or 1
+    s_shard, t_shard = shard_axis or 1, tp_axis or 1
 
     def contribution(a, e):
         """Replica ``a``'s compensated leaf, as the reference computes
@@ -329,31 +359,54 @@ def make_grad_all_reduce(dp: int, codec: str = "none", *,
                 out.append(reduced.to(a.dtype))
         return out, new_rl, new_al, wire
 
-    def reduce_columns(gl, rl, al):
-        """:func:`reduce_leaves` once per stage column on the column's
-        slices, the results put back together along the split dim (one
-        column of whole leaves without ``shard_axis``)."""
+    def reduce_columns(gl, rl, al, tdims):
+        """:func:`reduce_leaves` once per (stage column, tensor
+        coordinate) on its slices, the results put back together along
+        the split dims (one block of whole leaves without ``shard_axis``
+        and ``tp_axis``).  ``tdims[i]``: leaf i's tensor dim in its
+        ``(dp, *leaf)`` array, or -1."""
         cut = [_sharded(tuple(a.shape[1:]), s_shard) for a in gl]
+        tcut = [t_shard > 1 and d >= 1 for d in tdims]
+        for a, d, tc in zip(gl, tdims, tcut):
+            if tc and a.shape[d] % t_shard:
+                raise ValueError(f"tensor dim {d} of gradient leaf "
+                                 f"{tuple(a.shape)} is not divisible by "
+                                 f"tp_axis={t_shard}")
+        blocks = [(c, t) for c in range(s_shard) for t in range(t_shard)]
 
-        def col(a, c, dim, i):
-            if not cut[i]:
-                return a
-            w = a.shape[dim] // s_shard
-            return a.narrow(dim, c * w, w)
+        def part(a, c, t, i, lead):
+            """Block (c, t) of leaf i of an array with ``lead`` replica
+            dims (1: gradients, residuals; 0: aggregates)."""
+            if cut[i]:
+                w = a.shape[lead] // s_shard
+                a = a.narrow(lead, c * w, w)
+            if tcut[i]:
+                d = tdims[i] - 1 + lead
+                w = a.shape[d] // t_shard
+                a = a.narrow(d, t * w, w)
+            return a
 
-        cols = [reduce_leaves(
-            [col(a, c, 1, i) for i, a in enumerate(gl)],
-            [None if e is None else col(e, c, 1, i)
+        res = [reduce_leaves(
+            [part(a, c, t, i, 1) for i, a in enumerate(gl)],
+            [None if e is None else part(e, c, t, i, 1)
              for i, e in enumerate(rl)],
-            None if al is None else [col(g, c, 0, i)
+            None if al is None else [part(g, c, t, i, 0)
                                      for i, g in enumerate(al)])
-            for c in range(s_shard)]
+            for c, t in blocks]
 
-        def join(j, dim):
-            return [torch.cat([cs[j][i] for cs in cols], dim) if cut[i]
-                    else cols[0][j][i] for i in range(len(cols[0][j]))]
+        def join(j, lead):
+            out = []
+            for i in range(len(res[0][j])):
+                rows = []
+                for c in range(s_shard if cut[i] else 1):
+                    ts = [res[c * t_shard + t][j][i]
+                          for t in range(t_shard if tcut[i] else 1)]
+                    rows.append(torch.cat(ts, tdims[i] - 1 + lead)
+                                if tcut[i] else ts[0])
+                out.append(torch.cat(rows, lead) if cut[i] else rows[0])
+            return out
 
-        wire = {k: sum(cs[3][k] for cs in cols) for k in cols[0][3]}
+        wire = {k: sum(r[3][k] for r in res) for k in res[0][3]}
         return join(0, 0), join(1, 1), join(2, 0), wire
 
     def reduce(grads_dp, dp_state: FeedbackState):
@@ -365,7 +418,9 @@ def make_grad_all_reduce(dp: int, codec: str = "none", *,
         rl = (payload_leaves(dp_state.resid) if feedback != "none"
               else [None] * len(gl))
         al = payload_leaves(dp_state.agg) if feedback == "ef21" else None
-        out, new_rl, new_al, wire = reduce_columns(gl, rl, al)
+        tdims = (payload_leaves(tp_dims) if tp_dims is not None
+                 else [-1] * len(gl))
+        out, new_rl, new_al, wire = reduce_columns(gl, rl, al, tdims)
         reduced_tree = tree_unflatten(grads_dp, iter(out))
         if feedback != "none":
             dp_state = dp_state.replace(

@@ -1,21 +1,23 @@
 """Real pipeline with compressed, differentiable stage handoffs.
 
-Port of ``repro/transport/pipeline.py`` without tensor parallelism.  The
-pipeline x DP step (``train/steps.py``) calls :func:`pipeline_apply` once
-per replica row, on the row's batch shard, stack copy and buffer rows:
-the reference's ``dp_axis``.  The reference runs the pipeline as one
-SPMD program over a mesh of S devices: every stage cut is a ``ppermute``
-of a packed payload inside ``shard_map``.  This port is a
-SINGLE-CONTROLLER pipeline in one process: every logical stage runs on
-the device the caller's tensors live on, and a hop is what the wire
-would carry.  The sender packs the
-payload with the boundary policy's codec and, when the schedule fuses its
-hops (1f1b, interleaved), frames it into one uint8 buffer
-(``codecs.fuse_payload``); the receiver unframes and unpacks it.  The
-bytes of every hop are counted, per direction, in the :class:`PipelineSlot`
-that :func:`pipeline_apply` returns.  Placing the stages on several cards
-and moving the payloads with ``torch.distributed`` point-to-point sends is
-a later slice (NCCL refuses two ranks on one card, and gloo sends CPU
+Port of ``repro/transport/pipeline.py``.  The pipeline x DP step
+(``train/steps.py``) calls :func:`pipeline_apply` once per replica row,
+on the row's batch shard, stack copy and buffer rows: the reference's
+``dp_axis``.  With ``tp_axis`` every stage runs tensor-parallel over its
+own ring of ranks (``transport/tp_collectives.py``), and each rank's
+sequence shard crosses the stage cut on its own hop.  The reference runs
+the pipeline as one SPMD program over a mesh of S devices: every stage
+cut is a ``ppermute`` of a packed payload inside ``shard_map``.  This
+port is a SINGLE-CONTROLLER pipeline in one process: every logical stage
+runs on the device the caller's tensors live on, and a hop is what the
+wire would carry.  The sender packs the payload with the boundary
+policy's codec and, when the schedule fuses its hops (1f1b,
+interleaved), frames it into one uint8 buffer (``codecs.fuse_payload``);
+the receiver unframes and unpacks it.  The bytes of every hop are
+counted, per direction, in the :class:`PipelineSlot` that
+:func:`pipeline_apply` returns.  Placing the stages on several cards and
+moving the payloads with ``torch.distributed`` point-to-point sends is a
+later slice (NCCL refuses two ranks on one card, and gloo sends CPU
 tensors only).
 
 The loop is driven by the schedule's plan in the reference's ``(tick,
@@ -70,12 +72,14 @@ from repro_torch.core.compressors import topk_count, topk_scatter
 from repro_torch.core.feedback import (FeedbackState, gather_rows, get_mode,
                                        needs_recv_mirror, scatter_rows)
 from repro_torch.core.policy import BoundaryPolicy, quant_policy, topk_policy
+from repro_torch.optim.optimizers import tree_map
 from repro_torch.transport.base import Transport
 from repro_torch.transport.codecs import (LeafStruct, codec_for,
                                           fuse_payload, payload_leaves,
                                           payload_struct, unfuse_payload,
                                           wire_bytes)
 from repro_torch.transport.schedules import Schedule, as_schedule
+from repro_torch.transport.tp_collectives import tp_local
 
 # the boundary policy of each wire scheme, both directions alike
 SCHEME_POLICIES = {
@@ -447,7 +451,9 @@ def pipeline_apply(stage_fn: Callable, params_stacked, x, *,
                    schedule: Union[str, Schedule] = "gpipe",
                    virtual_stages: Optional[int] = None,
                    fw_state: Optional[FeedbackState] = None,
-                   bw_state: Optional[FeedbackState] = None, ids=None):
+                   bw_state: Optional[FeedbackState] = None, ids=None,
+                   tp_axis: Optional[int] = None, tp_param_dims=None,
+                   seq_dim: int = 1):
     """Run ``stage_fn(stage_params, x) -> x`` as a pipelined stage stack
     of ``num_stages`` stages, packed payloads crossing every cut in both
     directions.  Returns ``(out, fw_state, slot)``: the last stage's
@@ -463,8 +469,35 @@ def pipeline_apply(stage_fn: Callable, params_stacked, x, *,
     the stage count.  With a feedback policy pass ``fw_state`` /
     ``bw_state`` from :func:`init_feedback_state` (built with the same
     ``virtual_stages``) and, for AQ-SGD, ``ids``: the (B,) example ids.
-    """
+
+    ``tp_axis``: the size ``T`` of a tensor ring every stage runs over
+    (the reference's 3D mesh; it takes the axis' name).  ``stage_fn`` is
+    then TP-aware, ``stage_fn(rank_params, xs) -> ys`` over the ranks'
+    lists (``models/transformer.tp_stage_stack_fn`` closed over a
+    :class:`~repro_torch.transport.tp_collectives.TPCollectives` of size
+    ``T``, recomputing its local compute itself under a rematerializing
+    schedule, so that no collective runs twice): ``xs`` are the
+    microbatch's ``T`` shards along dim ``seq_dim`` of the activation,
+    and ``rank_params`` the stage's weights cut by ``tp_param_dims`` (a
+    tree matching ``params_stacked`` of each leaf's tensor dim, -1 =
+    replicated; ``models/transformer.tp_param_dims``).  Each rank's shard
+    crosses every cut on its own hop, packed alone: ``T`` times the hops,
+    each ``1/T`` of the cut.  Boundary feedback buffers are refused on
+    this path, as in the reference."""
     s_stages = num_stages
+    tp = tp_axis or 1
+    if tp_axis is not None:
+        if policy.needs_fw_buffer or policy.needs_bw_buffer:
+            raise ValueError(
+                f"policy {policy.name!r} carries boundary feedback "
+                "buffers; the tensor-parallel pipeline path supports "
+                "buffer-free boundary policies only")
+        if tp_param_dims is None:
+            raise ValueError("tp_axis needs tp_param_dims (see "
+                             "models/transformer.tp_param_dims)")
+        if x.shape[seq_dim] % tp:
+            raise ValueError(f"sequence dim {seq_dim} ({x.shape[seq_dim]})"
+                             f" not divisible by tp={tp}")
     sched = as_schedule(schedule, virtual_stages)
     v = sched.virtual_stages
     transport = PipelineTransport(policy, s_stages, virtual_stages=v,
@@ -512,11 +545,31 @@ def pipeline_apply(stage_fn: Callable, params_stacked, x, *,
 
     # the reference lays the slices out device-major (device d's chunks
     # k = 0..v-1 are logical stages d, d+S, ...); here every slice stays
-    # addressable by its logical index
-    stage = stage_fn
-    if sched.remat_ticks:
-        def stage(p, h):
-            return checkpoint(stage_fn, p, h, use_reentrant=False)
+    # addressable by its logical index.  Every stage takes and returns its
+    # microbatch as the ranks' shards, a list of one without a tensor axis
+    if tp_axis is None:
+        dense = stage_fn
+        if sched.remat_ticks:
+            def dense(p, h):
+                return checkpoint(stage_fn, p, h, use_reentrant=False)
+
+        def stage(p, hs):
+            return [dense(p, hs[0])]
+    else:
+        # the ranks' weights of logical stage lg; the TP stage remats its
+        # own local compute
+        dims = tree_map(lambda d: d - 1 if d >= 0 else d, tp_param_dims)
+
+        def stage(p, hs):
+            return stage_fn([tp_local(p, dims, tp, r) for r in range(tp)],
+                            hs)
+
+    def split(h):
+        if tp == 1:
+            return [h]
+        w = h.shape[seq_dim] // tp
+        return [h.narrow(seq_dim, r * w, w) for r in range(tp)]
+
     inbox = {}          # (logical stage, microbatch) -> its received input
     outs = [None] * mb
     for t in range(sched.num_ticks(mb, s_stages)):
@@ -525,15 +578,16 @@ def pipeline_apply(stage_fn: Callable, params_stacked, x, *,
             if not pl.valid:
                 continue
             lg = pl.k * s_stages + d
-            x_in = x_mb[pl.j] if pl.inject else inbox.pop((lg, pl.j))
+            x_in = (split(x_mb[pl.j]) if pl.inject
+                    else inbox.pop((lg, pl.j)))
             y = stage(_index_tree(params_stacked, lg), x_in)
             if pl.last:
-                outs[pl.j] = y
+                outs[pl.j] = y[0] if tp == 1 else torch.cat(y, dim=seq_dim)
                 continue
             nxt = lg + 1
             cut = Cut(d=d, k=pl.k, d2=nxt % s_stages, k2=nxt // s_stages,
                       j=pl.j, ids=ids_mb[pl.j])
-            inbox[(nxt, pl.j)] = _Hop.apply(y, transport, cut, fw_state,
-                                            bw_state)
+            inbox[(nxt, pl.j)] = [_Hop.apply(yr, transport, cut, fw_state,
+                                             bw_state) for yr in y]
     out = torch.stack(outs).reshape(b, *x.shape[1:])
     return out, fw_state, PipelineSlot(bw_state, transport.wire)

@@ -368,11 +368,53 @@ def test_init_dp_state_structure(feedback):
             [tuple(a.shape) for a in tree_leaves(getattr(t, slot))]
 
 
+@pytest.mark.parametrize("codec,feedback", [("none", "none"),
+                                            ("q8", "ef"), ("q4", "ef21")])
+def test_tensor_split_reduce_is_one_reduce_per_coordinate(codec, feedback):
+    """``tp_axis=T``: each tensor coordinate reduces its own shard of the
+    sharded leaves (and the replicated leaves whole): the result, state and
+    ring bytes are those of T independent reduces on the shards."""
+    rng = np.random.RandomState(3)
+    g = {"w": torch.from_numpy(rng.randn(2, 3, 8).astype(np.float32)),
+         "s": torch.from_numpy(rng.randn(2, 5).astype(np.float32))}
+    dims = {"w": 2, "s": -1}               # absolute, in the (dp, ...) arrays
+    like = {"w": torch.zeros(3, 8), "s": torch.zeros(5)}
+    st = TCOL.init_dp_state(like, 2, feedback)
+    red = TCOL.make_grad_all_reduce(2, codec, feedback=feedback, tp_axis=2,
+                                    tp_dims=dims)
+    out, nst, wire = red(g, st)
+    one = TCOL.make_grad_all_reduce(2, codec, feedback=feedback)
+    parts = []
+    for t in range(2):
+        gt = {"w": g["w"][..., 4 * t:4 * t + 4], "s": g["s"]}
+        st_t = TCOL.init_dp_state({"w": torch.zeros(3, 4),
+                                   "s": torch.zeros(5)}, 2, feedback)
+        parts.append(one(gt, st_t))
+    assert torch.equal(out["w"], torch.cat([p[0]["w"] for p in parts], -1))
+    assert all(torch.equal(out["s"], p[0]["s"]) for p in parts)
+    if feedback != "none":
+        assert torch.equal(nst.resid["w"], torch.cat(
+            [p[1].resid["w"] for p in parts], -1))
+    if feedback == "ef21":
+        assert torch.equal(nst.agg["w"], torch.cat(
+            [p[1].agg["w"] for p in parts], -1))
+    assert wire == {k: 2 * parts[0][2][k] for k in wire}
+    rep = TCOL.dp_wire_report(like, codec, dp=2, tp_axis=2,
+                              tp_dims={"w": 1, "s": -1})
+    assert rep["tensor_columns"] == 2
+    assert wire["dp_bytes"] == 2 * 2 * rep["wire_bytes_per_reduce"]
+
+
 def test_reduce_refuses_what_is_not_ported_or_wrong():
     with pytest.raises(ValueError, match="stage axis' size"):
         TCOL.make_grad_all_reduce(2, "q8", shard_axis="stage")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # the tensor split: a size, given with the leaves' tensor dims
+    with pytest.raises(ValueError, match="tensor axis' size"):
         TCOL.make_grad_all_reduce(2, "q8", tp_axis="tensor", tp_dims={})
+    with pytest.raises(ValueError, match="come together"):
+        TCOL.make_grad_all_reduce(2, "q8", tp_axis=2)
+    with pytest.raises(ValueError, match="come together"):
+        JCOL.make_grad_all_reduce(None, "data", "q8", tp_axis="tensor")
     with pytest.raises(ValueError, match="LOSSY"):
         TCOL.make_grad_all_reduce(2, "none", feedback="ef")
     with pytest.raises(ValueError, match="unknown dp feedback"):

@@ -240,9 +240,14 @@ def test_rule_axis_plans_and_refusals_match_reference():
     for P, S, spec in ((TP, TS, t), (JP, JS, j)):
         with pytest.raises(ValueError, match="unresolved rule spec"):
             S._resolve_parallel("api", spec, P.NO_POLICY, "simulated", {})
-    # the tensor axis of size > 1 stays refused in the port
-    with pytest.raises(NotImplementedError, match="tensor"):
-        TPAR.ParallelSpec({"tensor": TPAR.AxisSpec(2, "q4@size>=1;q8")})
+    # a rule-coded tensor axis of size 2 resolves as the reference's, on
+    # either side of its threshold
+    for size in (2047, 2048):
+        got, want = (M.ParallelSpec({"tensor": M.AxisSpec(
+            2, "q4@size>=2048;q8")}).resolved({"tensor": size})
+            for M in (TPAR, JPAR))
+        assert got.name == want.name == \
+            f"tensor=2({'q4' if size >= 2048 else 'q8'})"
     for bad in ("q4@size>=1e8;q8", "q4@size>1"):
         with pytest.raises(ValueError) as want:
             JPAR.AxisSpec(2, bad)

@@ -285,8 +285,24 @@ def test_launch_train_pipeline_cpu(argv, capsys):
     assert all(r["bw_bytes"] == 2 * (2 * n + 8) for r in recs)
 
 
+def test_launch_train_runs_a_tensor_mesh(capsys):
+    """``--mesh tensor=2`` (refused before the tensor axis was ported):
+    the uncompressed tensor ring, its ``tp_bytes`` the raw shards'."""
+    from repro_torch.launch import train as ttrain
+    assert ttrain.main(["--smoke", "--device", "cpu", "--steps", "2",
+                        "--batch", "4", "--seq", "32", "--log-every", "1",
+                        "--mesh", "tensor=2"]) == 0
+    out = capsys.readouterr().out
+    recs = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+    assert "# tp=2 tensor collectives: codec=none feedback=none" in out
+    assert [r["step"] for r in recs] == [1, 2]
+    # 4 sites x 2 collectives x 2 directions x 2 ranks, one raw bf16
+    # (4, 16, 256) shard a hop
+    assert all(r["tp_bytes"] == 4 * 2 * 2 * 2 * (4 * 16 * 256 * 2)
+               for r in recs)
+
+
 @pytest.mark.parametrize("argv,what", [
-    (["--mesh", "tensor=2"], "--mesh"),
     (["--perfetto", "t.json"], "--perfetto"),
     (["--trace", "t.jsonl"], "--trace"), (["--metrics", "5"], "--metrics")])
 def test_launch_train_refuses_what_is_not_ported(argv, what, capsys):

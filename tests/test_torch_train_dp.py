@@ -404,8 +404,21 @@ def test_from_legacy_matches_reference(kw):
             j.axis(n))
 
 
+@pytest.mark.parametrize("mesh,wire", [
+    ("tensor=2", None), ("tensor=2", "tensor=q8+ef"),
+    ("data=2,stage=2,tensor=2", "data=q8,stage=q8,tensor=q4+ef21:0.2")])
+def test_spec_from_cli_tensor_axis_matches_reference(mesh, wire):
+    """A tensor axis (refused before it was ported) parses to the
+    reference's spec."""
+    j, t = JPAR.spec_from_cli(mesh, wire), TPAR.spec_from_cli(mesh, wire)
+    assert t.name == j.name and (t.tp, t.num_devices) == (j.tp,
+                                                          j.num_devices)
+    for n in TPAR.AXIS_NAMES:
+        assert dataclasses.astuple(t.axis(n)) == dataclasses.astuple(
+            j.axis(n))
+
+
 @pytest.mark.parametrize("mesh,wire,err", [
-    ("tensor=2", None, NotImplementedError),
     (None, "data=q4@size>=1e8", ValueError),
     ("data=x", None, ValueError), ("data=0", None, ValueError),
     ("bogus=2", None, ValueError), (None, "data=q9", ValueError),
@@ -413,12 +426,8 @@ def test_from_legacy_matches_reference(kw):
 def test_spec_from_cli_refuses(mesh, wire, err):
     with pytest.raises(err):
         TPAR.spec_from_cli(mesh, wire)
-    if err is ValueError:
-        with pytest.raises(ValueError) as want:
-            JPAR.spec_from_cli(mesh, wire)
-        with pytest.raises(ValueError) as got:
-            TPAR.spec_from_cli(mesh, wire)
-        assert str(got.value) == str(want.value)
-    else:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            TPAR.spec_from_cli(mesh, wire)
+    with pytest.raises(ValueError) as want:
+        JPAR.spec_from_cli(mesh, wire)
+    with pytest.raises(ValueError) as got:
+        TPAR.spec_from_cli(mesh, wire)
+    assert str(got.value) == str(want.value)
