@@ -148,9 +148,9 @@ failure fatal:
      launches every step, each file's bytes and save / restore seconds;
      ``launch/train --steps 4``, the same run saving every 2 steps, and
      ``--resume`` from its step-2 file, whose loss lines equal the
-     uninterrupted run's steps 3-4, then ``launch/serve --ckpt`` on the
-     step-4 train-state file exiting 0; the rule policy ``topk:0.1@depth<1,
-     dir=fw;q4@dir=bw;q8`` on the simulated cuts (5 ``quant_dequant`` and
+     uninterrupted run's steps 3-4, then ``launch/serve --engine static
+     --ckpt`` on the step-4 train-state file exiting 0; the rule policy
+     ``topk:0.1@depth<1, dir=fw;q4@dir=bw;q8`` on the simulated cuts (5 ``quant_dequant`` and
      1 ``topk_block`` a step, the plain backend's losses), a one-rule q8
      set bitwise equal to the static q8 policy, ``run_cnn_experiment``
      (1 epoch) under ``topk:0.1@size>=65536;q4@size>=32768;q8`` (2
@@ -180,12 +180,45 @@ failure fatal:
      every lossy run (``TP_LOSSY``), and one smoke TP step card vs CPU
      under ``TP_CPU``'s
      bounds; tokens/s over steps 2-3 and the idle share per run.
- 11. one ``{"kernels": [...]}`` line (launches summed over phases 3-10;
+ 11. continuous serving (launch counters set to 0 just before and read
+     just after): ``ContinuousEngine`` on full-width gpt2-small, seed-0
+     weights, 4 stages, 4 slots, max_seq 256, 12 requests from the
+     reference launcher's recipe (``zipf_lengths``: prompts 2-64, 1-16 new
+     tokens, seeds 0-11): (a) slab, greedy, under none, q4q8 and top10;
+     (b) sampled (T 0.8, top-k 40) under top10; (d) paged with prefix
+     sharing (a 48-token shared prefix), 16-token chunks and pages, under
+     top10; (e) speculative, spec_k 4, under q4q8, with the target's own
+     params and a seed-1 model as draft.  Holds exact launches a drain
+     (``cs_expected``: 3 cuts a forward), no page active and the page
+     table's invariants after a paged drain, prefix hits; 8-tick chunks
+     == single ticks, each request alone through the static engine (a
+     companion prompt of its bucket's length pads it as the insert does)
+     and speculative == paged greedy within the near-tie rule (a stream
+     may part only where the reference stream's top-2 logits are within
+     ``2 * LOGIT_ATOL``; every parting printed with its gap); the plain
+     backend's tokens identical (slab, paged top10); sampled alone and
+     twice identical; (c) EOS under q4q8: a request stops at its EOS
+     token, the other streams are their greedy streams cut at it, and a
+     slot freed while requests wait is refilled on the next tick; the
+     uncompressed paged run against the slab on the same prompts (near
+     ties); the cache's last row (warm-up at the 256 bucket, a slab
+     request filling the cache beside a longer one, a paged prompt whose
+     padded last chunk passes the last page; near-tie rule); (f)
+     ``launch/serve --engine continuous`` in subprocesses (sampled, paged
+     with a shared prefix, speculative, ``--ckpt`` of the seed-0 params),
+     each exiting 0 with every request served (they share the card, so
+     their rates are not printed).  Every counted drain prints tok/s,
+     mean TTFT and slot utilisation with the card's name and power limit,
+     the phase its launches split into drains and warm-ups, and three
+     profiled drains their idle share.  Phase 2 holds the q4 pair and the
+     select bit-exact at the per-token cut shapes (4, 768), (16, 768)
+     and (20, 768) and times them (``cs_kernels``).
+ 12. one ``{"kernels": [...]}`` line (launches summed over phases 3-11;
      the select kernels timed at the 38.6 M-element DP leaf), then the
-     ``{"ok": true, ...}`` line.  Every number's line of phases 8-10
+     ``{"ok": true, ...}`` line.  Every number's line of phases 8-11
      carries the card's name and power limit.
 
-Every profiled step of phases 3-10 records the card's activity only and
+Every profiled step of phases 3-11 records the card's activity only and
 is read from the profiler's raw records (``device_records``): a host
 trace of a train step takes seconds to minutes to read.
 """
@@ -506,6 +539,21 @@ TP_CPU = {"none": (LOSS_ATOL, 2e-2), "q8+ef": (LM_LOSS_ATOL, 0.1)}
 # a ragged gradient tree: an odd leaf (misaligned meta), a rank-3 stack,
 # a constant leaf (one code) and a leaf of 3 tiles and a bit
 RAGGED = [(7,), (5, 33), (2, 3, 17), (6,), (3 * 8192 + 5,)]
+# the continuous-serving phase: full-width gpt2-small, seed-0 weights, 4
+# stages (3 cuts), 4 slots, max_seq 256; 12 requests from the reference
+# launcher's recipe (``zipf_lengths``: prompts 2-64, max new tokens 1-16;
+# the paged runs prepend a 48-token shared prefix), each request seeded
+# with its index
+CS_SLOTS, CS_MAX_SEQ, CS_REQUESTS = 4, 256, 12
+CS_PROMPT, CS_NEW, CS_SHARED = 64, 16, 48
+CS_CHUNK, CS_PAGE, CS_SPEC_K = 16, 16, 4
+CS_SAMPLING = dict(temperature=0.8, top_k=40)
+CS_POLICIES = ("none", "q4q8", "top10")
+# phase 2 at phase 11's per-token cut shapes: one (1, 768) payload a row
+CS_SHAPES = {f"decode tick ({CS_SLOTS}, 768)": CS_SLOTS,
+             f"prefill chunk ({CS_CHUNK}, 768)": CS_CHUNK,
+             f"verify span ({CS_SLOTS * (CS_SPEC_K + 1)}, 768)":
+             CS_SLOTS * (CS_SPEC_K + 1)}
 
 
 def log(*a):
@@ -1530,6 +1578,33 @@ def tp_kernels(torch, D, quantize, pack4, topk, framing, codecs,
     timed[TP_ROW4_LABEL] = time_select(torch, D, topk, [row4])
     for label, rows in timed.items():
         for name, row in rows.items():
+            log(f"# {name} {label}: " + json.dumps(row))
+    return err, timed
+
+
+def cs_kernels(torch, D, pack4, topk):
+    """Phase 2 at phase 11's per-token cut shapes (a decode tick of 4
+    slots, a 16-token prefill chunk, a 4 x 5-token verification span),
+    one payload a row: the q4 pair on f32 with per-row statistics, the
+    select on bf16 and f32 (k 77 a row), bit-exact against their plain
+    versions; then the q4 pair (f32) and the select (bf16, as the TopK
+    codec reads the cut) timed.  Returns ({kernel: max error}, {label:
+    {name: row}})."""
+    err = dict.fromkeys(KERNELS, 0.0)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    timed = {}
+    for label, m in CS_SHAPES.items():
+        x = torch.randn((m, D_MODEL), generator=gen, device="cuda")
+        for name, e in zip(("pack4_wire", "unpack4_wire"), check_q4(
+                torch, D, pack4, x, *pack4.minmax_scale(x))):
+            err[name] = max(err[name], e)
+        for dt in (torch.bfloat16, torch.float32):
+            check_select(torch, D, topk, x.to(dt))
+        log(f"# q4 pair and select bit-exact vs plain: {label}")
+        timed[label] = time_pack4(torch, D, pack4, x)
+        timed[label].update(time_select(torch, D, topk,
+                                        [x.to(torch.bfloat16)]))
+        for name, row in timed[label].items():
             log(f"# {name} {label}: " + json.dumps(row))
     return err, timed
 
@@ -3268,8 +3343,9 @@ def launcher_resume(tmp, smi):
     step 4: its lines equal the uninterrupted run's steps 3-4.  The cosine
     schedule spans ``--steps``, so the interrupted run is a 4-step run
     saved at step 2 (a ``--steps 2`` run is another run).  Then
-    ``launch/serve --ckpt`` restores the params from the step-4
-    train-state file and exits 0."""
+    ``launch/serve --engine static --ckpt`` restores the params from the
+    step-4 train-state file and exits 0 (phase 11 serves a params file
+    through the continuous engine)."""
     base = ["repro_torch.launch.train", "--feedback", "aqsgd",
             "--num-samples", str(AQSGD_SAMPLES), "--batch", str(TRAIN_BATCH),
             "--seq", str(TRAIN_SEQ), "--log-every", "1", "--steps",
@@ -3293,7 +3369,7 @@ def launcher_resume(tmp, smi):
                              f"resumed {resumed}, files {files}")
     file_bytes = os.path.getsize(os.path.join(tmp, "run_2.npz"))
     rc, _, tail = launcher(["repro_torch.launch.serve", "--arch",
-                            "gpt2-small", "--ckpt",
+                            "gpt2-small", "--engine", "static", "--ckpt",
                             os.path.join(tmp, "run_4.npz"), "--batch", "2",
                             "--prompt-len", "16", "--new-tokens", "4"])
     if rc != 0 or "restored step-4 params" not in tail:
@@ -3771,6 +3847,465 @@ def check_tp_against_cpu(torch, transformer, get):
             f"|CPU| {rel}, the stack's {rel_stack} (<= {rtol})")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: continuous serving
+# ---------------------------------------------------------------------------
+
+def cs_requests(np, vocab, shared=0):
+    """The reference launcher's workload recipe (``launch/serve.py``):
+    ``RandomState(0)``, a shared prefix first, then Zipf prompt lengths,
+    Zipf max-new-tokens and each request's tail; ``(prompt, max_new,
+    seed)`` a request."""
+    from repro_torch.launch.serve import zipf_lengths
+    rng = np.random.RandomState(0)
+    vocab = min(vocab, 1024)
+    pre = rng.randint(0, vocab, shared).astype(np.int64)
+    plens = zipf_lengths(rng, CS_REQUESTS, 2, CS_PROMPT)
+    news = zipf_lengths(rng, CS_REQUESTS, 1, CS_NEW)
+    return [(np.concatenate([pre, rng.randint(0, vocab, plens[i])]),
+             int(news[i]), i) for i in range(CS_REQUESTS)]
+
+
+def cs_serve(eng, reqs, eos=None):
+    """Submit every request and drain: ({req_id: tokens}, seconds)."""
+    t0 = time.perf_counter()
+    for prompt, new, seed in reqs:
+        eng.submit(prompt, max_new_tokens=new, eos_token=eos, seed=seed)
+    out = {r.req_id: r.out.copy() for r in eng.drain()}
+    return out, time.perf_counter() - t0
+
+
+class StreamGaps:
+    """An engine's top-2 logit gap at every (request, step) of its greedy
+    streams: the engine module's ``sample_tokens`` keeps the last logits,
+    the scheduler's ``started`` / ``token`` read the token's own row
+    (single ticks only: the multi-tick decode samples ``tick_chunk``
+    times before the scheduler sees a token).  Costs one host sync a
+    token; only for the reference runs of the near-tie rule."""
+
+    def __init__(self, torch, engine_mod, eng):
+        self.gaps, self.last = {}, None
+        self.mod, self.real = engine_mod, engine_mod.sample_tokens
+
+        def sample(logits, gens, cfg):
+            self.last = logits
+            return self.real(logits, gens, cfg)
+
+        engine_mod.sample_tokens = sample
+        sched = eng.sched
+        started, token = sched.started, sched.token
+
+        def gap(slot, row):
+            req = sched.slots[slot]
+            top2 = torch.topk(self.last[row].float(), 2).values.tolist()
+            self.gaps[(req.req_id, len(req.tokens))] = top2[0] - top2[1]
+
+        def on_started(slot, tok, now=None):
+            gap(slot, 0)
+            return started(slot, tok, now)
+
+        def on_token(slot, tok, now=None):
+            gap(slot, slot)
+            return token(slot, tok, now)
+
+        sched.started, sched.token = on_started, on_token
+
+    def close(self):
+        self.mod.sample_tokens = self.real
+
+
+def cs_gap_run(torch, make, reqs):
+    """``make(tick_chunk=1)``'s streams and their gaps (see StreamGaps)."""
+    import repro_torch.serve.engine as E
+    eng = make(tick_chunk=1)
+    rec = StreamGaps(torch, E, eng)
+    try:
+        out, _ = cs_serve(eng, reqs)
+    finally:
+        rec.close()
+    return out, rec.gaps
+
+
+def cs_parts(got, want, gaps, what, smi):
+    """Streams equal token for token, except a parting at a step where
+    the reference stream's top-2 logits are within ``2 * LOGIT_ATOL``
+    (the cuBLAS kernel and the attention's shapes differ with the row
+    count, so batch-shape changes may break a near-tie either way); later
+    tokens of a parted stream are not compared.  Prints every parting with
+    its gap; raises on any other difference."""
+    parts, equal = [], 0
+    for rid, ref in want.items():
+        out = got[rid]
+        n = min(len(out), len(ref))
+        diff = [i for i in range(n) if out[i] != ref[i]]
+        if not diff:
+            if len(out) != len(ref):
+                raise AssertionError(f"{what}: request {rid} lengths "
+                                     f"{len(out)} vs {len(ref)}")
+            equal += 1
+            continue
+        i = diff[0]
+        g = gaps[(rid, i)]
+        parts.append({"request": rid, "step": i, "gap": g})
+        if g > 2 * LOGIT_ATOL:
+            raise AssertionError(f"{what}: request {rid} parts at step {i} "
+                                 f"without a near-tie (gap {g}): {out} vs "
+                                 f"{ref}")
+    log(f"# continuous {what}: {equal} of {len(want)} streams identical; "
+        "partings (each at a near-tie) " + json.dumps(
+            {"card": smi, "partings": parts}))
+    return parts
+
+
+def cs_exact(got, want, what):
+    for rid, ref in want.items():
+        if not np_equal(got[rid], ref):
+            raise AssertionError(f"{what}: request {rid} {got[rid]} vs "
+                                 f"{ref}")
+
+
+def np_equal(a, b):
+    return len(a) == len(b) and all(int(x) == int(y) for x, y in zip(a, b))
+
+
+def cs_expected(name, stats, k=0, draft_inserts=0):
+    """The launches of one drain: each cut packs once a forward (3 cuts):
+    a prefill chunk or an insert, a decode tick (each of a multi-tick
+    chunk's), a verification span, and the draft's inserts and ``k``
+    proposals a tick."""
+    forwards = (stats.get("prefill_chunks", 0) or stats["completed"]) \
+        + stats["ticks"] + draft_inserts + k * stats["ticks"]
+    n = 3 * forwards
+    return {k_: (n if k_ in POLICY_KERNELS[name] else 0) for k_ in KERNELS}
+
+
+def cs_profile(torch, make, reqs, what, smi):
+    """The device idle share of one drain, the card's activity only,
+    after a warm-up drain of the same requests."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = make()
+    eng.warmup()
+    cs_serve(eng, reqs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cs_serve(eng, reqs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = sorted(device_records(prof), reverse=True)
+    busy = sum(ms for ms, _ in dev)
+    log("# continuous profile " + json.dumps({
+        "run": what, "card": smi, "wall_ms": wall_ms,
+        "device_busy_ms": busy, "device_idle_share": 1 - busy / wall_ms,
+        "top_device_ms": [[key[:60], ms] for ms, key in dev[:6]]}))
+
+
+def cs_run(torch, build, make, reqs, name, what, smi, drained, spec_k=0):
+    """One warm engine's drain with its launches counted around it (the
+    phase's counts run on) and added into ``drained``; returns (tokens,
+    stats)."""
+    eng = make()
+    eng.warmup()
+    torch.cuda.synchronize()
+    before = dict(build.LAUNCHES)
+    out, wall = cs_serve(eng, reqs)
+    torch.cuda.synchronize()
+    moved = {k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+             for k in KERNELS}
+    st = eng.stats()
+    want = cs_expected(name, st, spec_k, CS_REQUESTS if spec_k else 0)
+    if moved != want:
+        raise AssertionError(f"continuous {what}: launches {moved}, "
+                             f"expected {want} (stats {st})")
+    for k, v in moved.items():
+        drained[k] += v
+    if getattr(eng, "paged", False):
+        eng.pages.check_invariants()
+        if eng.pages.active_pages():
+            raise AssertionError(f"continuous {what}: "
+                                 f"{eng.pages.active_pages()} pages active "
+                                 "after the drain")
+    new = sum(len(t) for t in out.values())
+    assert all(((t >= 0) & (t < 50257)).all() for t in out.values())
+    row = {"run": what, "card": smi, "tok_per_s": new / wall,
+           "wall_s": wall, "new_tokens": new,
+           "launches": {k: v for k, v in moved.items() if v},
+           **{k: st[k] for k in ("mean_ttft_s", "slot_utilization",
+                                 "ticks", "prefill_chunks", "prefix_hits",
+                                 "prefix_hit_tokens", "cow_copies",
+                                 "acceptance_rate", "proposed", "accepted")
+              if k in st}}
+    log("# continuous " + json.dumps(row))
+    return out, st
+
+
+def cs_static(np, params, cfg, policy, reqs):
+    """Each request served by the static engine, alone but for a
+    companion prompt of its bucket's length: the batch is then left-padded
+    to the bucket, as the continuous engine's insert pads it, and every
+    cut packs per request, so the companion changes nothing of its
+    numerics."""
+    from repro_torch.serve import cache as C
+    from repro_torch.serve.engine import Request, ServeEngine
+    buckets = C.prompt_buckets(CS_PROMPT)
+    eng = ServeEngine(params, cfg, policy, max_batch=2, max_seq=CS_MAX_SEQ)
+    out = {}
+    for rid, (prompt, new, _) in enumerate(reqs):
+        b = C.bucket_for(len(prompt), buckets)
+        done = eng.generate([Request(prompt, new),
+                             Request(np.zeros(b, np.int64), 1)])
+        out[rid] = done[0].out
+    return out
+
+
+def continuous(torch, np, D, build, smi):
+    """Phase 11: ``ContinuousEngine`` at full width — slab greedy under
+    none / q4q8 / top10, sampled, EOS, paged with prefix sharing and
+    chunked prefill, speculative — and ``launch/serve`` in subprocesses.
+    Returns the phase's launches."""
+    import functools
+    from repro_torch.configs.registry import get
+    from repro_torch.core.policy import POLICIES
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ContinuousEngine
+    from repro_torch.serve.sampling import SamplingConfig
+
+    cfg = get("gpt2-small")
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    reqs = cs_requests(np, cfg.vocab_size)
+    preqs = cs_requests(np, cfg.vocab_size, CS_SHARED)
+
+    def engine(name, tick_chunk=8, **kw):
+        return ContinuousEngine(params, cfg, POLICIES[name](),
+                                num_slots=CS_SLOTS, max_seq=CS_MAX_SEQ,
+                                tick_chunk=tick_chunk, **kw)
+
+    slab = {n: functools.partial(engine, n, max_prompt=CS_PROMPT)
+            for n in CS_POLICIES}
+    paged_kw = dict(max_prompt=CS_PROMPT + CS_SHARED, prefix_cache=True,
+                    prefill_chunk=CS_CHUNK, page_size=CS_PAGE)
+    paged = {n: functools.partial(engine, n, **paged_kw)
+             for n in ("none", "q4q8", "top10")}
+    t0 = time.perf_counter()
+    build.reset_launches()                  # the phase 11 paths start here
+    drained = dict.fromkeys(KERNELS, 0)     # the counted drains' part
+    greedy = {}
+    for name in CS_POLICIES:                # (a) slab, greedy
+        greedy[name], _ = cs_run(torch, build, slab[name], reqs, name,
+                                 f"slab/{name}", smi, drained)
+    smp = SamplingConfig(**CS_SAMPLING)     # (b) sampled
+    sampled = functools.partial(engine, "top10", max_prompt=CS_PROMPT,
+                                sampling=smp)
+    samp, _ = cs_run(torch, build, sampled, reqs, "top10",
+                     f"slab/top10/{smp.name}", smi, drained)
+    pout, pst = cs_run(torch, build, paged["top10"], preqs, "top10",
+                       "paged/top10", smi, drained)  # (d) paged
+    if not pst["prefix_hits"]:
+        raise AssertionError(f"paged/top10: no prefix hit ({pst})")
+    spec = {}                               # (e) speculative
+    draft1 = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(1), cfg)
+    for dname, dparams in (("target", params), ("seed-1", draft1)):
+        make = functools.partial(engine, "q4q8", draft_params=dparams,
+                                 draft_cfg=cfg,
+                                 draft_policy=POLICIES["q4q8"](),
+                                 spec_k=CS_SPEC_K, **paged_kw)
+        spec[dname], _ = cs_run(torch, build, make, preqs, "q4q8",
+                                f"speculative/q4q8/draft {dname}", smi,
+                                drained, spec_k=CS_SPEC_K)
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}  # read here
+    log(f"# phase 11 launches {launches}: drains {drained}, warm-ups "
+        f"{ {k: launches[k] - drained[k] for k in KERNELS} } (runs done "
+        f"at {time.perf_counter() - t0:.1f} s)")
+
+    # (a) each request alone through the static engine, the plain backend
+    gapsets = {}
+    for name in CS_POLICIES:
+        ref, gaps = cs_gap_run(torch, slab[name], reqs)
+        gapsets[name] = gaps
+        cs_parts(greedy[name], ref, gaps, f"slab/{name} 8-tick chunks vs "
+                 "single ticks", smi)
+        alone = cs_static(np, params, cfg, POLICIES[name](), reqs)
+        cs_parts(alone, ref, gaps, f"slab/{name} vs each request alone "
+                 "(static engine)", smi)
+    D.KERNEL_BACKEND = "plain"
+    try:
+        plain = {n: cs_serve(slab[n](), reqs)[0] for n in CS_POLICIES}
+        plain_paged = cs_serve(paged["top10"](), preqs)[0]
+    finally:
+        D.KERNEL_BACKEND = "auto"
+    for name in CS_POLICIES:
+        cs_exact(plain[name], greedy[name], f"slab/{name} plain backend")
+    cs_exact(plain_paged, pout, "paged/top10 plain backend")
+    log("# continuous: the plain backend on the card gives identical "
+        f"tokens (slab none / q4q8 / top10, paged top10; at "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    # (b) sampled: alone with the same seed, and twice in a row
+    again, _ = cs_serve(sampled(), reqs)
+    cs_exact(again, samp, "sampled twice in a row")
+    solo = sampled()
+    for rid, req in enumerate(reqs):
+        one, _ = cs_serve(solo, [req])
+        (tok,) = one.values()
+        cs_exact({rid: tok}, {rid: samp[rid]}, "sampled alone vs batched")
+    log(f"# continuous sampled ({smp.name}, top10): each request alone "
+        "with its seed, and the batch twice in a row, give identical "
+        "tokens")
+
+    # (c) EOS: a request stops at its EOS token; a slot freed while the
+    # queue holds requests is refilled on the next tick
+    ref = greedy["q4q8"]
+    # the first request whose stream holds a token first seen at step 2
+    # or later: that token is the EOS, so the request stops mid-stream
+    rid, stop = next((r, i) for r in sorted(ref)
+                     for i in range(2, len(ref[r]))
+                     if ref[r][i] not in ref[r][:i])
+    eos = int(ref[rid][stop])
+    eng = slab["q4q8"]()
+    for prompt, new, seed in reqs:
+        eng.submit(prompt, max_new_tokens=new, eos_token=eos, seed=seed)
+    out, placed, freed = {}, {}, []
+    fills = eng.sched.fills
+
+    def spy(can_place=None):
+        got = fills(can_place)
+        for slot, r in got:
+            placed[r.req_id] = (slot, eng.ticks)
+        return got
+
+    eng.sched.fills = spy
+    while not eng.sched.idle:
+        tick = eng.ticks
+        for r in eng.step():
+            out[r.req_id] = r.out.copy()
+            if len(r.tokens) > 1 and eng.sched.queue:
+                freed.append((r.req_id, r.slot, tick))
+    truncated = {}
+    for r, toks in ref.items():
+        hit = np.nonzero(toks == eos)[0]
+        truncated[r] = toks[:hit[0] + 1] if len(hit) else toks
+    if len(out[rid]) != stop + 1 or out[rid][-1] != eos:
+        raise AssertionError(f"EOS {eos}: request {rid} gave {out[rid]}, "
+                             f"greedy {ref[rid]}")
+    cs_parts(out, truncated, gapsets["q4q8"], f"slab/q4q8 EOS {eos} vs "
+             "the greedy streams cut at it", smi)
+    late = [(r, s, t) for r, s, t in freed
+            if (s, t + 1) not in placed.values()]
+    if late or not freed or eng.stats()["completed"] != CS_REQUESTS:
+        raise AssertionError(f"EOS: slots freed {freed} and not refilled "
+                             f"on the next tick: {late} (placed {placed})")
+    log("# continuous EOS " + json.dumps({
+        "card": smi, "eos": eos, "request": rid, "stopped_after": stop + 1,
+        "freed_and_refilled_next_tick": len(freed)}))
+
+    # (d) paged against its single-tick twin, against the slab under
+    # none, and (e) speculative against paged greedy
+    ref, gaps = cs_gap_run(torch, paged["top10"], preqs)
+    cs_parts(pout, ref, gaps, "paged/top10 vs its gap run", smi)
+    pnone, gnone = cs_gap_run(torch, paged["none"], preqs)
+    snone = cs_serve(functools.partial(
+        engine, "none", max_prompt=CS_PROMPT + CS_SHARED)(), preqs)[0]
+    cs_parts(snone, pnone, gnone, "slab/none vs paged/none (shared "
+             "prefix)", smi)
+    ref, gaps = cs_gap_run(torch, paged["q4q8"], preqs)
+    for dname, out in spec.items():
+        cs_parts(out, ref, gaps, f"speculative/q4q8 draft {dname} vs "
+                 "paged greedy", smi)
+    # the slab's prefill packs a request's whole padded prompt as one
+    # payload, the paged chunks pack each token alone: under TopK the two
+    # differ by design (the reference's own speculative test compares
+    # paged runs only), so this is counted, not held
+    s10 = cs_serve(functools.partial(
+        engine, "top10", max_prompt=CS_PROMPT + CS_SHARED)(), preqs)[0]
+    log("# continuous slab/top10 vs paged/top10 (not held: payload "
+        "granularity) " + json.dumps({
+            "card": smi, "identical_streams": sum(
+                np_equal(s10[r], pout[r]) for r in pout),
+            "identical_first_tokens": sum(
+                int(s10[r][0]) == int(pout[r][0]) for r in pout),
+            "streams": len(pout)}))
+
+    # the cache's last row: warm-up serves the largest bucket with the one
+    # token that fits, then decodes with every slot idle; a slab request
+    # fills the cache beside a longer one; a paged prompt's padded last
+    # chunk reaches past the slot's last page
+    rng = np.random.RandomState(1)
+    full = functools.partial(engine, "q4q8", max_prompt=CS_MAX_SEQ)
+    freqs = [(rng.randint(0, 1024, 100).astype(np.int64), 129, 0),
+             (rng.randint(0, 1024, 10).astype(np.int64), 160, 1)]
+    warm = full()
+    warm.warmup()
+    ref, gaps = cs_gap_run(torch, full, freqs)
+    cs_parts(cs_serve(warm, freqs)[0], ref, gaps, "slab/q4q8 a request "
+             "filling the cache, 8-tick chunks after warm-up vs single "
+             "ticks", smi)
+    pfull = [(rng.randint(0, 1024, 250).astype(np.int64), 6, 0),
+             (rng.randint(0, 1024, 10).astype(np.int64), 20, 1)]
+    chunked = functools.partial(engine, "top10", max_prompt=CS_MAX_SEQ,
+                                page_size=CS_PAGE)
+    ref, gaps = cs_gap_run(torch, functools.partial(
+        chunked, prefill_chunk=CS_CHUNK), pfull)
+    cs_parts(cs_serve(chunked(prefill_chunk=24), pfull)[0], ref, gaps,
+             "paged/top10 24-token chunks past the last page vs 16-token "
+             "chunks", smi)
+    for what, make, rq in (("slab/q4q8", slab["q4q8"], reqs),
+                           ("paged/top10", paged["top10"], preqs),
+                           ("speculative/q4q8/draft target",
+                            functools.partial(
+                                engine, "q4q8", draft_params=params,
+                                draft_cfg=cfg,
+                                draft_policy=POLICIES["q4q8"](),
+                                spec_k=CS_SPEC_K, **paged_kw), preqs)):
+        cs_profile(torch, make, rq, what, smi)
+    log(f"# continuous checks done at {time.perf_counter() - t0:.1f} s")
+    cs_launchers(params, smi)
+    log(f"# continuous launchers done at {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def cs_launchers(params, smi):
+    """``launch/serve --engine continuous`` in subprocesses, all at once:
+    sampled, paged with a shared prefix, speculative, and from a params
+    file (``--ckpt``).  Each must exit 0 and serve every request; they
+    share the card, so their rates are not logged."""
+    import tempfile
+    from repro_torch.checkpoint import io as ckpt_io
+    base = ["repro_torch.launch.serve", "--engine", "continuous",
+            "--policy", "top10", "--requests", "8", "--prompt-len", "32",
+            "--new-tokens", "8"]
+    runs = {"sampled": ["--temperature", "0.8", "--top-k", "40"],
+            "paged": ["--prefix-cache", "--prefill-chunk", "16",
+                      "--shared-prefix", "48"],
+            "speculative": ["--draft", "gpt2-small", "--spec-k", "4"]}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "params.npz")
+        ckpt_io.save(path, params, step=7)
+        runs["ckpt"] = ["--ckpt", path]
+        procs = {k: subprocess.Popen([sys.executable, "-m", *base, *v],
+                                     cwd=ROOT, env=env, text=True,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE)
+                 for k, v in runs.items()}
+        res = {k: p.communicate(timeout=600) for k, p in procs.items()}
+    for k, (out, err) in res.items():
+        rc = procs[k].returncode
+        recs = [json.loads(ln) for ln in out.splitlines()
+                if ln.startswith("{")]
+        if rc != 0 or len(recs) != 1 or recs[0]["completed"] != 8 or (
+                k == "ckpt" and "restored step-7 params" not in out):
+            raise AssertionError(f"launch/serve {' '.join(runs[k])} exited "
+                                 f"{rc}: {out[-2000:]}{err[-2000:]}")
+        log("# launch/serve --engine continuous " + json.dumps({
+            "run": k, "card": smi, "exit": rc, **{
+                x: recs[0][x] for x in (
+                    "completed", "slot_utilization", "prefix_hits",
+                    "acceptance_rate") if x in recs[0]}}))
+
+
 def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -3888,11 +4423,13 @@ def main() -> int:
                                   collectives, tiling)
     tp_err, tp_timed = tp_kernels(torch, D, quantize, pack4, topk, framing,
                                   codecs, collectives, tiling)
-    err = {k: max(err.get(k, 0.0), cnn_err[k], pd_err[k], tp_err[k])
-           for k in KERNELS}
+    cs_err, cs_timed = cs_kernels(torch, D, pack4, topk)
+    err = {k: max(err.get(k, 0.0), cnn_err[k], pd_err[k], tp_err[k],
+                  cs_err[k]) for k in KERNELS}
     timed.update(cnn_timed)
     timed.update(pd_timed)
     timed.update(tp_timed)
+    timed.update(cs_timed)
     torch.cuda.empty_cache()
     for label, rows in timed.items():
         for name, row in ({"decode_sum_fused": rows} if "ms" in rows
@@ -3903,7 +4440,7 @@ def main() -> int:
                     f"the launches; its times are not to be used")
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
-    # -- phases 3-10: each main path, its counts set to 0 just before it and
+    # -- phases 3-11: each main path, its counts set to 0 just before it and
     # read just after; the kernels line sums them
     paths = []
     for phase, run in ((3, lambda: serve(torch, np, D, _build)),
@@ -3913,7 +4450,8 @@ def main() -> int:
                        (7, lambda: cnn(torch, D, _build)),
                        (8, lambda: pipeline_dp(torch, D, _build, smi)),
                        (9, lambda: train_state(torch, D, _build, smi)),
-                       (10, lambda: tensor_axis(torch, D, _build, smi))):
+                       (10, lambda: tensor_axis(torch, D, _build, smi)),
+                       (11, lambda: continuous(torch, np, D, _build, smi))):
         paths.append(run())
         log(f"# phase {phase} done at {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
@@ -3921,7 +4459,7 @@ def main() -> int:
         if not v:
             raise AssertionError(f"{k} was launched on no main path")
 
-    # -- phase 11 -----------------------------------------------------------
+    # -- phase 12 -----------------------------------------------------------
     line = []
     for name, (src, replaces) in KERNELS.items():
         row = (timed[DPQ8] if name in DP_KERNELS else

@@ -18,7 +18,9 @@ returns it as the cotangent of ``bw_buf``; the port writes it into a
 reads the slot after ``backward()``.
 
 At inference, :func:`boundary_eval` applies the plain fw compressor and
-:func:`boundary_wire_eval` packs and unpacks the real wire payload.
+:func:`boundary_wire_eval` packs and unpacks the real wire payload, per
+request; :func:`boundary_wire_eval_tokens` per (request, token), for
+multi-token decode spans.
 """
 from __future__ import annotations
 
@@ -91,6 +93,26 @@ def boundary_wire_eval(policy: BoundaryPolicy, x: torch.Tensor,
     codec = codec_for(policy.fw)
     payload = codec.pack(x, policy.fw.k_frac, per_request=True)
     return codec.unpack(payload, x.shape, x.dtype)
+
+
+def boundary_wire_eval_tokens(policy: BoundaryPolicy, x: torch.Tensor,
+                              compress: bool) -> torch.Tensor:
+    """Per-(request, token) wire packing for multi-token decode spans.
+
+    ``x``: (B, T, d).  Each token's cut tensor is its OWN payload: the
+    ``(B, T, d)`` tensor is packed as ``B * T`` rows of one ``(1, d)``
+    payload each (``per_request=True``), the granularity
+    :func:`boundary_wire_eval` gives a T = 1 decode tick (the reference's
+    double ``jax.vmap``).  Scales and TopK counts are then those of
+    per-token decode, which keeps a speculative verification span's
+    numerics those of plain greedy decode, and a prefill's independent
+    of its chunking.
+    """
+    if not compress or policy.fw.kind == "none":
+        return x
+    b, t = x.shape[:2]
+    rows = x.reshape(b * t, *x.shape[2:])
+    return boundary_wire_eval(policy, rows, compress).reshape(x.shape)
 
 
 def boundary_wire_bytes_per_token(policy, d_model: int,

@@ -10,6 +10,7 @@
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 KERNEL_BACKEND = "auto"
@@ -35,3 +36,13 @@ def use_kernel(t: torch.Tensor) -> bool:
         raise ValueError(f"KERNEL_BACKEND={KERNEL_BACKEND!r}; "
                          f"valid: {BACKENDS}")
     return t.is_cuda
+
+
+def host_ints(a, device: torch.device) -> torch.Tensor:
+    """A copy of the host integers ``a`` as an int64 tensor on ``device``.
+    On CUDA the copy goes through pinned memory and does not wait for the
+    work already queued on the card (a copy from pageable memory would)."""
+    t = torch.from_numpy(np.array(a, np.int64))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -5,11 +5,13 @@ Port of ``repro/models/attention.py`` (full attention).  The reference has
 no Pallas attention, so this is plain torch ops following ``_sdpa_block``'s
 arithmetic: bf16 einsums, fp32 logits / sqrt(hd), -1e30 mask, fp32 softmax
 cast back to bf16, queries in chunks of ``_qchunk`` beyond 2048 tokens.
-Sliding windows, softcaps, decode spans and paging are not ported yet.
+Sliding windows and softcaps are not ported yet.
 
 Cache layout: ``{"k": (B, C, KV, hd), "v": (B, C, KV, hd)}``, RoPE applied
-at write time.  :func:`attn_decode` writes the new K/V row IN PLACE (the
-reference returns a new cache; its engine donates the old one).
+at write time, or a page pool ``(N, P, KV, hd)`` read through a page map
+(:func:`attn_decode_span`).  :func:`attn_decode` and
+:func:`attn_decode_span` write the new K/V rows IN PLACE (the reference
+returns a new cache; its engine donates the old one).
 :func:`attn_train_tp` is the head-sharded attention of the tensor axis.
 """
 from __future__ import annotations
@@ -153,27 +155,94 @@ def attn_prefill(params, x, *, cache_len, num_heads, num_kv_heads, head_dim,
     return out, cache
 
 
-def attn_decode(params, x1, cache, pos: int, *, num_heads, num_kv_heads,
+def attn_decode(params, x1, cache, pos, *, num_heads, num_kv_heads,
                 head_dim, pos_embed="rope", rope_theta=10_000.0,
                 pad_len=None):
     """One-token decode.  x1: (B, 1, d); ``pos``: the new token's index,
-    the same for every row.  ``pad_len``: optional (B,) — cache slots
-    before it are left-padding and masked out.  Writes K/V in place."""
+    an int (the same for every row) or a (B,) tensor, one position per
+    slot (continuous batching: each slot decodes its own request at its
+    own position, its K/V scattered one row per slot).  ``pad_len``:
+    optional (B,) — cache slots before it are left-padding and masked
+    out.  Writes K/V in place."""
     b = x1.shape[0]
     c = cache["k"].shape[1]
+    per_slot = isinstance(pos, torch.Tensor)
     q, k, v = _project_qkv(params, x1, num_heads, num_kv_heads, head_dim)
     if pos_embed == "rope":
-        posb = torch.full((1, 1), pos, device=x1.device)
+        posb = pos[:, None] if per_slot else torch.full((1, 1), pos,
+                                                        device=x1.device)
         q = apply_rope(q, posb, rope_theta)
         k = apply_rope(k, posb, rope_theta)
-    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
     idx = torch.arange(c, device=x1.device)
-    valid = idx <= pos
-    if pad_len is None:
-        mask = valid[None, None, None, :]                        # (1,1,1,C)
+    if per_slot:
+        rows = torch.arange(b, device=x1.device)
+        cache["k"][rows, pos] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, pos] = v[:, 0].to(cache["v"].dtype)
+        valid = idx[None] <= pos[:, None]                        # (B, C)
     else:
-        mask = (valid[None] & (idx[None] >= pad_len[:, None])
-                )[:, None, None, None, :]                        # (B,1,1,1,C)
+        cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+        valid = (idx <= pos)[None]                               # (1, C)
+    if pad_len is not None:
+        valid = valid & (idx[None] >= pad_len[:, None])          # (B, C)
+    mask = valid[:, None, None, None, :]                # (B|1,1,1,1,C)
     out = _sdpa_block(q, cache["k"], cache["v"], mask)
     return out.reshape(b, 1, num_heads * head_dim) @ params["wo"], cache
+
+
+def attn_decode_span(params, x, cache, pos, *, num_heads, num_kv_heads,
+                     head_dim, pos_embed="rope", rope_theta=10_000.0,
+                     pad_len=None, page_map=None, valid_len=None):
+    """Multi-token decode: ``x`` (B, T, d) holds new tokens at absolute
+    positions ``pos[b] + arange(T)`` (``pos``: a (B,) tensor).  One shape
+    covers a chunked prefill (B = 1, T = chunk) and a speculative
+    verification (T = k + 1); T = 1 gives :func:`attn_decode`'s output on
+    the same cache contents.
+
+    Cache forms:
+      * slab  — ``cache["k"]: (B, C, KV, hd)`` (``page_map`` None);
+        ``pad_len`` masks left-padding as in :func:`attn_decode`.
+      * paged — ``cache["k"]: (N, P, KV, hd)``, a page POOL read and
+        written through ``page_map: (B, n_pages)`` physical page ids:
+        position t lives in page ``page_map[b, t // P]`` at offset
+        ``t % P``.  Unallocated logical pages map to the trash page 0,
+        never valid under the position mask.
+
+    ``valid_len``: optional (B,) — only the first valid_len[b] tokens are
+    real (a padded last prefill chunk).  In the paged form the others'
+    K/V go to the trash page; the slab form needs every token valid.
+    Their queries give logits the caller ignores.  K/V are written IN
+    PLACE; sliding-window ring caches are not supported (pages need
+    absolute positions)."""
+    b, t, _ = x.shape
+    dev = x.device
+    wpos = pos[:, None] + torch.arange(t, device=dev)            # (B, T)
+    q, k, v = _project_qkv(params, x, num_heads, num_kv_heads, head_dim)
+    if pos_embed == "rope":
+        q = apply_rope(q, wpos, rope_theta)
+        k = apply_rope(k, wpos, rope_theta)
+    if page_map is not None:
+        p = cache["k"].shape[1]                                  # page size
+        # a padded last chunk may run past the slot's last logical page:
+        # those rows go to the trash page below (JAX's gather clamps too)
+        lpage = (wpos // p).clamp_max(page_map.shape[1] - 1)
+        phys = torch.gather(page_map, 1, lpage)                  # (B, T)
+        if valid_len is not None:
+            live = torch.arange(t, device=dev)[None] < valid_len[:, None]
+            phys = torch.where(live, phys, torch.zeros_like(phys))
+        off = wpos % p
+        cache["k"][phys, off] = k.to(cache["k"].dtype)
+        cache["v"][phys, off] = v.to(cache["v"].dtype)
+        vk = cache["k"][page_map].reshape(b, -1, num_kv_heads, head_dim)
+        vv = cache["v"][page_map].reshape(b, -1, num_kv_heads, head_dim)
+    else:
+        rows = torch.arange(b, device=dev)[:, None]
+        cache["k"][rows, wpos] = k.to(cache["k"].dtype)
+        cache["v"][rows, wpos] = v.to(cache["v"].dtype)
+        vk, vv = cache["k"], cache["v"]
+    idx = torch.arange(vk.shape[1], device=dev)
+    mask = idx[None, None, :] <= wpos[:, :, None]                # (B, T, C)
+    if pad_len is not None:
+        mask = mask & (idx[None, None, :] >= pad_len[:, None, None])
+    out = _sdpa(q, vk, vv, mask)
+    return out.reshape(b, t, num_heads * head_dim) @ params["wo"], cache

@@ -11,6 +11,8 @@ Uniform interface, params stacked per group by the caller:
   block_train(p, x, cfg, kind)                         -> (y, aux_loss)
   block_prefill(p, x, cfg, kind, cache_len, pad_mask)  -> (y, cache)
   block_decode(p, x1, cache, pos, cfg, kind, pad_len)  -> (y, cache)
+  block_decode_span(p, x, cache, pos, cfg, kind, pad_len, page_map,
+                    valid_len)                         -> (y, cache)
   block_cache(cfg, kind, batch, cache_len, dtype, device)
 """
 from __future__ import annotations
@@ -108,14 +110,24 @@ def _attn_block_prefill(p, x, cfg: ModelConfig, cache_len: int,
     return x, cache
 
 
-def _attn_block_decode(p, x1, cache, pos: int, cfg: ModelConfig,
-                       pad_len=None):
+def _attn_block_decode(p, x1, cache, pos, cfg: ModelConfig, pad_len=None):
     h, cache = A.attn_decode(p["attn"], norm_apply(p["ln1"], x1, cfg.norm),
                              cache, pos, pad_len=pad_len, **_attn_kwargs(cfg))
     x1 = x1 + h
     x1 = x1 + mlp_apply(p["mlp"], norm_apply(p["ln2"], x1, cfg.norm),
                         cfg.mlp)
     return x1, cache
+
+
+def _attn_block_decode_span(p, x, cache, pos, cfg: ModelConfig,
+                            pad_len=None, page_map=None, valid_len=None):
+    h, cache = A.attn_decode_span(
+        p["attn"], norm_apply(p["ln1"], x, cfg.norm), cache, pos,
+        pad_len=pad_len, page_map=page_map, valid_len=valid_len,
+        **_attn_kwargs(cfg))
+    x = x + h
+    x = x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.mlp)
+    return x, cache
 
 
 def _attn_block_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
@@ -137,11 +149,21 @@ def block_prefill(p, x, cfg: ModelConfig, kind: str, cache_len: int,
     return _attn_block_prefill(p, x, cfg, cache_len, pad_mask)
 
 
-def block_decode(p, x1, cache, pos: int, cfg: ModelConfig, kind: str,
+def block_decode(p, x1, cache, pos, cfg: ModelConfig, kind: str,
                  pad_len=None):
-    """``pad_len``: (B,) — cache slots before it are left-padding."""
+    """``pos``: an int or a (B,) tensor of per-slot positions;
+    ``pad_len``: (B,) — cache slots before it are left-padding."""
     _check_kind(kind)
     return _attn_block_decode(p, x1, cache, pos, cfg, pad_len)
+
+
+def block_decode_span(p, x, cache, pos, cfg: ModelConfig, kind: str,
+                      pad_len=None, page_map=None, valid_len=None):
+    """Multi-token decode over a slab or paged KV cache (see
+    attention.attn_decode_span).  Attention kinds only."""
+    _check_kind(kind)
+    return _attn_block_decode_span(p, x, cache, pos, cfg, pad_len,
+                                   page_map, valid_len)
 
 
 def block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,

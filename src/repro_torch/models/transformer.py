@@ -28,6 +28,8 @@ Entry points:
                                                   -> (logits (B,1,V), caches)
   decode_step(params, token, caches, pos, cfg, policy, compress, pad_len,
               wire)                               -> (logits (B,V), caches)
+  decode_span(params, tokens, caches, pos, cfg, policy, compress, pad_len,
+              page_map, valid_len, wire)          -> (logits (B,T,V), caches)
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.boundary import (boundary_apply, boundary_eval,
                                        boundary_wire_eval,
+                                       boundary_wire_eval_tokens,
                                        empty_boundary_state)
 from repro_torch.core.policy import CompressionPolicy, NO_POLICY
 from repro_torch.device import resolve_device
@@ -384,12 +387,14 @@ def prefill(params, batch, cfg: ModelConfig,
     return _lm_logits(params, x[:, -1:], cfg), caches
 
 
-def decode_step(params, token, caches, pos: int, cfg: ModelConfig,
+def decode_step(params, token, caches, pos, cfg: ModelConfig,
                 policy: CompressionPolicy = NO_POLICY, compress: bool = True,
                 pad_len=None, wire: bool = False):
-    """token: (B,) int; ``pos``: the new token's index (same for every
-    row).  Returns (logits (B, V), caches) — the caches updated IN PLACE.
-    ``pad_len``: optional (B,) left-padding lengths (see prefill)."""
+    """token: (B,) int; ``pos``: the new token's index, an int (the same
+    for every row) or a (B,) tensor of per-slot positions (continuous
+    batching).  Returns (logits (B, V), caches) — the caches updated IN
+    PLACE.  ``pad_len``: optional (B,) left-padding lengths (see
+    prefill)."""
     kinds = cfg.layer_kinds()
     beval = boundary_wire_eval if wire else boundary_eval
     x = params["embed"][token][:, None].to(DTYPE)
@@ -403,3 +408,44 @@ def decode_step(params, token, caches, pos: int, cfg: ModelConfig,
         if si < len(segs) - 1:
             x = beval(policy.at(si), x, compress)
     return _lm_logits(params, x, cfg)[:, 0], caches
+
+
+def decode_span(params, tokens, caches, pos, cfg: ModelConfig,
+                policy: CompressionPolicy = NO_POLICY, compress: bool = True,
+                pad_len=None, page_map=None, valid_len=None,
+                wire: bool = True):
+    """Multi-token decode: ``tokens`` (B, T) at absolute positions
+    ``pos[b] + arange(T)`` (``pos``: a (B,) tensor).  K/V of all T tokens
+    are written into the caches IN PLACE and logits come back for every
+    position, (B, T, V).
+
+    One function serves a chunked prefill (B = 1, T = chunk, ``valid_len``
+    masking the padded tail of the last chunk) and a speculative
+    verification (B = slots, T = k + 1).  ``caches``: the slab layout
+    (leaves (G, B, C, ...)) or, with ``page_map`` (B, n_pages), a page pool
+    (leaves (G, N, P, ...)); see attention.attn_decode_span.
+
+    The cuts pack per (request, token) (boundary_wire_eval_tokens), the
+    payload granularity of a T = 1 decode tick.  Compression goes through
+    the wire codecs only: ``compress`` without ``wire`` raises, as in the
+    reference.
+    """
+    if compress and not wire:
+        raise NotImplementedError(
+            "decode_span compresses through the wire codecs only "
+            "(wire=True) — the serve engines never use the in-process "
+            "boundary at decode time")
+    kinds = cfg.layer_kinds()
+    x = params["embed"][tokens].to(DTYPE)                     # (B, T, d)
+    segs = segment_bounds(cfg.num_groups, policy.num_stages)
+    for si, (g0, g1) in enumerate(segs):
+        for g in range(g0, g1):
+            gp, cache = _group(params["layers"], g), _group(caches, g)
+            for i, kind in enumerate(kinds):
+                x, _ = B.block_decode_span(
+                    gp[f"b{i}"], x, cache[f"b{i}"], pos, cfg, kind,
+                    pad_len=pad_len, page_map=page_map,
+                    valid_len=valid_len)
+        if si < len(segs) - 1:
+            x = boundary_wire_eval_tokens(policy.at(si), x, compress)
+    return _lm_logits(params, x, cfg), caches

@@ -17,6 +17,7 @@ from repro_torch.core.policy import POLICIES
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.models import transformer
+from repro_torch.serve.engine import ContinuousEngine
 from repro_torch.train.loop import (pretrain_lm, run_cnn_experiment,
                                     run_lm_experiment)
 
@@ -80,6 +81,17 @@ def test_entry_points_without_device_ask_for_cuda(no_cuda):
         transformer.init_caches(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="cuda"):
         tserve.main(["--smoke", "--batch", "1", "--new-tokens", "2"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tserve.main(["--smoke", "--engine", "static", "--batch", "1",
+                     "--new-tokens", "2"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tserve.main(["--smoke", "--engine", "continuous", "--prefix-cache",
+                     "--requests", "1"])
+    params = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ContinuousEngine(params, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ContinuousEngine(params, cfg, prefill_chunk=8)
     with pytest.raises(RuntimeError, match="cuda"):
         ttrain.main(["--smoke", "--steps", "1", "--batch", "1"])
     with pytest.raises(RuntimeError, match="cuda"):

@@ -29,6 +29,7 @@ compared.
 """
 import contextlib
 import dataclasses
+import json
 
 import numpy as np
 import jax
@@ -246,7 +247,38 @@ def test_launch_serve_main_cpu(policy, capsys):
 @pytest.mark.parametrize("argv", [["--engine", "continuous"],
                                   ["--temperature", "0.7"],
                                   ["--prefix-cache"],
-                                  ["--arch", "mixtral-8x7b"]])
+                                  ["--prefill-chunk", "8", "--shared-prefix",
+                                   "12", "--eos", "3"],
+                                  ["--draft", "gpt2-small", "--spec-k", "3"]])
+def test_launch_serve_continuous_cpu(argv, capsys):
+    """The continuous engine is the launcher's default; sampling, the
+    paged cache and speculation run through it."""
+    assert tserve.main(["--smoke", "--device", "cpu", "--policy", "top10",
+                        "--requests", "5", "--slots", "2", "--prompt-len",
+                        "12", "--new-tokens", "5", *argv]) == 0
+    out = capsys.readouterr().out
+    rec = json.loads(out.splitlines()[0])
+    assert rec["engine"] == "continuous" and rec["completed"] == 5
+    assert rec["device"] == "cpu" and rec["tok_per_s"] > 0
+    if "--prefix-cache" in argv or "--draft" in argv:
+        assert rec["active_pages"] == 0
+
+
+@pytest.mark.parametrize("argv", [["--temperature", "0.7"],
+                                  ["--prefix-cache"],
+                                  ["--draft", "gpt2-small"]])
+def test_launch_serve_static_refuses_continuous_flags(argv, capsys):
+    with pytest.raises(SystemExit) as e:
+        tserve.main(["--smoke", "--device", "cpu", "--engine", "static",
+                     *argv])
+    assert e.value.code == 2
+    assert "--engine continuous" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [["--arch", "mixtral-8x7b"],
+                                  ["--trace", "t.jsonl"],
+                                  ["--perfetto", "t.json"],
+                                  ["--metrics", "4"]])
 def test_launch_serve_refuses_what_is_not_ported(argv, capsys):
     with pytest.raises(SystemExit) as e:
         tserve.main(["--smoke", "--device", "cpu", *argv])
