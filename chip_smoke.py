@@ -213,9 +213,41 @@ failure fatal:
      profiled drains their idle share.  Phase 2 holds the q4 pair and the
      select bit-exact at the per-token cut shapes (4, 768), (16, 768)
      and (20, 768) and times them (``cs_kernels``).
- 12. one ``{"kernels": [...]}`` line (launches summed over phases 3-11;
+ 12. telemetry (launch counters set to 0 just before and read just
+     after), full-width gpt2-small, seed-0 weights, in this process
+     through the launchers' ``main(argv)``: (a) ``launch/train --feedback
+     aqsgd --k-frac 0.1 --steps 4 --batch 8 --seq 128`` without, with
+     ``--trace --perfetto --metrics 2``, and without again: 4
+     ``train.step`` spans, the quality tap's ``quality.boundary{0,1,2}``
+     counters and ``quality.codec.*`` instants at steps 2 and 4 and
+     ``quality.feedback_norms`` keyed ``[i]['fw'].resid``; launches exact
+     (the run's, plus the tap's: 2 samples x the boundaries' compressing
+     fw and bw compressors), the losses bitwise those of the untraced
+     runs, the wall time of steps 2-4 of each run printed; (b)
+     ``--mesh data=2,stage=4 --wire data=q8 --policy q4q8 --steps 2``
+     (32 x 128, 4 microbatches) and (c) ``--mesh tensor=2 --wire tensor=q8
+     --steps 2`` with ``--trace``: ``pipeline.wire`` / ``dp.wire`` /
+     ``tp.wire`` twice each (the reference's count: the step's first
+     input key, then its own outputs'), their args those of
+     ``wire_telemetry``, ``dp_wire_report`` on the whole stack and
+     ``tp_wire_report``; (d) ``launch/serve`` paged top10 with
+     ``--prefix-cache --prefill-chunk 16 --shared-prefix 48 --trace
+     --perfetto --metrics 2``: a ``serve.request_done`` per request after
+     the warm-up, ``serve.sched`` / ``serve.pages`` on every tick of the
+     every-2 grid, prefix hits, and the mean ``serve.prefill`` /
+     ``serve.decode`` span of the served requests (the TTFT split); (e)
+     ``run_lm_experiment`` 2 epochs of 2 steps of 8 x 128 under
+     ``q8@bandwidth>=1e9;q4``, the probe giving the real ``probe_mesh(
+     {"data": 4})`` reading before epoch 0 and a scripted 1e6 bytes/s
+     before epoch 1: the policy curve [q8, q4], one ``policy.flip``,
+     launches per epoch exact, and the probe's bytes/s printed as the
+     card's one-hop copy rate.  Every JSONL passes ``validate_jsonl`` and
+     every Chrome file loads with its ``traceEvents``.  Phase 2's
+     library rows count the library call's launches from the profile's
+     host side, and print ``LOST`` where its device records fall short.
+ 13. one ``{"kernels": [...]}`` line (launches summed over phases 3-12;
      the select kernels timed at the 38.6 M-element DP leaf), then the
-     ``{"ok": true, ...}`` line.  Every number's line of phases 8-11
+     ``{"ok": true, ...}`` line.  Every number's line of phases 8-12
      carries the card's name and power limit.
 
 Every profiled step of phases 3-11 records the card's activity only and
@@ -560,7 +592,6 @@ def log(*a):
     print(*a, flush=True)
 
 
-
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
@@ -602,7 +633,15 @@ def device_records(prof):
     return [(ms, key) for key, ms in by_name.items()]
 
 
-def device_ms(torch, fn, kernel=None, iters=20, warm=True, profiles=1):
+# the host-side CUDA calls that each put one op on the card: what a library
+# call launches, which no launch counter of the wrappers sees
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
+                 "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def device_ms(torch, fn, kernel=None, iters=20, warm=True, profiles=1,
+              host_launches=False):
     """Device time per call of everything ``fn`` launches (torch.profiler),
     of the kernels whose name contains ``kernel``, the number of device
     ops (kernels, copies, memsets) a call, and whether records were lost.
@@ -618,7 +657,11 @@ def device_ms(torch, fn, kernel=None, iters=20, warm=True, profiles=1):
     a call is kept; while that is fewer than the wrapper launches a call
     (``_build.LAUNCHES``, counted over the profiled calls) it is profiled
     again, up to 3 more times, and is reported lost if still short.  A
-    profile that sees no device time counts as short."""
+    profile that sees no device time counts as short.  ``host_launches``:
+    the launches a call makes are also counted from the profile's host
+    side (``HOST_LAUNCHES`` a call), for a library call that no counter
+    sees.  Returns ``(ms, kernel ms, device ops a call, lost, launches a
+    call)``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.kernels import _build
@@ -639,24 +682,29 @@ def device_ms(torch, fn, kernel=None, iters=20, warm=True, profiles=1):
         launched = max(launched, round((sum(_build.LAUNCHES.values())
                                         - before) / (2 * iters)))
         total = mine = 0.0
-        ops = 0
+        ops = host = 0
         for ev in prof.key_averages():
             runs = round(ev.count / iters)
-            if ev.device_type != DeviceType.CUDA or not runs:
+            if ev.device_type != DeviceType.CUDA:
+                if host_launches and ev.key in HOST_LAUNCHES:
+                    host += runs
+                continue
+            if not runs:
                 continue
             ms = ev.self_device_time_total / 1e3 / ev.count * runs
             total += ms
             mine += ms if kernel and kernel in ev.key else 0.0
             ops += runs
+        launched = max(launched, host)
         if total > 0 and (best is None or ops > best[2]):
             best = (total, mine, ops)
         if (attempt + 1 >= profiles and best is not None
                 and best[2] >= launched):
-            return best + (False,)
+            return best + (False, launched)
     if best is None:
         raise AssertionError(f"torch.profiler saw no device time in "
                              f"{profiles + 3} profiles")
-    return best + (True,)
+    return best + (True, launched)
 
 
 def bound_ms(nbytes, nops):
@@ -964,21 +1012,31 @@ def time_cases(torch, D, cases):
         it = scaled_iters(torch, fn)
         row = dict(zip(("ms", "kernel_only_ms", "device_ops", "lost"),
                        device_ms(torch, fn, kernel, min(it, 20), warm=False,
-                                 profiles=2)))
+                                 profiles=2)[:4]))
         row["call_ms"] = call_ms(torch, fn, it, warm=False)
         D.KERNEL_BACKEND = "plain"
         try:
             it = scaled_iters(torch, fn)
-            row["plain_ms"], _, _, lost = device_ms(
+            row["plain_ms"], _, _, lost, _ = device_ms(
                 torch, fn, iters=min(it, 20), warm=False)
             row["plain_call_ms"] = call_ms(torch, fn, min(it, 10), warm=False)
         finally:
             D.KERNEL_BACKEND = "auto"
         row["library_ms"] = None
         if lib is not None:
-            row["library_ms"], _, _, lost_lib = device_ms(
-                torch, lib, iters=min(scaled_iters(torch, lib), 20),
-                warm=False)
+            # the library call's launches come from the profile's host
+            # side: a profile that lost device records reads LOST (its
+            # time kept apart), never a low time
+            it = min(scaled_iters(torch, lib), 20)
+            ms, _, ops, lost_lib, host = device_ms(
+                torch, lib, iters=it, warm=False, profiles=2,
+                host_launches=True)
+            row.update(library_device_ops=ops, library_launches=host,
+                       library_call_ms=call_ms(torch, lib, it, warm=False))
+            if lost_lib:
+                row["library_lost_ms"] = ms
+            else:
+                row["library_ms"] = ms
             lost = lost or lost_lib
         row["lost"] = row["lost"] or lost
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, nops)
@@ -4306,6 +4364,404 @@ def cs_launchers(params, smi):
                     "acceptance_rate") if x in recs[0]}}))
 
 
+# ---------------------------------------------------------------------------
+# phase 12: telemetry (trace, export, quality tap, probe-driven flip)
+# ---------------------------------------------------------------------------
+
+# (a) the simulated cuts with the quality tap, (b) pipeline x DP, (c) the
+# tensor axis, through launch/train; (d) paged serving through
+# launch/serve; (e) run_lm_experiment's probe-driven flip.  Full width,
+# seed-0 weights.
+TEL_TRAIN = ["--feedback", "aqsgd", "--k-frac", "0.1", "--steps", "4",
+             "--batch", "8", "--seq", "128", "--log-every", "1"]
+TEL_METRICS = 2                # tap samples at steps 2 and 4
+TEL_PD = ["--mesh", "data=2,stage=4", "--wire", "data=q8", "--policy",
+          "q4q8", "--steps", "2", "--batch", "32", "--seq", "128",
+          "--pipeline-microbatches", "4", "--log-every", "1"]
+TEL_TP = ["--mesh", "tensor=2", "--wire", "tensor=q8", "--steps", "2",
+          "--batch", "8", "--seq", "128", "--log-every", "1"]
+TEL_SERVE = ["--policy", "top10", "--prefix-cache", "--prefill-chunk", "16",
+             "--shared-prefix", "48", "--metrics", "2"]
+TEL_FLIP_RULES = "q8@bandwidth>=1e9;q4"
+# 2 steps of 8 x 128 an epoch, 1 test batch
+TEL_FLIP_DATA = dict(num_train=16, num_test=8, seq_len=128, seed=0)
+TEL_FLIP_BATCH = 8
+TEL_LOW_BW = 1e6               # the scripted epoch-1 reading, bytes/s
+
+
+def run_main(main, argv):
+    """A launcher's ``main(argv)`` in this process: its exit code and its
+    stdout (the trace lines are logged)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    for ln in out.splitlines():
+        if ln.startswith(("# trace:", "# perfetto:")):
+            log(ln)
+    if rc != 0:
+        raise AssertionError(f"{argv} exited {rc}: {out[-2000:]}")
+    return out
+
+
+def read_trace(jsonl, chrome=None):
+    """A trace file's events after its schema check; the Chrome file, when
+    given, must load with as many ``traceEvents``."""
+    from repro_torch.obs.export import validate_jsonl
+    n = validate_jsonl(jsonl)
+    with open(jsonl) as f:
+        ev = [json.loads(ln) for ln in f if ln.strip()]
+    assert len(ev) == n, (jsonl, n, len(ev))
+    if chrome is not None:
+        with open(chrome) as f:
+            doc = json.load(f)
+        if len(doc["traceEvents"]) != n:
+            raise AssertionError(f"{chrome}: {len(doc['traceEvents'])} "
+                                 f"events, the JSONL {n}")
+    return ev
+
+
+def codec_kernels(policy):
+    """Kernel launches of one C(x) pass over every boundary's fw and bw
+    compressors (what a quality-tap sample, or a simulated step's cuts,
+    launch)."""
+    n = dict.fromkeys(KERNELS, 0)
+    for i in range(policy.num_boundaries):
+        for comp in (policy.at(i).fw, policy.at(i).bw):
+            if comp.kind == "quant":
+                n["quant_dequant"] += 1
+            elif comp.kind == "topk":
+                n["topk_block"] += 1
+    return n
+
+
+def launch_delta(build, before):
+    return {k: build.LAUNCHES.get(k, 0) - before.get(k, 0) for k in KERNELS}
+
+
+def tel_train(torch, build, smi, tmp, base, card):
+    """(a) ``launch/train`` AQ-SGD with and without ``--trace --perfetto
+    --metrics``: the events, exact launches (the run's plus the tap's),
+    the same losses bitwise, and the wall time of steps 2-4 of each."""
+    from repro_torch.launch import train as lt
+    real = lt.make_lm_train_step
+    rec = {}
+
+    def timed(*a, **k):
+        step = real(*a, **k)
+
+        def run(*args):
+            t0 = time.perf_counter()
+            out = step(*args)
+            loss = out[-1]["loss"].item()          # waits for the device
+            rec.setdefault("steps", []).append(
+                (t0, time.perf_counter(), loss))
+            return out
+        return run
+
+    policy = lt.build_policy("none", "aqsgd", 0.1)
+    per = codec_kernels(policy)
+    steps = int(TEL_TRAIN[TEL_TRAIN.index("--steps") + 1])
+    samples = steps // TEL_METRICS
+    jsonl, chrome = os.path.join(tmp, "a.jsonl"), os.path.join(tmp, "a.json")
+    flags = ["--trace", jsonl, "--perfetto", chrome, "--metrics",
+             str(TEL_METRICS)]
+    runs = {}
+    lt.make_lm_train_step = timed
+    try:
+        for name, extra in (("plain", []), ("traced", flags),
+                            ("plain again", [])):
+            rec.clear()
+            before = dict(build.LAUNCHES)
+            out = run_main(lt.main, base + TEL_TRAIN + extra)
+            runs[name] = {"launches": launch_delta(build, before),
+                          "losses": [s[2] for s in rec["steps"]],
+                          "lines": _loss_lines([json.loads(ln) for ln in
+                                                out.splitlines()
+                                                if ln.startswith("{")]),
+                          "steps_2_4_s": rec["steps"][-1][1]
+                          - rec["steps"][1][0]}
+    finally:
+        lt.make_lm_train_step = real
+    for name in ("traced", "plain again"):
+        if (runs[name]["losses"] != runs["plain"]["losses"]
+                or runs[name]["lines"] != runs["plain"]["lines"]):
+            raise AssertionError(f"(a) {name}: losses {runs[name]['losses']}"
+                                 f" != {runs['plain']['losses']}")
+    want = {k: steps * v for k, v in per.items()}
+    tap = {k: samples * v for k, v in per.items()}
+    if card:
+        for name in ("plain", "plain again"):
+            assert runs[name]["launches"] == want, (name, runs[name], want)
+        got = runs["traced"]["launches"]
+        if got != {k: want[k] + tap[k] for k in KERNELS}:
+            raise AssertionError(f"(a) traced launches {got}, want the "
+                                 f"run's {want} + the tap's {tap}")
+    ev = read_trace(jsonl, chrome)
+    keys = [f"[{i}]['fw'].resid" for i in range(policy.num_boundaries)]
+    quality = [n for b in range(policy.num_boundaries)
+               for n in (f"quality.boundary{b}", f"quality.codec.boundary{b}")
+               ] + ["quality.feedback_norms"]
+    names = []
+    for s in range(1, steps + 1):
+        names.append("train.step")
+        if s % TEL_METRICS == 0:
+            names += quality
+    if [e["name"] for e in ev] != names:
+        raise AssertionError(f"(a) events {[e['name'] for e in ev]}")
+    for e in ev:
+        if e["name"] == "train.step":
+            assert e["ph"] == "X" and e["args"]["loss"] == round(
+                runs["traced"]["losses"][e["args"]["step"] - 1], 6), e
+        elif e["name"] == "quality.feedback_norms":
+            assert list(e["args"]) == keys, e
+            assert all(v > 0 and math.isfinite(v)
+                       for v in e["args"].values()), e
+        elif e["name"].startswith("quality.codec"):
+            assert e["args"]["step"] % TEL_METRICS == 0, e
+            assert (e["args"]["fw_codec"], e["args"]["bw_codec"]) == (
+                policy.at(0).fw.name, policy.at(0).bw.name), e
+        else:
+            assert all(0 < v < 1 for v in e["args"].values()), e
+    log("# telemetry (a) " + json.dumps({
+        "card": smi, "events": len(ev),
+        "launches": {n: {k: v for k, v in r["launches"].items() if v}
+                     for n, r in runs.items()},
+        "tap_launches": {k: v for k, v in tap.items() if v},
+        "losses": runs["traced"]["losses"],
+        "norms_step_4": ev[-1]["args"],
+        "rel_err_step_4": [e["args"] for e in ev
+                           if e["name"].startswith("quality.boundary")][-3:],
+        "steps_2_4_s": {n: r["steps_2_4_s"] for n, r in runs.items()}}))
+
+
+def tel_wire(torch, smi, tmp, base, dev, cfg):
+    """(b) pipeline x DP and (c) the tensor axis through ``launch/train
+    --trace``: each wire event as many times as the reference (twice in 2
+    steps: the step's first key, then its own outputs') with the args of
+    ``wire_telemetry`` / ``dp_wire_report`` / ``tp_wire_report``."""
+    from repro_torch.core.policy import POLICIES
+    from repro_torch.launch import train as lt
+    from repro_torch.models import transformer
+    from repro_torch.train.steps import _uniform_boundary
+    from repro_torch.transport.codecs import LeafStruct, payload_leaves
+    from repro_torch.transport.collectives import dp_wire_report
+    from repro_torch.transport.pipeline import (PipelineTransport,
+                                                wire_telemetry)
+    from repro_torch.transport.schedules import get_schedule
+    from repro_torch.transport.tp_collectives import TPCollectives
+
+    def opt(argv, flag):
+        return argv[argv.index(flag) + 1]
+
+    for name, argv in (("pipeline x DP", TEL_PD), ("tensor", TEL_TP)):
+        path = os.path.join(tmp, f"{name[:2]}.jsonl")
+        run_main(lt.main, base + argv + ["--trace", path])
+        ev = read_trace(path)
+        steps = int(opt(argv, "--steps"))
+        batch, seq = int(opt(argv, "--batch")), int(opt(argv, "--seq"))
+        axes = dict(kv.split("=") for kv in opt(argv, "--mesh").split(","))
+        if name == "tensor":
+            tp = int(axes["tensor"])
+            want = {"tp.wire": {
+                "axis": "tensor", "feedback": "none", "fused": True,
+                "launches_per_hop": 1,
+                **TPCollectives(tp, codec="q8").wire_report(
+                    (batch, seq, cfg.d_model),
+                    sites=transformer.tp_sites(cfg),
+                    dtype=transformer.DTYPE)}}
+        else:
+            dp, stages = int(axes["data"]), int(axes["stage"])
+            mb = int(opt(argv, "--pipeline-microbatches"))
+            bp = _uniform_boundary(POLICIES[opt(argv, "--policy")]())
+            sched = get_schedule("gpipe", 1)
+            params = transformer.init_params(
+                torch.Generator(device=dev).manual_seed(0), cfg)
+            g_like = [LeafStruct(tuple(a.shape), a.dtype) for a in
+                      payload_leaves(transformer.stack_layer_stages(
+                          params, stages))]
+            rep = dp_wire_report(g_like, "q8", k_frac=0.1, dp=dp)
+            want = {
+                "pipeline.wire": wire_telemetry(
+                    PipelineTransport(bp, stages, fused=sched.fused_wire),
+                    sched, (batch // (dp * mb), seq, cfg.d_model),
+                    microbatches=mb, dp=dp),
+                "dp.wire": {"axis": "data", "feedback": "none",
+                            "fused": True, "shard_axis": "stage",
+                            "launches_per_hop": 1, **rep}}
+            del params
+        wire = [e for e in ev if e["cat"] == "wire"]
+        # the reference's count: a first key, then the step's own outputs
+        count = min(steps, 2)
+        got_names = [e["name"] for e in wire]
+        if sorted(got_names) != sorted(list(want) * count):
+            raise AssertionError(f"({name}) wire events {got_names}")
+        for e in wire:
+            if e["args"] != want[e["name"]]:
+                raise AssertionError(f"({name}) {e['name']} {e['args']} != "
+                                     f"{want[e['name']]}")
+        assert sum(e["name"] == "train.step" for e in ev) == steps, ev
+        log(f"# telemetry ({'b' if name != 'tensor' else 'c'}) " + json.dumps(
+            {"run": name, "card": smi, "events": len(ev),
+             "wire_events": got_names, **want}))
+
+
+def tel_serve(smi, tmp, base):
+    """(d) ``launch/serve`` paged top10 with ``--trace --perfetto
+    --metrics 2``: a ``request_done`` per request, ``serve.sched`` /
+    ``serve.pages`` on the ticks of the ``metrics_every`` grid, and the
+    mean ``serve.prefill`` / ``serve.decode`` span of the served requests
+    (the TTFT split)."""
+    from repro_torch.launch import serve as ls
+    from repro_torch.obs import trace
+    from repro_torch.serve.engine import ContinuousEngine
+    every = int(TEL_SERVE[TEL_SERVE.index("--metrics") + 1])
+    jsonl, chrome = os.path.join(tmp, "d.jsonl"), os.path.join(tmp, "d.json")
+    seen = {"on_grid": 0, "warm_events": None}
+    step, warmup = ContinuousEngine.step, ContinuousEngine.warmup
+
+    def counted_step(self):
+        out = step(self)
+        seen["on_grid"] += self.ticks % self.metrics_every == 0
+        return out
+
+    def marked_warmup(self):
+        out = warmup(self)
+        seen["warm_events"] = len(trace.get_tracer().snapshot())
+        return out
+
+    ContinuousEngine.step, ContinuousEngine.warmup = (counted_step,
+                                                      marked_warmup)
+    try:
+        out = run_main(ls.main, base + TEL_SERVE + ["--trace", jsonl,
+                                                    "--perfetto", chrome])
+    finally:
+        ContinuousEngine.step, ContinuousEngine.warmup = step, warmup
+    rec = json.loads([ln for ln in out.splitlines()
+                      if ln.startswith("{")][0])
+    ev = read_trace(jsonl, chrome)
+    served = ev[seen["warm_events"]:]
+    count = {n: sum(e["name"] == n for e in ev)
+             for n in ("serve.request_done", "serve.sched", "serve.pages",
+                       "serve.prefill", "serve.decode")}
+    done = sum(e["name"] == "serve.request_done" for e in served)
+    if done != rec["requests"] or rec["completed"] != rec["requests"]:
+        raise AssertionError(f"(d) {done} request_done after the warm-up "
+                             f"for {rec['requests']} requests")
+    if not count["serve.sched"] == count["serve.pages"] == seen["on_grid"]:
+        raise AssertionError(f"(d) counters {count} for {seen['on_grid']} "
+                             f"ticks on the every-{every} grid")
+    if not (count["serve.prefill"] and count["serve.decode"]):
+        raise AssertionError(f"(d) spans {count}")
+    pages = [e["args"] for e in served if e["name"] == "serve.pages"]
+    if not pages[-1]["prefix_hits"]:
+        raise AssertionError(f"(d) no prefix hit: {pages[-1]}")
+    split = {}
+    for n in ("serve.prefill", "serve.decode"):
+        ms = [e["dur_us"] / 1e3 for e in served if e["name"] == n]
+        split[n] = {"spans": len(ms), "mean_ms": sum(ms) / len(ms),
+                    "total_ms": sum(ms)}
+    log("# telemetry (d) " + json.dumps({
+        "card": smi, "events": len(ev), "counts": count,
+        "ticks_on_grid": seen["on_grid"], "served_split": split,
+        "mean_ttft_s": rec["mean_ttft_s"], "tok_per_s": rec["tok_per_s"],
+        "last_pages": pages[-1]}))
+
+
+def tel_flip(torch, build, smi, dev, card, cfg):
+    """(e) ``run_lm_experiment`` for 2 epochs under ``q8@bandwidth>=1e9;
+    q4``: the real ``probe_mesh({"data": 4})`` reading before epoch 0 (the
+    card's one-hop copy rate, far above 1e9 bytes/s), a scripted 1e6
+    before epoch 1.  One ``policy.flip``, the policy curve [q8, q4], exact
+    launches per epoch (the test batch's compressed eval on top of epoch
+    1's)."""
+    from repro_torch.core.policy import parse_policy_rules, resolve_policy
+    from repro_torch.data.synthetic import LMData
+    from repro_torch.obs import trace
+    from repro_torch.obs.probes import probe_mesh
+    from repro_torch.train.loop import run_lm_experiment
+    data = LMData(**TEL_FLIP_DATA)
+    rules = parse_policy_rules(TEL_FLIP_RULES)
+    marks, readings = [], []
+
+    def probe():
+        marks.append(dict(build.LAUNCHES))
+        r = (probe_mesh({"data": 4}, device=dev) if not readings
+             else TEL_LOW_BW)
+        readings.append(r)
+        return r
+
+    tr = trace.enable()
+    try:
+        res = run_lm_experiment(cfg, rules, epochs=2, batch=TEL_FLIP_BATCH,
+                                data=data, bandwidth_probe=probe,
+                                device=dev)
+        ev = [e.to_dict() for e in tr.drain()]
+    finally:
+        trace.disable()
+    end = dict(build.LAUNCHES)
+    bsize = data.seq_len * cfg.d_model
+    hop = readings[0]["data"]
+    pols = [resolve_policy(rules, bsize, bandwidth=hop.bytes_per_s),
+            resolve_policy(rules, bsize, bandwidth=TEL_LOW_BW)]
+    if res.policy_curve != [p.name for p in pols] or pols[0] == pols[1]:
+        raise AssertionError(f"(e) policy curve {res.policy_curve}")
+    flips = [e["args"] for e in ev if e["name"] == "policy.flip"]
+    if flips != [{"epoch": 1, "bandwidth": TEL_LOW_BW,
+                  "old": pols[0].name, "new": pols[1].name}]:
+        raise AssertionError(f"(e) flips {flips}")
+    steps = data.num_train // TEL_FLIP_BATCH
+    test_batches = data.num_test // TEL_FLIP_BATCH
+    got = [{k: marks[1].get(k, 0) - marks[0].get(k, 0) for k in KERNELS},
+           {k: end.get(k, 0) - marks[1].get(k, 0) for k in KERNELS}]
+    want = [{k: steps * v for k, v in codec_kernels(pols[0]).items()}]
+    evals = {k: 0 for k in KERNELS}
+    for i in range(pols[1].num_boundaries):        # compressed eval: fw
+        evals["quant_dequant" if pols[1].at(i).fw.kind == "quant"
+              else "topk_block"] += test_batches
+    want.append({k: steps * v + evals[k]
+                 for k, v in codec_kernels(pols[1]).items()})
+    if card and got != want:
+        raise AssertionError(f"(e) launches per epoch {got}, want {want}")
+    assert sum(e["name"] == "train.step" for e in ev) == 2 * steps, ev
+    log("# telemetry (e) " + json.dumps({
+        "card": smi, "policy_curve": res.policy_curve, "flip": flips[0],
+        "launches_per_epoch": [{k: v for k, v in g.items() if v}
+                               for g in got],
+        "losses": res.train_curve, "loss_on": res.loss_on,
+        "loss_off": res.loss_off,
+        "probe": {a: m.to_dict() for a, m in readings[0].items()}}))
+    log("# telemetry probe: the card's one-hop copy rate as one of 4 lanes "
+        f"sees it, {hop.bytes_per_s:.6g} bytes/s ({hop.payload_bytes} bytes "
+        f"a lane in {hop.seconds:.6g} s, best of 3; {smi})")
+
+
+def telemetry(torch, D, build, smi, dev="cuda", base=()):
+    """Phase 12: telemetry through both launchers, the engine and the
+    probe-driven flip, launch counters set to 0 just before and read just
+    after.  ``dev`` / ``base`` let a rehearsal run it on the CPU at smoke
+    size (``base``: the launchers' extra flags).  Returns the phase's
+    launches."""
+    import tempfile
+    from repro_torch.configs.registry import get
+    base = list(base)
+    card = dev == "cuda"
+    cfg = get("gpt2-small", smoke="--smoke" in base)
+    t0 = time.perf_counter()
+    build.reset_launches()                  # the phase 12 paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        tel_train(torch, build, smi, tmp, base, card)
+        tel_wire(torch, smi, tmp, base, dev, cfg)
+        tel_serve(smi, tmp, base)
+    tel_flip(torch, build, smi, dev, card, cfg)
+    if card:
+        torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}  # read here
+    log(f"# phase 12 launches {launches} ({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
 def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -4434,13 +4890,18 @@ def main() -> int:
     for label, rows in timed.items():
         for name, row in ({"decode_sum_fused": rows} if "ms" in rows
                           else rows).items():
-            if row["lost"]:
+            if "library_lost_ms" in row:
+                log(f"# LOST library call of {name} {label}: its profiles "
+                    f"recorded {row['library_device_ops']} device ops a "
+                    f"call of the {row['library_launches']} it launches; "
+                    "its time is not to be used")
+            elif row["lost"]:
                 log(f"# LOST {name} {label}: its profiles recorded "
                     f"{row['device_ops']} device ops a call, fewer than "
                     f"the launches; its times are not to be used")
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
-    # -- phases 3-11: each main path, its counts set to 0 just before it and
+    # -- phases 3-12: each main path, its counts set to 0 just before it and
     # read just after; the kernels line sums them
     paths = []
     for phase, run in ((3, lambda: serve(torch, np, D, _build)),
@@ -4451,7 +4912,8 @@ def main() -> int:
                        (8, lambda: pipeline_dp(torch, D, _build, smi)),
                        (9, lambda: train_state(torch, D, _build, smi)),
                        (10, lambda: tensor_axis(torch, D, _build, smi)),
-                       (11, lambda: continuous(torch, np, D, _build, smi))):
+                       (11, lambda: continuous(torch, np, D, _build, smi)),
+                       (12, lambda: telemetry(torch, D, _build, smi))):
         paths.append(run())
         log(f"# phase {phase} done at {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
@@ -4459,7 +4921,7 @@ def main() -> int:
         if not v:
             raise AssertionError(f"{k} was launched on no main path")
 
-    # -- phase 12 -----------------------------------------------------------
+    # -- phase 13 -----------------------------------------------------------
     line = []
     for name, (src, replaces) in KERNELS.items():
         row = (timed[DPQ8] if name in DP_KERNELS else

@@ -24,8 +24,19 @@ wire payload.  Runs on ``cuda`` unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \\
       --engine continuous --policy top10 --draft gpt2-small --spec-k 4
 
-Tracing (``--trace``, ``--perfetto``, ``--metrics``) is not ported yet and
-exits with an error saying so.
+  # telemetry: the JSONL event log and a Chrome trace of a paged run,
+  # scheduler / page-pool counters every 2 ticks
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \\
+      --smoke --device cpu --policy top10 --prefix-cache \\
+      --prefill-chunk 16 --shared-prefix 48 --trace /tmp/s.jsonl \\
+      --perfetto /tmp/s.json --metrics 2
+
+``--trace PATH`` turns tracing on and writes the JSONL event log there
+(``obs/export.py``'s schema), ``--perfetto PATH`` a Chrome-trace file;
+``--metrics N`` sets how often (in ticks) the continuous engine emits its
+scheduler and page-pool counters while tracing is on.  The events are
+those of ``serve/engine.py``'s ``ContinuousEngine``: warm-up included,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -42,12 +53,11 @@ from repro_torch.configs.registry import ARCHS, get
 from repro_torch.core.policy import POLICIES
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.export import to_chrome_trace, to_jsonl
 from repro_torch.serve.engine import (ContinuousEngine, Request, ServeEngine,
                                       left_pad_unsupported)
 from repro_torch.serve.sampling import SamplingConfig
-
-# Flags of the reference launcher that belong to features not ported yet.
-NOT_PORTED = ("--trace", "--perfetto", "--metrics")
 
 
 def zipf_lengths(rng, n, lo, hi, a=1.6):
@@ -105,8 +115,33 @@ def _parser() -> argparse.ArgumentParser:
                          "prefix of this many tokens to every request")
     ap.add_argument("--ckpt", default=None, help="restore params from npz")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="enable telemetry and write the JSONL event log "
+                         "here (obs/export.py schema; default: tracing "
+                         "off, zero overhead)")
+    ap.add_argument("--perfetto", default=None, metavar="PATH",
+                    help="also write a Chrome-trace JSON loadable at "
+                         "ui.perfetto.dev / chrome://tracing")
+    ap.add_argument("--metrics", type=int, default=1, metavar="N",
+                    help="continuous engine: emit scheduler/page-pool "
+                         "counters every N ticks when tracing is on "
+                         "(default 1)")
     ap.add_argument("--device", default="cuda")
     return ap
+
+
+def _export_trace(args) -> None:
+    """Drain the tracer into the requested --trace / --perfetto files."""
+    tr = obs_trace.get_tracer()
+    if tr is None:
+        return
+    events = tr.drain()
+    if args.trace:
+        print(f"# trace: {to_jsonl(events, args.trace)} events "
+              f"-> {args.trace} (dropped {tr.dropped})", flush=True)
+    if args.perfetto:
+        print(f"# perfetto: {to_chrome_trace(events, args.perfetto)} "
+              f"events -> {args.perfetto}", flush=True)
 
 
 def _init(cfg, seed, dev):
@@ -116,14 +151,18 @@ def _init(cfg, seed, dev):
 
 def main(argv=None) -> int:
     ap = _parser()
-    args, rest = ap.parse_known_args(argv)
-    for flag in rest:
-        if flag.split("=")[0] in NOT_PORTED:
-            ap.error(f"{flag.split('=')[0]} is not yet ported to repro_torch "
-                     "(tracing is not ported)")
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = ap.parse_args(argv)
+    if not (args.trace or args.perfetto):
+        return _serve(ap, args)
+    obs_trace.enable()
+    try:
+        return _serve(ap, args)
+    finally:
+        obs_trace.disable()
 
+
+def _serve(ap, args) -> int:
+    """:func:`main` after the parse."""
     cfg = get(args.arch, smoke=args.smoke)
     try:
         transformer.check_supported(cfg)
@@ -185,6 +224,7 @@ def main(argv=None) -> int:
         for i, r in enumerate(done[: min(4, len(done))]):
             print(f"# req{i}: prompt[-4:]={r.prompt[-4:].tolist()} "
                   f"-> out[:8]={r.out[:8].tolist()}", flush=True)
+        _export_trace(args)
         return 0
 
     sampling = SamplingConfig(temperature=args.temperature,
@@ -201,7 +241,8 @@ def main(argv=None) -> int:
                               page_size=args.page_size,
                               draft_params=draft_params,
                               draft_cfg=draft_cfg, draft_policy=policy,
-                              spec_k=args.spec_k, device=dev)
+                              spec_k=args.spec_k,
+                              metrics_every=max(1, args.metrics), device=dev)
     warm = engine.warmup()
     vocab = min(cfg.vocab_size, 1024)
     shared = rng.randint(0, vocab, args.shared_prefix).astype(np.int64)
@@ -226,6 +267,7 @@ def main(argv=None) -> int:
     for r in sorted(done, key=lambda r: r.req_id)[:4]:
         print(f"# req{r.req_id}: {json.dumps(r.metrics())} "
               f"out[:8]={r.out[:8].tolist()}", flush=True)
+    _export_trace(args)
     return 0
 
 

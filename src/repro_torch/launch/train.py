@@ -31,6 +31,9 @@ Runs on ``cuda`` unless ``--device cpu``.
       --smoke --device cpu --steps 2 --feedback aqsgd --ckpt /tmp/s.npz
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
       --smoke --device cpu --steps 4 --feedback aqsgd --resume /tmp/s.npz
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
+      --smoke --device cpu --steps 4 --feedback aqsgd --metrics 2 \\
+      --trace /tmp/t.jsonl --perfetto /tmp/t.json
 
 ``--transport simulated`` compresses simulated stage cuts;
 ``--transport pipeline`` runs the layer stack through the real
@@ -60,8 +63,13 @@ the whole train state (params, AdamW moments, the cuts' and the DP
 reduce's feedback buffers) every ``--save-every`` steps and at the end
 (``{step}`` in PATH keeps one file a save); ``--resume PATH`` restores it
 and restarts the token stream at the saved step, so that the resumed run
-is the uninterrupted one bit for bit.  The reference's telemetry flags
-exit with an error saying so.
+is the uninterrupted one bit for bit.  ``--trace PATH`` turns tracing on
+and writes the JSONL event log there (``obs/export.py``'s schema),
+``--perfetto PATH`` a Chrome-trace file, and ``--metrics N`` (which turns
+tracing on too) runs the quality tap every N steps: each boundary's
+codec round-trip error on a seeded sample and the feedback buffers'
+norms (``obs/quality.py``).  Every step then runs in a ``train.step``
+span that holds its synced loss.
 """
 from __future__ import annotations
 
@@ -86,14 +94,14 @@ from repro_torch.core.policy import (POLICIES, CompressionPolicy,
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import param_count
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.export import to_chrome_trace, to_jsonl
+from repro_torch.obs.quality import QualityTap
 from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
 from repro_torch.train.loop import _pipeline_bstates, init_lm_dp_state
 from repro_torch.train.steps import _resolve_parallel, make_lm_train_step
 from repro_torch.transport.schedules import get_schedule
 from repro_torch.transport.tp_collectives import init_tp_state
-
-# Flags of the reference launcher that belong to features not ported yet.
-NOT_PORTED = ("--trace", "--perfetto", "--metrics")
 
 
 def synthetic_stream(cfg, batch: int, seq: int, seed: int = 0,
@@ -159,7 +167,8 @@ def main(argv=None) -> int:
                          "';'-separated 'codec[:k_frac][@cond,...]' rules, "
                          "conds size>=N | size<N | depth>=N | depth<N | "
                          "bandwidth>=X | bandwidth<X (fires only under a "
-                         "probe, which is not ported) | dir=fw|bw — first "
+                         "probe: run_lm_experiment's bandwidth_probe) | "
+                         "dir=fw|bw — first "
                          "match wins per cut, e.g. "
                          "'q4@size>=65536;q8@size>=16384;none' (resolved "
                          "against seq*d_model)"
@@ -250,13 +259,31 @@ def main(argv=None) -> int:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default=None, help="write metrics here")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="enable telemetry and write the JSONL event log "
+                         "here (obs/export.py schema; default: tracing "
+                         "off, zero overhead)")
+    ap.add_argument("--perfetto", default=None, metavar="PATH",
+                    help="also write a Chrome-trace JSON loadable at "
+                         "ui.perfetto.dev / chrome://tracing")
+    ap.add_argument("--metrics", type=int, default=0, metavar="N",
+                    help="sample per-boundary compression error + "
+                         "feedback-buffer norms every N steps (obs/"
+                         "quality.py; 0 = off; implies tracing)")
     ap.add_argument("--device", default="cuda")
-    args, rest = ap.parse_known_args(argv)
-    for flag in rest:
-        if flag.split("=")[0] in NOT_PORTED:
-            ap.error(f"{flag.split('=')[0]} is not yet ported to repro_torch")
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = ap.parse_args(argv)
+    tracing = bool(args.trace or args.perfetto or args.metrics)
+    if not tracing:
+        return _train(ap, args, False)
+    obs_trace.enable()
+    try:
+        return _train(ap, args, True)
+    finally:
+        obs_trace.disable()
+
+
+def _train(ap, args, tracing: bool) -> int:
+    """:func:`main` after the parse; ``tracing``: the tracer is on."""
     grad_accum = args.grad_accum
     pipeline_mb = args.pipeline_microbatches
     if args.microbatches is not None:
@@ -433,20 +460,28 @@ def main(argv=None) -> int:
     stream = synthetic_stream(cfg, args.batch, seq, args.seed,
                               num_samples=args.num_samples,
                               start_step=start_step, dp=dp_n)
+    tap = (QualityTap((args.batch, seq, cfg.d_model), every=args.metrics,
+                      dtype=torch.bfloat16, seed=args.seed, device=dev)
+           if args.metrics else None)
     metrics, t0 = [], time.time()
     for step in range(start_step + 1, args.steps + 1):
         toks, ids = next(stream)
-        extra = [s for s in (dp_state, tp_state) if s is not None]
-        out = step_fn(
-            params, opt_state, bstates,
-            {"tokens": torch.from_numpy(toks).to(dev, torch.int64)},
-            torch.from_numpy(ids).to(dev), *extra)
-        params, opt_state, bstates, m = out[0], out[1], out[2], out[-1]
-        rest = list(out[3:-1])
-        if dp_state is not None:
-            dp_state = rest.pop(0)
-        if tp_state is not None:
-            tp_state = rest.pop(0)
+        with obs_trace.span("train.step", cat="train", step=step) as sa:
+            extra = [s for s in (dp_state, tp_state) if s is not None]
+            out = step_fn(
+                params, opt_state, bstates,
+                {"tokens": torch.from_numpy(toks).to(dev, torch.int64)},
+                torch.from_numpy(ids).to(dev), *extra)
+            params, opt_state, bstates, m = out[0], out[1], out[2], out[-1]
+            rest = list(out[3:-1])
+            if dp_state is not None:
+                dp_state = rest.pop(0)
+            if tp_state is not None:
+                tp_state = rest.pop(0)
+            if tracing:
+                sa["loss"] = round(float(m["loss"]), 6)  # sync in span
+        if tap is not None:
+            tap.maybe_sample(step, policy, bstates or None)
         if step % args.log_every == 0 or step == args.steps:
             loss = float(m["loss"])       # waits for the device
             dt = time.time() - t0
@@ -475,6 +510,15 @@ def main(argv=None) -> int:
     if args.json:
         with open(args.json, "w") as f:
             json.dump(metrics, f, indent=1)
+    if tracing:
+        tr = obs_trace.get_tracer()
+        events = tr.drain()
+        if args.trace:
+            print(f"# trace: {to_jsonl(events, args.trace)} events "
+                  f"-> {args.trace} (dropped {tr.dropped})", flush=True)
+        if args.perfetto:
+            print(f"# perfetto: {to_chrome_trace(events, args.perfetto)} "
+                  f"events -> {args.perfetto}", flush=True)
     print("# done: final loss "
           f"{metrics[-1]['loss'] if metrics else 'n/a (already at --steps)'}",
           flush=True)

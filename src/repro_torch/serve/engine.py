@@ -37,6 +37,7 @@ from repro_torch.core.policy import CompressionPolicy, NO_POLICY
 from repro_torch.device import host_ints, resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import trace
 from repro_torch.serve import cache as C
 from repro_torch.serve import pages as PG
 from repro_torch.serve.sampling import (GREEDY, SamplingConfig, request_key,
@@ -211,8 +212,14 @@ class ContinuousEngine:
     ``tick_chunk`` ticks, one per speculative round (proposals) and one
     per verification.
 
-    ``metrics_every`` is accepted for the reference's signature and has
-    no effect: tracing is not ported, so nothing is emitted.  :meth:`stats` has no
+    Telemetry (``obs/trace.py``), when tracing is on: a
+    ``serve.request_done`` instant per completed request (tokens, TTFT,
+    decode rate), the ``serve.sched`` counter (and ``serve.pages`` in
+    paged mode) every ``metrics_every`` ticks, and ``serve.prefill`` /
+    ``serve.decode`` / ``serve.spec`` spans around each tick's phases.
+    Each span ends after its phase's host sync (a paged prefill tick that
+    samples no first token syncs the card at the span's end, only while
+    tracing), so its time holds the device work.  :meth:`stats` has no
     ``*_compiles`` keys: eager PyTorch compiles no programs, so the
     reference's ``compile_stats`` has no counterpart.
     """
@@ -255,6 +262,7 @@ class ContinuousEngine:
         self.ticks = 0
         self.active_slot_ticks = 0
         self.prefill_chunks = 0
+        self.metrics_every = max(1, metrics_every)
         self.paged = bool(prefix_cache or prefill_chunk
                           or draft_params is not None)
         self.prefix_cache, self.prefill_chunk = prefix_cache, prefill_chunk
@@ -365,25 +373,45 @@ class ContinuousEngine:
         prefill per new request, or one prefill chunk per prefilling slot
         in paged mode), then one decode step for every decoding slot.
         Returns the requests that completed this tick."""
-        return self._step_paged() if self.paged else self._step_slab()
+        finished = self._step_paged() if self.paged else self._step_slab()
+        self._trace_tick(finished)
+        return finished
+
+    def _trace_tick(self, finished: List[ServeRequest]) -> None:
+        """Per-tick telemetry: scheduler occupancy (+ page-pool occupancy
+        and prefix-hit counters in paged mode) as counter tracks every
+        ``metrics_every`` ticks, one instant per completed request
+        carrying its TTFT and decode rate.  Host arithmetic on state the
+        tick already computed; a disabled tracer returns on the first
+        line."""
+        tr = trace.get_tracer()
+        if tr is None:
+            return
+        for r in finished:
+            tr.instant("serve.request_done", cat="serve",
+                       tokens=len(r.tokens), ttft_s=round(r.ttft_s, 6),
+                       decode_tok_per_s=round(r.decode_tok_per_s, 2))
+        if self.ticks % self.metrics_every:
+            return
+        tr.counter("serve.sched", cat="serve", **self.sched.snapshot())
+        if self.paged:
+            ps = self.pages.stats()
+            tr.counter("serve.pages", cat="serve",
+                       **{k: ps[k] for k in
+                          ("active_pages", "cached_pages", "free_pages",
+                           "cow_copies", "prefix_hits",
+                           "prefix_hit_tokens")})
 
     def _step_slab(self) -> List[ServeRequest]:
         """The slab-cache tick body of :meth:`step`."""
         finished = []
-        for slot, req in self.sched.fills():
-            bucket = C.bucket_for(len(req.prompt), self.buckets)
-            toks = np.zeros((1, bucket), np.int64)
-            toks[0, bucket - len(req.prompt):] = req.prompt
-            pad = bucket - len(req.prompt)
-            self._gens[slot] = request_key(req.seed, self.device)
-            tok = self._insert(toks, pad, slot, self._gens[slot])
-            self.pos[slot] = bucket
-            self.pad[slot] = pad
-            self.last_tok[slot] = int(tok)      # blocks => honest TTFT
-            done = self.sched.started(slot, int(self.last_tok[slot]))
-            if done is not None:
-                finished.append(done)
-                self._free_slab(slot)
+        fills = self.sched.fills()
+        if fills:
+            with trace.span("serve.prefill", cat="serve", slots=len(fills)):
+                for slot, req in fills:
+                    done = self._fill_slab(slot, req)
+                    if done is not None:
+                        finished.append(done)
         active = self.sched.active_slots
         if not active:
             return finished
@@ -392,8 +420,28 @@ class ContinuousEngine:
         chunkable = (self.tick_chunk > 1
                      and min_rem >= self.tick_chunk
                      and all(r.eos_token is None for r in reqs))
-        finished.extend(self._slab_decode(active, chunkable))
+        with trace.span("serve.decode", cat="serve", slots=len(active),
+                        ticks=self.tick_chunk if chunkable else 1):
+            finished.extend(self._slab_decode(active, chunkable))
         return finished
+
+    def _fill_slab(self, slot: int, req: ServeRequest
+                   ) -> Optional[ServeRequest]:
+        """Prefill ``req`` at its bucket length into ``slot`` and sample
+        its first token; a 1-token request completes right here."""
+        bucket = C.bucket_for(len(req.prompt), self.buckets)
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, bucket - len(req.prompt):] = req.prompt
+        pad = bucket - len(req.prompt)
+        self._gens[slot] = request_key(req.seed, self.device)
+        tok = self._insert(toks, pad, slot, self._gens[slot])
+        self.pos[slot] = bucket
+        self.pad[slot] = pad
+        self.last_tok[slot] = int(tok)          # blocks => honest TTFT
+        done = self.sched.started(slot, int(self.last_tok[slot]))
+        if done is not None:
+            self._free_slab(slot)
+        return done
 
     def _slab_decode(self, active, chunkable) -> List[ServeRequest]:
         finished = []
@@ -544,11 +592,18 @@ class ContinuousEngine:
         finished = []
         for slot, req in self.sched.fills(self._can_place):
             self._place(slot, req)
-        for slot in [s for s in self.sched.active_slots
-                     if self.cursor[s] >= 0]:
-            done = self._prefill_tick(slot)
-            if done is not None:
-                finished.append(done)
+        pref = [s for s in self.sched.active_slots if self.cursor[s] >= 0]
+        if pref:
+            with trace.span("serve.prefill", cat="serve", slots=len(pref)):
+                for slot in pref:
+                    done = self._prefill_tick(slot)
+                    if done is not None:
+                        finished.append(done)
+                if (self.device.type == "cuda"
+                        and trace.get_tracer() is not None):
+                    # a chunk that samples no token syncs nothing: the
+                    # span waits for the card so that it holds the work
+                    torch.cuda.synchronize(self.device)
         dec = [s for s in self.sched.active_slots if self.cursor[s] < 0]
         if not dec:
             return finished
@@ -562,16 +617,21 @@ class ContinuousEngine:
         self.ticks += 1
         self.active_slot_ticks += len(dec)
         if self.spec:
-            finished.extend(self._spec_tick(dec, toks, posv, pmap))
+            with trace.span("serve.spec", cat="serve", slots=len(dec),
+                            spec_k=self.spec.spec_k):
+                finished.extend(self._spec_tick(dec, toks, posv, pmap))
             return finished
-        logits, self._pool = transformer.decode_span(
-            self.params, host_ints(toks, self.device)[:, None], self._pool,
-            host_ints(posv, self.device), self.cfg, self.policy,
-            compress=self.compress, page_map=host_ints(pmap, self.device),
-            wire=True)
-        gens = [g if s in dec else None for s, g in enumerate(self._gens)]
-        t_np = sample_tokens(logits[:, 0], gens,
-                             self.sampling).cpu().numpy()
+        with trace.span("serve.decode", cat="serve", slots=len(dec),
+                        ticks=1):
+            logits, self._pool = transformer.decode_span(
+                self.params, host_ints(toks, self.device)[:, None],
+                self._pool, host_ints(posv, self.device), self.cfg,
+                self.policy, compress=self.compress,
+                page_map=host_ints(pmap, self.device), wire=True)
+            gens = [g if s in dec else None
+                    for s, g in enumerate(self._gens)]
+            t_np = sample_tokens(logits[:, 0], gens,
+                                 self.sampling).cpu().numpy()
         for s in dec:
             self.pos[s] += 1
             self.last_tok[s] = t_np[s]

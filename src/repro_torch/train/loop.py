@@ -9,11 +9,13 @@ the LM on either with or without the compressed data-parallel gradient
 reduce, and with a tensor axis: train with boundary compression, then
 evaluate with compression on AND off (finding F3: a model trained
 compressed must be served compressed).  A rule policy (``PolicyRules``)
-and rule-spec axis codecs resolve once, statically, against the run's
-cut and gradient sizes, and ``run_lm_experiment``'s
-``ExperimentResult.policy_curve`` holds the resolved name per epoch.
-Bandwidth probes (which would re-resolve between epochs) and trace spans
-are not ported yet.
+and rule-spec axis codecs resolve against the run's cut and gradient
+sizes, and ``run_lm_experiment``'s ``ExperimentResult.policy_curve``
+holds the resolved name per epoch.  Given a ``bandwidth_probe``,
+``run_lm_experiment`` re-resolves them before every epoch against the
+measured bytes/s (``obs/probes.py``) and rebuilds the step on a flip.
+Every train step runs inside a ``train.step`` trace span that holds its
+synced loss (LM) or accuracy (CNN).
 """
 from __future__ import annotations
 
@@ -33,6 +35,8 @@ from repro_torch.data.synthetic import ImageClassData, LMData
 from repro_torch.device import resolve_device
 from repro_torch.models import cnn, transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import trace
+from repro_torch.obs.probes import boundary_bandwidth
 from repro_torch.optim.optimizers import (OptimizerConfig, init_opt_state,
                                           tree_leaves, tree_map)
 from repro_torch.train.steps import (_LEGACY_DEFAULTS, _UNSET,
@@ -53,8 +57,9 @@ class ExperimentResult:
     loss_off: float = 0.0          # eval loss with compression OFF
     train_curve: List[float] = dataclasses.field(default_factory=list)
     seconds: float = 0.0
-    # the LM run's resolved policy name per epoch (flat: no probe
-    # re-resolves it); the CNN run leaves it empty, as the reference does
+    # the LM run's resolved policy name per epoch (it moves only when a
+    # bandwidth probe flips it); the CNN run leaves it empty, as the
+    # reference does
     policy_curve: List[str] = dataclasses.field(default_factory=list)
     params: Optional[dict] = None
 
@@ -154,10 +159,14 @@ def run_cnn_experiment(policy: CompressionPolicy, *, epochs: int = 8,
     for ep in range(epochs):
         accs = []
         for x, y, ids in data.epoch(batch, ep):
-            params, opt_state, bstates, m = step(
-                params, opt_state, bstates, torch.from_numpy(x).to(dev),
-                torch.from_numpy(y).to(dev), torch.from_numpy(ids).to(dev))
-            accs.append(float(m["acc"]))
+            with trace.span("train.step", cat="train", epoch=ep) as sa:
+                params, opt_state, bstates, m = step(
+                    params, opt_state, bstates, torch.from_numpy(x).to(dev),
+                    torch.from_numpy(y).to(dev),
+                    torch.from_numpy(ids).to(dev))
+                acc = float(m["acc"])            # sync inside the span
+                sa["acc"] = round(acc, 6)
+            accs.append(acc)
         curve.append(float(np.mean(accs)))
     res = ExperimentResult(name=name or policy.boundary.name,
                            train_curve=curve, seconds=time.time() - t0)
@@ -226,6 +235,7 @@ def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
                       dp=_UNSET, dp_codec=_UNSET, dp_feedback=_UNSET,
                       dp_k_frac=_UNSET,
                       parallel: Optional[ParallelSpec] = None,
+                      bandwidth_probe=None,
                       device=None) -> ExperimentResult:
     """Fine-tune a (pre-trained) LM with boundary compression and report
     the train curve and the eval loss with compression on and off.
@@ -244,30 +254,46 @@ def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
     LM's uniform cut ``seq_len * d_model``; axis codecs may be rule specs,
     resolved against the wire sizes (``data``: the gradient's element
     count; ``stage``: the cut; ``tensor``: the cut's ``1/tp`` sequence
-    shard).  Without a bandwidth probe (not ported)
-    the resolution is the static one, made once; ``policy_curve`` repeats
-    its name each epoch.
+    shard).
+
+    ``bandwidth_probe``: a zero-arg callable returning a bandwidth
+    measurement (an ``obs.probes.probe_mesh`` dict, a
+    ``LinkMeasurement``, a plain bytes/s float, or None).  When ``policy``
+    is a ``PolicyRules`` (or the spec has rule-coded axes) the probe runs
+    before every epoch and the rules re-resolve against its reading.  A
+    changed resolution (a flip) emits a ``policy.flip`` trace instant,
+    rebuilds the step and rebuilds the boundary states from the new
+    effective policy; an unchanged one keeps the step.  Without a probe
+    a ``bandwidth>=X`` rule never fires and the resolution is the static
+    one, made once; ``policy_curve`` then repeats its name each epoch.
     ``pretrained_params``: a params tree on ``device`` (default: fresh
-    params from a generator seeded with ``seed``).  Runs on ``cuda``
+    params from a generator seeded with ``seed``).  Every step runs in a
+    ``train.step`` trace span holding its synced loss.  Runs on ``cuda``
     unless ``device`` says otherwise."""
     if transport not in ("simulated", "pipeline"):
         raise ValueError(f"unknown transport {transport!r}")
     dev = resolve_device(device)
     data = data or LMData()
+    rules = policy if isinstance(policy, PolicyRules) else None
     bsize = data.seq_len * cfg.d_model
-    policy = resolve_policy(policy, bsize)
     legacy = {"dp": dp, "dp_codec": dp_codec, "dp_feedback": dp_feedback,
               "dp_k_frac": dp_k_frac}
     explicit = tuple(sorted(k for k, v in legacy.items() if v is not _UNSET))
-    spec = parallel
-    if spec is None:
+    spec0 = parallel
+    spec_has_rules = spec0 is not None and any(
+        spec0.axis(n).is_rules for n in ("data", "stage", "tensor"))
+    probe_bw = bandwidth_probe is not None and (rules is not None
+                                                or spec_has_rules)
+    bw = boundary_bandwidth(bandwidth_probe()) if probe_bw else None
+    policy = resolve_policy(policy, bsize, bandwidth=bw)
+    if spec0 is None:
         # fold the deprecated family into the equivalent spec HERE, so the
         # warning names this call site and make_lm_train_step never re-warns
         if explicit:
             warn_legacy("run_lm_experiment", explicit)
         vals = {k: (legacy[k] if legacy[k] is not _UNSET else d)
                 for k, d in _LEGACY_DEFAULTS.items()}
-        spec = from_legacy(
+        spec0 = from_legacy(
             num_stages=(policy.num_stages if transport == "pipeline" else 1),
             **vals)
     elif explicit:
@@ -282,54 +308,93 @@ def run_lm_experiment(cfg: ModelConfig, policy: CompressionPolicy, *,
     # the data wire carries the gradient tree, the stage wire the cut, the
     # tensor wire the cut's 1/tp sequence shard
     n_grad = sum(p.numel() for p in tree_leaves(params))
-    spec = spec.resolved({"data": n_grad, "stage": bsize,
-                          "tensor": bsize // max(spec.tp, 1)})
-    spec, policy_eff, transport = _resolve_parallel(
+    wire_sizes = {"data": n_grad, "stage": bsize,
+                  "tensor": bsize // max(spec0.tp, 1)}
+    spec = spec0.resolved(wire_sizes, bandwidth=bw)
+    spec_eff, policy_eff, transport_eff = _resolve_parallel(
         "run_lm_experiment", spec, policy, transport, {})
     feat = (data.seq_len, cfg.d_model)
-    if transport == "pipeline":
-        bstates = _pipeline_bstates(policy_eff, feat, batch=batch,
-                                    microbatches=pipeline_microbatches,
+
+    def build_bstates(policy_eff):
+        if transport_eff == "pipeline":
+            return _pipeline_bstates(policy_eff, feat, batch=batch,
+                                     microbatches=pipeline_microbatches,
+                                     num_samples=data.num_train,
+                                     dtype=torch.bfloat16,
+                                     virtual_stages=virtual_stages,
+                                     dp=spec_eff.dp, device=dev)
+        return [init_boundary_state(policy_eff.at(i), feat, batch=batch,
                                     num_samples=data.num_train,
-                                    dtype=torch.bfloat16,
-                                    virtual_stages=virtual_stages,
-                                    dp=spec.dp, device=dev)
-    else:
-        bstates = [init_boundary_state(policy_eff.at(i), feat, batch=batch,
-                                       num_samples=data.num_train,
-                                       dtype=torch.bfloat16, device=dev)
-                   for i in range(policy_eff.num_boundaries)]
-    step = make_lm_train_step(cfg, policy, opt, remat=False,
-                              transport=transport,
-                              pipeline_microbatches=pipeline_microbatches,
-                              schedule=schedule,
-                              virtual_stages=virtual_stages, parallel=spec)
-    dp_state = (init_lm_dp_state(cfg, params, policy_eff, spec.dp,
-                                 spec.data.feedback, transport=transport,
-                                 virtual_stages=virtual_stages, tp=spec.tp)
-                if spec.dp > 1 else None)
+                                    dtype=torch.bfloat16, device=dev)
+                for i in range(policy_eff.num_boundaries)]
+
+    def build_step(policy, spec_eff):
+        return make_lm_train_step(
+            cfg, policy, opt, remat=False, transport=transport_eff,
+            pipeline_microbatches=pipeline_microbatches, schedule=schedule,
+            virtual_stages=virtual_stages, parallel=spec_eff)
+
+    bstates = build_bstates(policy_eff)
+    step = build_step(policy, spec_eff)
+    dp_state = (init_lm_dp_state(cfg, params, policy_eff, spec_eff.dp,
+                                 spec_eff.data.feedback,
+                                 transport=transport_eff,
+                                 virtual_stages=virtual_stages,
+                                 tp=spec_eff.tp)
+                if spec_eff.dp > 1 else None)
     tp_state = (init_tp_state((batch, data.seq_len, cfg.d_model),
                               transformer.tp_sites(cfg),
-                              spec.tensor.feedback, device=dev)
-                if spec.tp > 1 and transport == "simulated" else None)
+                              spec_eff.tensor.feedback, device=dev)
+                if spec_eff.tp > 1 and transport_eff == "simulated" else None)
     t0 = time.time()
     curve, policy_curve = [], []
     for ep in range(epochs):
-        policy_curve.append(policy_eff.name if spec.tp == 1
-                            else f"{policy_eff.name}/{spec.name}")
+        if probe_bw and ep > 0:
+            # the probe's reading re-resolves the rules; the step and the
+            # boundary states are rebuilt only on a flip (rule policies
+            # and rule axis codecs keep their shapes, so the DP and TP
+            # states carry over)
+            bw = boundary_bandwidth(bandwidth_probe())
+            flipped = False
+            if rules is not None:
+                new_policy = resolve_policy(rules, bsize, bandwidth=bw)
+                if new_policy.name != policy.name:
+                    trace.instant("policy.flip", cat="policy", epoch=ep,
+                                  bandwidth=bw, old=policy.name,
+                                  new=new_policy.name)
+                    policy, flipped = new_policy, True
+            if spec_has_rules:
+                new_spec = spec0.resolved(wire_sizes, bandwidth=bw)
+                if new_spec.name != spec.name:
+                    trace.instant("policy.flip", cat="policy", epoch=ep,
+                                  bandwidth=bw, old=spec.name,
+                                  new=new_spec.name)
+                    spec, flipped = new_spec, True
+            if flipped:
+                spec_eff, policy_eff, transport_eff = _resolve_parallel(
+                    "run_lm_experiment", spec, policy, transport, {})
+                bstates = build_bstates(policy_eff)
+                step = build_step(policy, spec_eff)
+        policy_curve.append(policy_eff.name if spec_eff.tp == 1
+                            else f"{policy_eff.name}/{spec_eff.name}")
         for toks, ids in data.epoch(batch, ep):
-            args = [params, opt_state, bstates,
-                    {"tokens": torch.from_numpy(toks).to(dev, torch.int64)},
-                    torch.from_numpy(ids).to(dev)]
-            args += [s for s in (dp_state, tp_state) if s is not None]
-            out = step(*args)
-            params, opt_state, bstates, m = out[0], out[1], out[2], out[-1]
-            rest = list(out[3:-1])
-            if dp_state is not None:
-                dp_state = rest.pop(0)
-            if tp_state is not None:
-                tp_state = rest.pop(0)
-            curve.append(float(m["loss"]))
+            with trace.span("train.step", cat="train", epoch=ep) as sa:
+                args = [params, opt_state, bstates,
+                        {"tokens": torch.from_numpy(toks).to(dev,
+                                                             torch.int64)},
+                        torch.from_numpy(ids).to(dev)]
+                args += [s for s in (dp_state, tp_state) if s is not None]
+                out = step(*args)
+                params, opt_state, bstates, m = (out[0], out[1], out[2],
+                                                 out[-1])
+                rest = list(out[3:-1])
+                if dp_state is not None:
+                    dp_state = rest.pop(0)
+                if tp_state is not None:
+                    tp_state = rest.pop(0)
+                loss = float(m["loss"])          # sync inside the span
+                sa["loss"] = round(loss, 6)
+            curve.append(loss)
     res = ExperimentResult(name=name or policy_eff.boundary.name,
                            train_curve=curve, seconds=time.time() - t0,
                            policy_curve=policy_curve)

@@ -33,10 +33,15 @@ all-gather / reduce-scatter (``transport/tp_collectives.py``), alone, on
 ``dp`` data lanes (the DP x TP step: each lane's stack gradient crosses
 the tensor-sharded reduce), or inside every pipeline stage (pipeline x
 TP and the 3D step).
+
+The train steps come back wrapped by ``obs/keyed.keyed_step``: with
+tracing on, their wire events fire once per new input key, as the
+reference's fire once per jit compilation.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import Optional
 
@@ -49,6 +54,7 @@ from repro_torch.core.policy import (NO_COMPRESSION, BoundaryPolicy,
                                      CompressionPolicy, PolicyRules,
                                      resolve_policy)
 from repro_torch.models import cnn, transformer
+from repro_torch.obs.keyed import keyed_step
 from repro_torch.optim.optimizers import (OptimizerConfig, apply_updates,
                                           tree_leaves, tree_map)
 from repro_torch.transport.collectives import make_grad_all_reduce
@@ -62,6 +68,15 @@ _UNSET = object()
 
 _LEGACY_DEFAULTS = {"dp": 1, "dp_codec": "none", "dp_feedback": "none",
                     "dp_k_frac": 0.1}
+
+
+def _keyed(make_step):
+    """``make_step`` whose steps fire their trace-time events once per new
+    input key (``obs/keyed.py``)."""
+    @functools.wraps(make_step)
+    def make(*args, **kwargs):
+        return keyed_step(make_step(*args, **kwargs))
+    return make
 
 
 def _resolve_parallel(api: str, parallel, policy, transport: str, legacy):
@@ -182,6 +197,7 @@ def _resolve_grad_accum(grad_accum: int,
     return microbatches
 
 
+@_keyed
 def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
                        aux_weight: float = 0.01, remat: bool = True,
                        grad_accum: int = 1,
@@ -609,7 +625,8 @@ def _make_dp_pipeline_lm_train_step(cfg, bp: BoundaryPolicy,
                 stage_fn, stack, x, num_stages=s_stages, policy=bp,
                 microbatches=microbatches, schedule=schedule,
                 virtual_stages=virtual_stages, fw_state=_replica_row(fw, r),
-                bw_state=_replica_row(bw, r), ids=ids_r, **tp_kwargs(stack))
+                bw_state=_replica_row(bw, r), ids=ids_r, dp=dp,
+                **tp_kwargs(stack))
             return y, slot
 
         params, loss, grads, slots = _pipeline_lm_grads(
@@ -701,7 +718,7 @@ def _make_tp_lm_train_step(cfg, policy: CompressionPolicy,
             st = tp_state.replace(resid=lane(tp_state.resid, r),
                                   mirror=lane(tp_state.mirror, r))
             return tp_apply(stage_fn, _unstack(stack), x, tpc,
-                            param_dims=dims, state=st, sites=sites)
+                            param_dims=dims, state=st, sites=sites, rows=dp)
 
         params, loss, grads, outs = _pipeline_lm_grads(
             cfg, params, batch, 1, dp, run_row)
@@ -759,6 +776,7 @@ def _accuracy(logits, labels):
     return (logits.detach().argmax(-1) == labels).to(torch.float32).mean()
 
 
+@_keyed
 def make_cnn_train_step(policy: CompressionPolicy, opt: OptimizerConfig,
                         transport: str = "simulated",
                         pipeline_microbatches: Optional[int] = None,

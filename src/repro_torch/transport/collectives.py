@@ -62,6 +62,8 @@ import torch
 
 from repro_torch.core.feedback import FEEDBACK_REGISTRY, FeedbackState
 from repro_torch.kernels.dp_reduce import build_decode_plans, decode_sum_fused
+from repro_torch.obs import trace
+from repro_torch.obs.keyed import trace_time_instant
 from repro_torch.transport.codecs import (LeafStruct, WireCodec,
                                           fuse_payload, get_codec,
                                           payload_leaves, payload_struct,
@@ -409,12 +411,27 @@ def make_grad_all_reduce(dp: int, codec: str = "none", *,
         wire = {k: sum(r[3][k] for r in res) for k in res[0][3]}
         return join(0, 0), join(1, 1), join(2, 0), wire
 
+    def _trace_wire(gl) -> None:
+        """Emit the ``dp.wire`` event when tracing is on, as the reference
+        does at trace time: once per new input key of the running step
+        (``obs/keyed.py``), with the report of the whole gradient tree and
+        the reference's axis names."""
+        if trace.get_tracer() is None:
+            return
+        rep = dp_wire_report([LeafStruct(tuple(a.shape[1:]), a.dtype)
+                              for a in gl], codec, k_frac=k_frac, dp=dp)
+        trace_time_instant(
+            "dp.wire", cat="wire", axis="data", feedback=feedback,
+            fused=fused, shard_axis="" if shard_axis is None else "stage",
+            launches_per_hop=1 if fused else rep["n_payload_leaves"], **rep)
+
     def reduce(grads_dp, dp_state: FeedbackState):
         gl = payload_leaves(grads_dp)
         for a in gl:
             if a.shape[0] != dp:
                 raise ValueError(f"gradient leaf {tuple(a.shape)} has no "
                                  f"leading replica dim of {dp}")
+        _trace_wire(gl)
         rl = (payload_leaves(dp_state.resid) if feedback != "none"
               else [None] * len(gl))
         al = payload_leaves(dp_state.agg) if feedback == "ef21" else None

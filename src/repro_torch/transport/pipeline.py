@@ -72,6 +72,8 @@ from repro_torch.core.compressors import topk_count, topk_scatter
 from repro_torch.core.feedback import (FeedbackState, gather_rows, get_mode,
                                        needs_recv_mirror, scatter_rows)
 from repro_torch.core.policy import BoundaryPolicy, quant_policy, topk_policy
+from repro_torch.obs import trace
+from repro_torch.obs.keyed import trace_time_instant
 from repro_torch.optim.optimizers import tree_map
 from repro_torch.transport.base import Transport
 from repro_torch.transport.codecs import (LeafStruct, codec_for,
@@ -399,11 +401,12 @@ class _Hop(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 def wire_telemetry(transport: PipelineTransport, sched: Schedule,
-                   feat_shape, *, microbatches: int) -> dict:
+                   feat_shape, *, microbatches: int, dp: int = 1) -> dict:
     """Host-side wire facts of one pipeline configuration: the chosen
     codecs, EXACT payload bytes per hop (from the payload structs, the
     same source as the reference's) and buffers moved per hop.  Each step
-    makes ``microbatches * wire_cuts`` hops per direction."""
+    makes ``microbatches * wire_cuts`` hops per direction and replica row
+    (``dp`` rows on the pipeline x DP grid)."""
     fw_pl = transport.fw_payload_struct(feat_shape)
     if transport.policy.reuse_indices:
         # the backward hop moves VALUES ONLY (bf16, forward k): the
@@ -416,9 +419,9 @@ def wire_telemetry(transport: PipelineTransport, sched: Schedule,
     else:
         bw_pl = transport.bw_payload_struct(feat_shape)
     return {
-        "stages": transport.num_stages,
+        "axis": "stage", "stages": transport.num_stages,
         "virtual_stages": transport.virtual_stages,
-        "schedule": sched.name, "microbatches": microbatches, "dp": 1,
+        "schedule": sched.name, "microbatches": microbatches, "dp": dp,
         "fw_codec": transport.policy.fw.name,
         "bw_codec": transport.policy.bw.name,
         "feedback": transport.policy.feedback,
@@ -430,6 +433,17 @@ def wire_telemetry(transport: PipelineTransport, sched: Schedule,
                                 else len(payload_leaves(bw_pl))),
         "wire_cuts": sched.wire_cuts(transport.num_stages),
     }
+
+
+def _trace_wire(transport, sched, feat_shape, mb: int, dp: int) -> None:
+    """Emit the ``pipeline.wire`` event when tracing is on, as the
+    reference does at trace time: once per new input key of the running
+    step (``obs/keyed.py``)."""
+    if trace.get_tracer() is None:
+        return
+    trace_time_instant("pipeline.wire", cat="wire",
+                       **wire_telemetry(transport, sched, feat_shape,
+                                        microbatches=mb, dp=dp))
 
 
 def _index_tree(tree, i: int):
@@ -453,7 +467,7 @@ def pipeline_apply(stage_fn: Callable, params_stacked, x, *,
                    fw_state: Optional[FeedbackState] = None,
                    bw_state: Optional[FeedbackState] = None, ids=None,
                    tp_axis: Optional[int] = None, tp_param_dims=None,
-                   seq_dim: int = 1):
+                   seq_dim: int = 1, dp: int = 1):
     """Run ``stage_fn(stage_params, x) -> x`` as a pipelined stage stack
     of ``num_stages`` stages, packed payloads crossing every cut in both
     directions.  Returns ``(out, fw_state, slot)``: the last stage's
@@ -483,7 +497,11 @@ def pipeline_apply(stage_fn: Callable, params_stacked, x, *,
     replicated; ``models/transformer.tp_param_dims``).  Each rank's shard
     crosses every cut on its own hop, packed alone: ``T`` times the hops,
     each ``1/T`` of the cut.  Boundary feedback buffers are refused on
-    this path, as in the reference."""
+    this path, as in the reference.
+
+    ``dp``: the replica rows of the pipeline x DP step this call is one
+    row of; it only sets the ``dp`` of the traced ``pipeline.wire``
+    event, which the reference emits once for all rows."""
     s_stages = num_stages
     tp = tp_axis or 1
     if tp_axis is not None:
@@ -542,6 +560,10 @@ def pipeline_apply(stage_fn: Callable, params_stacked, x, *,
         ids = torch.zeros((b,), dtype=torch.int32, device=x.device)
     ids_mb = ids.reshape(mb, mbsz)
     x_mb = x.reshape(mb, mbsz, *x.shape[1:])
+    feat_shape = list(x_mb.shape[1:])
+    # with a tensor axis the cut carries the sequence shard
+    feat_shape[seq_dim] //= tp
+    _trace_wire(transport, sched, tuple(feat_shape), mb, dp)
 
     # the reference lays the slices out device-major (device d's chunks
     # k = 0..v-1 are logical stages d, d+S, ...); here every slice stays

@@ -50,6 +50,8 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.feedback import FEEDBACK_REGISTRY, FeedbackState
+from repro_torch.obs import trace
+from repro_torch.obs.keyed import trace_time_instant
 from repro_torch.optim.optimizers import tree_map
 from repro_torch.transport.codecs import (LeafStruct, fuse_payload,
                                           get_codec, payload_leaves,
@@ -347,8 +349,22 @@ class TPCollectives:
                               seq_dim=self.seq_dim, sites=sites)
 
 
+def _trace_wire(tpc: TPCollectives, feat_shape, dtype, sites: int) -> None:
+    """Emit the ``tp.wire`` event when tracing is on (none at tp = 1), as
+    the reference does at trace time: once per new input key of the
+    running step (``obs/keyed.py``)."""
+    if trace.get_tracer() is None or tpc.tp == 1:
+        return
+    # every hop's payload is framed into one buffer: one launch a hop
+    trace_time_instant("tp.wire", cat="wire", axis="tensor",
+                       feedback=tpc.feedback, fused=True, launches_per_hop=1,
+                       **tpc.wire_report(feat_shape, sites=sites,
+                                         dtype=dtype))
+
+
 def tp_apply(fn: Callable, params, x, tpc: TPCollectives, *, param_dims,
-             state: Optional[FeedbackState] = None, sites: int = 0):
+             state: Optional[FeedbackState] = None, sites: int = 0,
+             rows: int = 1):
     """Run a TP stage function over the tensor ring.
 
     ``fn(rank_params, xs, resid, mirror) -> (ys, new_resid, new_mirror)``
@@ -362,7 +378,9 @@ def tp_apply(fn: Callable, params, x, tpc: TPCollectives, *, param_dims,
     ``x``'s batch.  Returns ``(y, new_state)`` with ``y`` the shards
     concatenated back into the full activation.  The reference's
     ``batch_axis`` (DP x TP) is the caller's loop over data lanes here
-    (``train/steps.py``)."""
+    (``train/steps.py``); ``rows``, the number of those lanes, only sizes
+    the traced ``tp.wire`` event, which the reference reports once for the
+    whole batch."""
     seq_dim, tp = tpc.seq_dim, tpc.tp
     if x.shape[seq_dim] % tp:
         raise ValueError(f"sequence dim {seq_dim} ({x.shape[seq_dim]}) "
@@ -370,6 +388,7 @@ def tp_apply(fn: Callable, params, x, tpc: TPCollectives, *, param_dims,
     if state is not None and state.scope != "tp":
         raise ValueError(f"tp_apply needs scope='tp' state, got "
                          f"{state.scope!r}")
+    _trace_wire(tpc, (x.shape[0] * rows, *x.shape[1:]), x.dtype, sites)
     if state is None:
         state = init_tp_state(x.shape, max(sites, 1), "none",
                               device=x.device)

@@ -117,5 +117,27 @@ def test_entry_points_without_device_ask_for_cuda(no_cuda):
         pretrain_lm(cfg, steps=1)
 
 
+def test_obs_modules_are_checked_for_imports():
+    """The telemetry package is among the files the import check reads."""
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {f"obs/{m}.py" for m in ("__init__", "trace", "export",
+                                    "quality", "probes", "keyed")} <= names
+
+
+def test_obs_entry_points_without_device_ask_for_cuda(no_cuda):
+    from repro_torch.obs.probes import probe_mesh, probe_ring
+    from repro_torch.obs.quality import QualityTap
+    with pytest.raises(RuntimeError, match="cuda"):
+        QualityTap((2, 8))
+    with pytest.raises(RuntimeError, match="cuda"):
+        probe_ring(2, "data", payload_bytes=16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        probe_mesh({"data": 2}, payload_bytes=16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ttrain.main(["--smoke", "--steps", "1", "--batch", "1",
+                     "--metrics", "1"])
+
+
 def test_cpu_tensors_take_the_plain_path():
     assert not D.use_kernel(torch.zeros(2))

@@ -275,12 +275,78 @@ def test_launch_serve_static_refuses_continuous_flags(argv, capsys):
     assert "--engine continuous" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv", [["--arch", "mixtral-8x7b"],
-                                  ["--trace", "t.jsonl"],
-                                  ["--perfetto", "t.json"],
-                                  ["--metrics", "4"]])
+@pytest.mark.parametrize("argv", [["--arch", "mixtral-8x7b"]])
 def test_launch_serve_refuses_what_is_not_ported(argv, capsys):
     with pytest.raises(SystemExit) as e:
         tserve.main(["--smoke", "--device", "cpu", *argv])
     assert e.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+SERVE_TRACE_ARGV = ["--smoke", "--device", "cpu", "--policy", "top10",
+                    "--requests", "4", "--slots", "2", "--prompt-len", "8",
+                    "--new-tokens", "4", "--prefix-cache", "--prefill-chunk",
+                    "8", "--shared-prefix", "16"]
+
+
+def _trace_lines(path):
+    return [json.loads(l) for l in path.read_text().splitlines()]
+
+
+def test_launch_serve_trace_writes_a_valid_jsonl(tmp_path, capsys):
+    """``--trace PATH``: the continuous engine's events (warm-up included)
+    in a file that passes the schema check: a ``request_done`` per served
+    request, prefill and decode spans, scheduler and page counters."""
+    from repro_torch.obs import trace
+    from repro_torch.obs.export import validate_jsonl
+    path = tmp_path / "s.jsonl"
+    assert tserve.main(SERVE_TRACE_ARGV + ["--trace", str(path)]) == 0
+    out = capsys.readouterr().out
+    ev = _trace_lines(path)
+    assert validate_jsonl(str(path)) == len(ev)
+    assert f"# trace: {len(ev)} events -> {path} (dropped 0)" in out
+    names = [e["name"] for e in ev]
+    assert {"serve.prefill", "serve.decode", "serve.sched",
+            "serve.pages"} <= set(names)
+    done = [e for e in ev if e["name"] == "serve.request_done"]
+    # the last 4 are the served requests (the first, the warm-up's)
+    assert len(done) > 4
+    assert all(e["args"]["tokens"] >= 1 and e["args"]["ttft_s"] > 0
+               for e in done[-4:])
+    assert trace.get_tracer() is None
+
+
+def test_launch_serve_perfetto_writes_a_chrome_trace(tmp_path, capsys):
+    """``--perfetto PATH`` alone, on the static engine too (which emits
+    nothing): a loadable file with its ``traceEvents``."""
+    for engine, want_events in (("continuous", True), ("static", False)):
+        path = tmp_path / f"{engine}.json"
+        argv = (SERVE_TRACE_ARGV if engine == "continuous" else
+                ["--smoke", "--device", "cpu", "--engine", "static",
+                 "--batch", "2", "--prompt-len", "8", "--new-tokens", "3"])
+        assert tserve.main(argv + ["--perfetto", str(path)]) == 0
+        assert f"events -> {path}" in capsys.readouterr().out
+        doc = json.loads(path.read_text())
+        assert bool(doc["traceEvents"]) == want_events
+        assert all(e["ph"] in ("X", "C", "i") for e in doc["traceEvents"])
+
+
+def test_launch_serve_metrics_sets_the_counter_grid(tmp_path, capsys):
+    """``--metrics N``: the scheduler / page counters every N ticks, so
+    fewer of them at 3 than at the default 1; the rest of the stream is
+    unchanged."""
+    counts = {}
+    for every in (1, 3):
+        path = tmp_path / f"m{every}.jsonl"
+        assert tserve.main(SERVE_TRACE_ARGV + ["--trace", str(path),
+                                               "--metrics",
+                                               str(every)]) == 0
+        capsys.readouterr()
+        ev = _trace_lines(path)
+        counts[every] = {n: sum(e["name"] == n for e in ev)
+                         for n in ("serve.sched", "serve.pages",
+                                   "serve.request_done", "serve.decode")}
+    assert counts[3]["serve.sched"] == counts[3]["serve.pages"] > 0
+    assert counts[3]["serve.sched"] < counts[1]["serve.sched"]
+    for n in ("serve.request_done", "serve.decode"):
+        assert counts[3][n] == counts[1][n]

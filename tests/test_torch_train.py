@@ -302,15 +302,61 @@ def test_launch_train_runs_a_tensor_mesh(capsys):
                for r in recs)
 
 
-@pytest.mark.parametrize("argv,what", [
-    (["--perfetto", "t.json"], "--perfetto"),
-    (["--trace", "t.jsonl"], "--trace"), (["--metrics", "5"], "--metrics")])
-def test_launch_train_refuses_what_is_not_ported(argv, what, capsys):
+TRACE_ARGV = ["--smoke", "--device", "cpu", "--steps", "2", "--batch", "4",
+              "--seq", "16", "--log-every", "1", "--policy", "q4q8"]
+
+
+def test_launch_train_trace_writes_a_valid_jsonl(tmp_path, capsys):
+    """``--trace PATH``: one ``train.step`` span a step, holding its loss,
+    in a file that passes the schema check; tracing is off afterwards."""
     from repro_torch.launch import train as ttrain
-    with pytest.raises(SystemExit):
-        ttrain.main(["--smoke", "--device", "cpu", *argv])
-    err = capsys.readouterr().err
-    assert what in err and "not yet ported" in err
+    from repro_torch.obs import trace
+    from repro_torch.obs.export import validate_jsonl
+    path = tmp_path / "t.jsonl"
+    assert ttrain.main(TRACE_ARGV + ["--trace", str(path)]) == 0
+    out = capsys.readouterr().out
+    assert f"# trace: 2 events -> {path} (dropped 0)" in out
+    assert validate_jsonl(str(path)) == 2
+    ev = [json.loads(l) for l in path.read_text().splitlines()]
+    losses = [json.loads(l)["loss"] for l in out.splitlines()
+              if l.startswith("{")]
+    assert [(e["name"], e["args"]["step"]) for e in ev] == [
+        ("train.step", 1), ("train.step", 2)]
+    # the span keeps 6 digits of the loss, the line 4
+    assert [e["args"]["loss"] for e in ev] == pytest.approx(losses,
+                                                            abs=1e-4)
+    assert trace.get_tracer() is None
+
+
+def test_launch_train_perfetto_writes_a_chrome_trace(tmp_path, capsys):
+    """``--perfetto PATH`` alone turns tracing on and writes a Chrome
+    trace whose spans carry microsecond durations."""
+    from repro_torch.launch import train as ttrain
+    path = tmp_path / "t.json"
+    assert ttrain.main(TRACE_ARGV + ["--perfetto", str(path)]) == 0
+    assert f"# perfetto: 2 events -> {path}" in capsys.readouterr().out
+    doc = json.loads(path.read_text())
+    assert [e["name"] for e in doc["traceEvents"]] == ["train.step"] * 2
+    assert all(e["ph"] == "X" and e["dur"] > 0 for e in doc["traceEvents"])
+
+
+def test_launch_train_metrics_emits_the_quality_tap(tmp_path, capsys):
+    """``--metrics 2``: the tap's counters and codec instants for each of
+    the policy's 3 boundaries at step 2 (q4 forward, q8 backward); no
+    feedback buffer, so no norms."""
+    from repro_torch.launch import train as ttrain
+    path = tmp_path / "t.jsonl"
+    assert ttrain.main(TRACE_ARGV + ["--metrics", "2", "--trace",
+                                     str(path)]) == 0
+    capsys.readouterr()
+    ev = [json.loads(l) for l in path.read_text().splitlines()]
+    assert [e["name"] for e in ev] == ["train.step"] * 2 + [
+        n for b in range(3) for n in (f"quality.boundary{b}",
+                                      f"quality.codec.boundary{b}")]
+    codecs = [e["args"] for e in ev if e["name"].startswith("quality.codec")]
+    assert codecs == [{"step": 2, "fw_codec": "q4", "bw_codec": "q8"}] * 3
+    errs = [e["args"] for e in ev if e["ph"] == "C"]
+    assert all(0 < a["bw_rel_err"] < a["fw_rel_err"] < 1 for a in errs)
 
 
 # ---------------------------------------------------------------------------
