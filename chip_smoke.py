@@ -87,8 +87,7 @@ failure fatal:
      ``decode_sum_fused`` per q8/q4 step, one framing launch a replica's
      payload), the ring's bytes ==
      ``dp_wire_report`` x dp(dp-1) hops, falling losses, the same losses
-     under the plain backend (topk's first 2 steps: ``DP_PLAIN_STEPS``),
-     and the smoke model's DP step on the card
+     under the plain backend, and the smoke model's DP step on the card
      against the CPU; tokens/s and the reduce's share of the step (CUDA
      events) per run, a profile of one step.
   7. the paper's CNN experiment on the card (launch counters set to 0
@@ -245,9 +244,37 @@ failure fatal:
      every Chrome file loads with its ``traceEvents``.  Phase 2's
      library rows count the library call's launches from the profile's
      host side, and print ``LOST`` where its device records fall short.
- 13. one ``{"kernels": [...]}`` line (launches summed over phases 3-12;
+ 13. gemma2-27b and pixtral-12b at full width (launch counters set to 0
+     just before and read just after), depth cut to 4 layers with
+     ``dataclasses.replace``, seed-0 weights drawn on the card: gemma2
+     (2 local/global groups, window 4,096, softcaps 50 / 30, post-norm,
+     tied 256,000-row head; 1 cut) trains 3 steps of 1 x 8,192 tokens
+     under none / q4q8 / top10, pixtral (3 cuts) 3 steps of 2 x 1,024
+     with ``make_batch``'s zero patch embeddings under q4q8 / top10, each
+     run as ``launch/train`` builds it, its params and AdamW moments
+     donated (``make_lm_train_step(donate=True)``): "# big train" with
+     losses, launches exact every step (2 / 6 cut kernels a step),
+     tokens/s, ``max_memory_allocated`` and, for q4q8, a profiled 3rd
+     step's busy time and idle share; gemma2 served by ``ServeEngine``
+     (prompts of 4,100 and 300 tokens, 16 new: the local ring wraps)
+     under none / q4q8 and by the slab ``ContinuousEngine`` (2 slots,
+     max_seq 8,192, a 4,100-token bucket; local cache leaves of 4,096
+     rows, global of 8,192; 3 requests; launches exact; streams against
+     single ticks and against each request alone, near-tie rule), and
+     ``prefix_cache=True`` refused; pixtral served statically under q4q8
+     (2 x 512) and refused by ``ContinuousEngine``; then both smoke
+     models on the card against the CPU (eval logits, a q4q8 step's loss
+     and gradient, tests/test_torch_archs.py's bounds).  Phase 2 holds
+     ``quant_dequant`` and ``topk_block`` bit-exact at the two cuts'
+     (1, 8,192 x 4,608) and (2, 1,024 x 5,120) bf16 shapes and times
+     them, and holds the q4 pair bit-exact at the q4q8 serving wire's
+     rows with per-row statistics (gemma2's static prefill (2, 4,100 x
+     4,608), a slab insert (1, 1,024 x 4,608) and decode (2, 4,608);
+     pixtral's prefill (2, 512 x 5,120) and decode (2, 5,120)), timing
+     the two prefills (``big_kernels``).
+ 14. one ``{"kernels": [...]}`` line (launches summed over phases 3-13;
      the select kernels timed at the 38.6 M-element DP leaf), then the
-     ``{"ok": true, ...}`` line.  Every number's line of phases 8-12
+     ``{"ok": true, ...}`` line.  Every number's line of phases 8-13
      carries the card's name and power limit.
 
 Every profiled step of phases 3-11 records the card's activity only and
@@ -417,10 +444,6 @@ DP_RUNS = {
     "q8/q4q8/accum2": ("q8", "none", 0.1, "q4q8", "none",
                        _per_step(quant_dequant=12 * DP, **_Q_RING)),
 }
-# the plain backend's run of topk/q4q8 takes 2 steps: its plain compaction
-# takes about 12 s a lane a step; step 2's loss already reads the ring's
-# first reduce
-DP_PLAIN_STEPS = {"topk/q4q8": 2}
 DP_KERNELS = ("decode_sum_fused",)
 DPQ8 = f"DP decode dp={DP} q8, full-width gpt2-small payload"
 DPQ4 = f"DP decode dp={DP} q4, full-width gpt2-small payload"
@@ -1005,8 +1028,8 @@ def time_select(torch, D, topk, xs):
 def time_cases(torch, D, cases):
     """name -> times and bound of each ``(wrapper call, the name its CUDA
     kernels contain, library call or None, bytes, float32 operations)``,
-    the plain version's too.  Calls that take long are timed over fewer
-    iterations (the plain compaction takes seconds on a DP leaf)."""
+    the plain version's too.  Calls that take long (a plain version on a
+    DP leaf or lane) are timed over fewer iterations."""
     rows = {}
     for name, (fn, kernel, lib, nbytes, nops) in cases.items():
         it = scaled_iters(torch, fn)
@@ -2331,9 +2354,8 @@ def data_parallel(torch, D, build):
     D.KERNEL_BACKEND = "plain"
     try:
         for name in DP_RUNS:
-            plain = dp_run(torch, cfg, params, name, build,
-                           steps=DP_PLAIN_STEPS.get(name, DP_STEPS))["losses"]
-            if plain != runs[name]["losses"][:len(plain)]:
+            plain = dp_run(torch, cfg, params, name, build)["losses"]
+            if plain != runs[name]["losses"]:
                 raise AssertionError(f"dp {name}: plain backend losses "
                                      f"{plain} != {runs[name]['losses']}")
     finally:
@@ -3942,7 +3964,7 @@ class StreamGaps:
     token; only for the reference runs of the near-tie rule."""
 
     def __init__(self, torch, engine_mod, eng):
-        self.gaps, self.last = {}, None
+        self.gaps, self.tops, self.last = {}, {}, None
         self.mod, self.real = engine_mod, engine_mod.sample_tokens
 
         def sample(logits, gens, cfg):
@@ -3957,6 +3979,7 @@ class StreamGaps:
             req = sched.slots[slot]
             top2 = torch.topk(self.last[row].float(), 2).values.tolist()
             self.gaps[(req.req_id, len(req.tokens))] = top2[0] - top2[1]
+            self.tops[(req.req_id, len(req.tokens))] = top2[0]
 
         def on_started(slot, tok, now=None):
             gap(slot, 0)
@@ -3972,8 +3995,9 @@ class StreamGaps:
         self.mod.sample_tokens = self.real
 
 
-def cs_gap_run(torch, make, reqs):
-    """``make(tick_chunk=1)``'s streams and their gaps (see StreamGaps)."""
+def cs_gap_run(torch, make, reqs, tops=False):
+    """``make(tick_chunk=1)``'s streams and their gaps (see StreamGaps),
+    and with ``tops`` each step's top logit too."""
     import repro_torch.serve.engine as E
     eng = make(tick_chunk=1)
     rec = StreamGaps(torch, E, eng)
@@ -3981,16 +4005,26 @@ def cs_gap_run(torch, make, reqs):
         out, _ = cs_serve(eng, reqs)
     finally:
         rec.close()
-    return out, rec.gaps
+    return (out, rec.gaps, rec.tops) if tops else (out, rec.gaps)
 
 
-def cs_parts(got, want, gaps, what, smi):
+def bf16_ulp(v: float) -> float:
+    """The spacing of bfloat16 numbers at ``|v|`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(v), 2.0 ** -126))) - 7)
+
+
+def cs_parts(got, want, gaps, what, smi, tops=None):
     """Streams equal token for token, except a parting at a step where
     the reference stream's top-2 logits are within ``2 * LOGIT_ATOL``
     (the cuBLAS kernel and the attention's shapes differ with the row
     count, so batch-shape changes may break a near-tie either way); later
-    tokens of a parted stream are not compared.  Prints every parting with
-    its gap; raises on any other difference."""
+    tokens of a parted stream are not compared.  ``LOGIT_ATOL`` is about 4
+    bf16 ulps at gpt2's |logit| <= 2; given the steps' top logits
+    (``tops``), the bound is twice the larger of it and 2 bf16 ulps at
+    the top logit: 4 ulps, where gemma2's clean partings reached 3 over
+    24 comparisons of 6 seeds (``chip_gemma2_probe.py``, PERF.md).
+    Prints every parting with its gap; raises on any other
+    difference."""
     parts, equal = [], 0
     for rid, ref in want.items():
         out = got[rid]
@@ -4004,8 +4038,13 @@ def cs_parts(got, want, gaps, what, smi):
             continue
         i = diff[0]
         g = gaps[(rid, i)]
-        parts.append({"request": rid, "step": i, "gap": g})
-        if g > 2 * LOGIT_ATOL:
+        bound = 2 * LOGIT_ATOL
+        if tops is not None:
+            bound = 2 * max(LOGIT_ATOL, 2 * bf16_ulp(tops[(rid, i)]))
+        parts.append({"request": rid, "step": i, "gap": g,
+                      **({"top": tops[(rid, i)], "bound": bound}
+                         if tops is not None else {})})
+        if g > bound:
             raise AssertionError(f"{what}: request {rid} parts at step {i} "
                                  f"without a near-tie (gap {g}): {out} vs "
                                  f"{ref}")
@@ -4097,7 +4136,8 @@ def cs_run(torch, build, make, reqs, name, what, smi, drained, spec_k=0):
     return out, st
 
 
-def cs_static(np, params, cfg, policy, reqs):
+def cs_static(np, params, cfg, policy, reqs, max_prompt=CS_PROMPT,
+              max_seq=CS_MAX_SEQ):
     """Each request served by the static engine, alone but for a
     companion prompt of its bucket's length: the batch is then left-padded
     to the bucket, as the continuous engine's insert pads it, and every
@@ -4105,8 +4145,8 @@ def cs_static(np, params, cfg, policy, reqs):
     numerics."""
     from repro_torch.serve import cache as C
     from repro_torch.serve.engine import Request, ServeEngine
-    buckets = C.prompt_buckets(CS_PROMPT)
-    eng = ServeEngine(params, cfg, policy, max_batch=2, max_seq=CS_MAX_SEQ)
+    buckets = C.prompt_buckets(max_prompt)
+    eng = ServeEngine(params, cfg, policy, max_batch=2, max_seq=max_seq)
     out = {}
     for rid, (prompt, new, _) in enumerate(reqs):
         b = C.bucket_for(len(prompt), buckets)
@@ -4762,6 +4802,376 @@ def telemetry(torch, D, build, smi, dev="cuda", base=()):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: gemma2-27b and pixtral-12b at full width (the attention
+# variants, post-norm and the vision frontend)
+# ---------------------------------------------------------------------------
+
+# the registry configs at full width, depth cut with dataclasses.replace:
+# gemma2 4 layers (2 local/global groups; the launcher's 4-stage presets
+# stop at the 2 groups: 1 cut), pixtral 4 layers (4 stages: 3 cuts)
+BIG_LAYERS, BIG_STEPS = 4, 3
+# arch -> (batch, seq, policies trained, the training-cut launches of a
+# step under a compressing policy: forward and backward at each cut)
+BIG_TRAIN = {"gemma2-27b": (1, 8192, ("none", "q4q8", "top10"), 2),
+             "pixtral-12b": (2, 1024, ("q4q8", "top10"), 6)}
+# static serving: gemma2's 4,100-token prompt plus 16 new tokens wraps the
+# local layers' 4,096-row ring; the slab engine's 2 slots, 8,192-row
+# global caches and a 4,100-token bucket; pixtral's equal-length prompts
+G2_PROMPTS, BIG_NEW = (4100, 300), 16
+G2_CS_PROMPTS, G2_CS_MAX_SEQ, G2_CS_SLOTS = (4100, 300, 1000), 8192, 2
+PX_PROMPTS = (512, 512)
+BIG_SERVE = ("none", "q4q8")
+TRAIN_CUT_KERNELS = {"none": None, "q4q8": "quant_dequant",
+                     "top10": "topk_block"}
+# phase 2 at phase 13's cut shapes: the (B, S * d) bf16 tensor of a cut
+BIG_CUTS = {"gemma2 cut (1, 8192*4608) bf16": (1, 8192 * 4608),
+            "pixtral cut (2, 1024*5120) bf16": (2, 1024 * 5120)}
+# ... and at its q4q8 serving wire's rows, one (min, scale) a row: the
+# static prefills (left-padded to the longest prompt), a slab insert at
+# its bucket, the decode ticks; the rows timed are marked True
+BIG_Q4 = {"gemma2 static prefill (2, 4100*4608) f32": ((2, 4100 * 4608), True),
+          "gemma2 slab insert (1, 1024*4608) f32": ((1, 1024 * 4608), False),
+          "gemma2 decode (2, 4608) f32": ((2, 4608), False),
+          "pixtral static prefill (2, 512*5120) f32": ((2, 512 * 5120), True),
+          "pixtral decode (2, 5120) f32": ((2, 5120), False)}
+
+
+def big_kernels(torch, D, ops, pack4):
+    """Phase 2 at phase 13's shapes: ``quant_dequant`` (bits 4, 8) and
+    ``topk_block`` (k 0.1, 0.3) at the training cuts, and the q4 pair at
+    the serving wire's rows with per-row statistics (the codec's
+    ``per_request=True``), bit-exact against their plain versions; then
+    the cuts and the long rows timed with their bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cuts = {label: torch.randn(shape, generator=gen, device="cuda")
+            .to(torch.bfloat16) for label, shape in BIG_CUTS.items()}
+    err = check_cut_kernels(torch, D, ops, cuts)
+    timed = {}
+    for label, x in cuts.items():
+        timed[label] = time_cut_kernels(torch, D, ops, x)
+        for name, row in timed[label].items():
+            log(f"# {name} {label}: " + json.dumps(row))
+    del cuts
+    for label, (shape, timed_too) in BIG_Q4.items():
+        # the wire casts the bf16 cut tensor to f32
+        x = torch.randn(shape, generator=gen, device="cuda") \
+            .to(torch.bfloat16).float()
+        got = check_q4(torch, D, pack4, x, *pack4.minmax_scale(x))
+        for name, e in zip(("pack4_wire", "unpack4_wire"), got):
+            err[name] = max(err.get(name, 0.0), e)
+        log(f"# q4 kernels bit-exact vs plain: {label}")
+        if timed_too:
+            timed[label] = time_pack4(torch, D, pack4, x)
+            for name, row in timed[label].items():
+                log(f"# {name} {label}: " + json.dumps(row))
+    return {k: err.get(k, 0.0) for k in KERNELS}, timed
+
+
+def _free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def big_train_run(torch, build, cfg, arch, name, smi, profile_step=None):
+    """``BIG_STEPS`` steps of ``cfg`` (``arch`` of ``BIG_TRAIN``) under
+    ``name`` as ``launch/train``
+    builds them (its AdamW, ``make_batch``, the synthetic stream), the
+    params and moments donated (updated in place, the same bits), from
+    seed-0 weights drawn on the card.  Prints and returns the run."""
+    from repro_torch.core.boundary import init_boundary_state
+    from repro_torch.launch.train import (build_policy, make_batch,
+                                          synthetic_stream)
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.steps import make_lm_train_step
+
+    batch, seq, _, per_step = BIG_TRAIN[arch]
+    policy = build_policy(name, "none")
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="cosine", t_max=BIG_STEPS, grad_clip=1.0)
+    cuts = len(transformer.segment_bounds(cfg.num_groups,
+                                          policy.num_stages)) - 1
+    bstates = [init_boundary_state(policy.at(i), (seq, cfg.d_model),
+                                   batch=batch, dtype=torch.bfloat16,
+                                   device="cuda") for i in range(cuts)]
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt_state = init_opt_state(opt, params)
+    step = make_lm_train_step(cfg, policy, opt, donate=True)
+    stream = synthetic_stream(cfg, batch, seq, 0)
+    kernel = TRAIN_CUT_KERNELS[name]
+    want = {k: per_step if k == kernel else 0 for k in KERNELS}
+    losses, seconds, prof = [], [], None
+    for i in range(1, BIG_STEPS + 1):
+        toks, ids = next(stream)
+        b = make_batch(cfg, toks, "cuda")
+        ids = torch.from_numpy(ids).to("cuda")
+        before = dict(build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == profile_step:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                params, opt_state, bstates, m = step(params, opt_state,
+                                                     bstates, b, ids)
+                torch.cuda.synchronize()
+        else:
+            params, opt_state, bstates, m = step(params, opt_state, bstates,
+                                                 b, ids)
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        got = {k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+               for k in KERNELS}
+        if got != want:
+            raise AssertionError(f"{cfg.arch_id} {name} step {i}: launches "
+                                 f"{got}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt_state, step, bstates
+    _free(torch)
+    if not (all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"{cfg.arch_id} {name}: losses {losses} are "
+                             "not finite and falling")
+    row = {"arch": cfg.arch_id, "policy": name, "card": smi,
+           "batch": batch, "seq": seq, "cuts": cuts, "losses": losses,
+           "launches_per_step": {k: v for k, v in want.items() if v},
+           "step_s": seconds,
+           "tokens_per_s_steps_2_to_3": batch * seq * (BIG_STEPS - 1)
+           / sum(seconds[1:]), "max_memory_allocated": peak}
+    if prof is not None:
+        dev = sorted(device_records(prof), reverse=True)
+        busy = sum(ms for ms, _ in dev)
+        wall = seconds[profile_step - 1] * 1e3
+        row.update(profiled_step=profile_step, profiled_wall_ms=wall,
+                   device_busy_ms=busy, device_idle_share=1 - busy / wall,
+                   unprofiled_step_ms=1e3 * seconds[1],
+                   top_device_ms=[[key[:60], ms] for ms, key in dev[:6]])
+    log("# big train " + json.dumps(row))
+    return row
+
+
+def big_static(torch, np, build, params, cfg, name, prompts, smi):
+    """``ServeEngine`` on ``prompts`` (left-padded to the longest), 16 new
+    tokens each: tokens, launches exact (each cut packs once a forward),
+    wall time."""
+    from repro_torch.core.policy import POLICIES
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Request, ServeEngine
+    policy = POLICIES[name]()
+    eng = ServeEngine(params, cfg, policy, max_batch=len(prompts),
+                      max_seq=max(len(p) for p in prompts) + BIG_NEW - 1)
+    before = dict(build.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate([Request(p, BIG_NEW) for p in prompts])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = np.stack([r.out for r in out])
+    assert toks.shape == (len(prompts), BIG_NEW)
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+    cuts = len(transformer.segment_bounds(cfg.num_groups,
+                                          policy.num_stages)) - 1
+    moved = {k: build.LAUNCHES.get(k, 0) - before.get(k, 0) for k in KERNELS}
+    want = {k: (BIG_NEW * cuts if k in POLICY_KERNELS[name] else 0)
+            for k in KERNELS}
+    if moved != want:
+        raise AssertionError(f"{cfg.arch_id} static {name}: launches "
+                             f"{moved}, expected {want}")
+    log("# big serve " + json.dumps({
+        "arch": cfg.arch_id, "engine": "static", "policy": name,
+        "card": smi, "prompts": [len(p) for p in prompts],
+        "new_tokens": BIG_NEW, "cuts": cuts, "wall_s": wall,
+        "tok_per_s": len(prompts) * BIG_NEW / wall,
+        "launches": {k: v for k, v in moved.items() if v},
+        "tokens[0][:8]": toks[0, :8].tolist()}))
+    return toks
+
+
+def big_continuous(torch, np, build, params, cfg, smi):
+    """gemma2 through the slab ``ContinuousEngine``: the ring leaves'
+    rows, the drains' launches, each stream against the single-tick run
+    (near-tie rule) and against each request served alone by the static
+    engine; the prefix cache refused with the reference's message."""
+    import functools
+    from repro_torch.core.policy import POLICIES
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ContinuousEngine
+    rng = np.random.RandomState(5)
+    reqs = [(rng.randint(0, cfg.vocab_size, n).astype(np.int64), BIG_NEW, i)
+            for i, n in enumerate(G2_CS_PROMPTS)]
+    kw = dict(num_slots=G2_CS_SLOTS, max_seq=G2_CS_MAX_SEQ,
+              max_prompt=max(G2_CS_PROMPTS))
+    try:
+        ContinuousEngine(params, cfg, POLICIES["q4q8"](), prefix_cache=True,
+                         **kw)
+    except ValueError as e:
+        if "sliding-window ring buffers are unsupported" not in str(e):
+            raise
+        log(f"# big continuous: prefix_cache=True refused: {e}")
+    else:
+        raise AssertionError("gemma2: prefix_cache=True was not refused")
+    for name in BIG_SERVE:
+        make = functools.partial(ContinuousEngine, params, cfg,
+                                 POLICIES[name](), **kw)
+        eng = make()
+        rows = {b: tuple(eng._caches[b]["k"].shape) for b in eng._caches}
+        want_rows = {"b0": (2, G2_CS_SLOTS, cfg.window, cfg.num_kv_heads,
+                            cfg.resolved_head_dim),
+                     "b1": (2, G2_CS_SLOTS, G2_CS_MAX_SEQ, cfg.num_kv_heads,
+                            cfg.resolved_head_dim)}
+        if rows != want_rows:
+            raise AssertionError(f"gemma2 slab cache leaves {rows}, "
+                                 f"expected {want_rows}")
+        before = dict(build.LAUNCHES)
+        torch.cuda.synchronize()
+        out, wall = cs_serve(eng, reqs)
+        torch.cuda.synchronize()
+        moved = {k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+                 for k in KERNELS}
+        st = eng.stats()
+        cuts = len(transformer.segment_bounds(
+            cfg.num_groups, POLICIES[name]().num_stages)) - 1
+        forwards = st["completed"] + st["ticks"]
+        want = {k: (forwards * cuts if k in POLICY_KERNELS[name] else 0)
+                for k in KERNELS}
+        if moved != want:
+            raise AssertionError(f"gemma2 continuous {name}: launches "
+                                 f"{moved}, expected {want} ({st})")
+        assert all(((t >= 0) & (t < cfg.vocab_size)).all()
+                   for t in out.values())
+        log("# big serve " + json.dumps({
+            "arch": cfg.arch_id, "engine": "continuous (slab)",
+            "policy": name, "card": smi, "cache_k_rows": rows,
+            "prompts": list(G2_CS_PROMPTS), "wall_s": wall,
+            "tok_per_s": sum(len(t) for t in out.values()) / wall,
+            "launches": {k: v for k, v in moved.items() if v},
+            **{k: st[k] for k in ("mean_ttft_s", "slot_utilization",
+                                  "ticks")}}))
+        del eng
+        ref, gaps, tops = cs_gap_run(torch, make, reqs, tops=True)
+        cs_parts(out, ref, gaps, f"gemma2 slab/{name} 8-tick chunks vs "
+                 "single ticks", smi, tops)
+        alone = cs_static(np, params, cfg, POLICIES[name](), reqs,
+                          max_prompt=max(G2_CS_PROMPTS),
+                          max_seq=G2_CS_MAX_SEQ)
+        cs_parts(alone, ref, gaps, f"gemma2 slab/{name} vs each request "
+                 "alone (static engine)", smi, tops)
+
+
+def check_big_against_cpu(torch, smi):
+    """gemma2's and pixtral's smoke models, the same params and batch
+    (pixtral's with random patch embeddings) on the card and on the CPU:
+    eval logits within 2**-5 of their largest magnitude, one q4q8 step's
+    loss within 0.05 and gradient within 0.3 of its norm
+    (tests/test_torch_archs.py's bounds)."""
+    from repro_torch.configs.registry import get
+    from repro_torch.core.boundary import init_boundary_state
+    from repro_torch.core.policy import POLICIES
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.steps import make_lm_train_step
+    for arch in BIG_TRAIN:
+        cfg = get(arch, smoke=True)
+        params = transformer.init_params(torch.Generator().manual_seed(1),
+                                         cfg)
+        gen = torch.Generator().manual_seed(2)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 32),
+                                         generator=gen)}
+        if cfg.frontend == "vision":
+            batch["patch_embeds"] = torch.randn(
+                (4, cfg.num_patches, cfg.d_model),
+                generator=gen).to(torch.bfloat16)
+        policy = POLICIES["q4q8"]()
+        opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                              schedule="cosine", t_max=2, grad_clip=1.0)
+        cuts = len(transformer.segment_bounds(cfg.num_groups,
+                                              policy.num_stages)) - 1
+        res = {}
+        for dev in ("cpu", "cuda"):
+            p, b = _tree_to(params, dev), _tree_to(batch, dev)
+            with torch.no_grad():
+                logits = transformer.forward_eval(p, b, cfg).float().cpu()
+            bst = [init_boundary_state(policy.at(i), (32, cfg.d_model),
+                                       batch=4, dtype=torch.bfloat16,
+                                       device=dev) for i in range(cuts)]
+            grads = []
+            with first_gradient(grads):
+                _, _, _, m = make_lm_train_step(cfg, policy, opt)(
+                    p, init_opt_state(opt, p), bst, b,
+                    torch.arange(4, device=dev))
+            res[dev] = (logits, float(m["loss"]), _tree_to(grads[0], "cpu"))
+        (lc, loss_c, gc), (lg, loss_g, gg) = res["cpu"], res["cuda"]
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{arch} smoke: non-finite logits on the "
+                                 "card")
+        gap = (lg - lc).abs().max().item()
+        bound = 2.0 ** -5 * lc.abs().max().item()
+        rel = tree_rel_gap(gg, gc)
+        if not (gap <= bound and abs(loss_g - loss_c) <= 0.05
+                and rel <= 0.3):
+            raise AssertionError(
+                f"{arch} smoke, card vs CPU: logits gap {gap} (bound "
+                f"{bound}), q4q8 loss {loss_g} vs {loss_c}, gradient "
+                f"{rel}")
+        log("# big smoke card vs CPU " + json.dumps({
+            "arch": cfg.arch_id, "card": smi, "logit_gap": gap,
+            "logit_bound": bound, "q4q8_loss": [loss_g, loss_c],
+            "q4q8_grad_rel_gap": rel}))
+
+
+def big_models(torch, np, build, smi):
+    """Phase 13: gemma2-27b and pixtral-12b at full width (4 layers each)
+    through the simulated compressed cuts and through serving; then each
+    smoke model on the card against the CPU.  Returns the launches of
+    the phase's main paths."""
+    import dataclasses
+    from repro_torch.configs.registry import get
+    from repro_torch.models import transformer
+    from repro_torch.models.config import param_count
+    from repro_torch.serve.engine import ContinuousEngine
+    t0 = time.perf_counter()
+    build.reset_launches()                  # the phase 13 paths start here
+    rng = np.random.RandomState(4)
+    for arch in BIG_TRAIN:
+        cfg = dataclasses.replace(get(arch), num_layers=BIG_LAYERS)
+        log(f"# big {arch}: {param_count(cfg)} parameters at full width, "
+            f"{BIG_LAYERS} layers, {cfg.num_groups} groups")
+        for name in BIG_TRAIN[arch][2]:
+            big_train_run(torch, build, cfg, arch, name, smi,
+                          profile_step=3 if name == "q4q8" else None)
+        params = transformer.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        if arch == "gemma2-27b":
+            prompts = [rng.randint(0, cfg.vocab_size, n) for n in G2_PROMPTS]
+            for name in BIG_SERVE:
+                big_static(torch, np, build, params, cfg, name, prompts, smi)
+            big_continuous(torch, np, build, params, cfg, smi)
+        else:
+            prompts = [rng.randint(0, cfg.vocab_size, n) for n in PX_PROMPTS]
+            big_static(torch, np, build, params, cfg, "q4q8", prompts, smi)
+            try:
+                ContinuousEngine(params, cfg)
+            except ValueError as e:
+                if "continuous batching needs maskable left-padding" not in \
+                        str(e):
+                    raise
+                log(f"# big continuous: pixtral refused: {e}")
+            else:
+                raise AssertionError("pixtral: ContinuousEngine was not "
+                                     "refused")
+        del params
+        _free(torch)
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}  # read here
+    log(f"# phase 13 launches {launches} ({time.perf_counter() - t0:.1f} s)")
+    check_big_against_cpu(torch, smi)
+    return launches
+
+
 def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -4791,10 +5201,10 @@ def first_gradient(into: list):
     import repro_torch.train.steps as TS
     real = TS.apply_updates
 
-    def spy(o, p, g, s):
+    def spy(o, p, g, s, **kw):
         if not into:
             into.append(g)
-        return real(o, p, g, s)
+        return real(o, p, g, s, **kw)
 
     TS.apply_updates = spy
     try:
@@ -4880,12 +5290,14 @@ def main() -> int:
     tp_err, tp_timed = tp_kernels(torch, D, quantize, pack4, topk, framing,
                                   codecs, collectives, tiling)
     cs_err, cs_timed = cs_kernels(torch, D, pack4, topk)
+    big_err, big_timed = big_kernels(torch, D, ops, pack4)
     err = {k: max(err.get(k, 0.0), cnn_err[k], pd_err[k], tp_err[k],
-                  cs_err[k]) for k in KERNELS}
+                  cs_err[k], big_err[k]) for k in KERNELS}
     timed.update(cnn_timed)
     timed.update(pd_timed)
     timed.update(tp_timed)
     timed.update(cs_timed)
+    timed.update(big_timed)
     torch.cuda.empty_cache()
     for label, rows in timed.items():
         for name, row in ({"decode_sum_fused": rows} if "ms" in rows
@@ -4901,7 +5313,7 @@ def main() -> int:
                     f"the launches; its times are not to be used")
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
-    # -- phases 3-12: each main path, its counts set to 0 just before it and
+    # -- phases 3-13: each main path, its counts set to 0 just before it and
     # read just after; the kernels line sums them
     paths = []
     for phase, run in ((3, lambda: serve(torch, np, D, _build)),
@@ -4913,7 +5325,8 @@ def main() -> int:
                        (9, lambda: train_state(torch, D, _build, smi)),
                        (10, lambda: tensor_axis(torch, D, _build, smi)),
                        (11, lambda: continuous(torch, np, D, _build, smi)),
-                       (12, lambda: telemetry(torch, D, _build, smi))):
+                       (12, lambda: telemetry(torch, D, _build, smi)),
+                       (13, lambda: big_models(torch, np, _build, smi))):
         paths.append(run())
         log(f"# phase {phase} done at {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
@@ -4921,7 +5334,7 @@ def main() -> int:
         if not v:
             raise AssertionError(f"{k} was launched on no main path")
 
-    # -- phase 13 -----------------------------------------------------------
+    # -- phase 14 -----------------------------------------------------------
     line = []
     for name, (src, replaces) in KERNELS.items():
         row = (timed[DPQ8] if name in DP_KERNELS else

@@ -15,7 +15,8 @@ gradient leaf fill the card: the threshold is a radix select of 2-3 digit
 passes, one launch each after a zeroed scratch, and the compaction a count
 launch and a write launch; a row of one chunk takes one launch for each
 (see the note in ``csrc/topk_select.cu``).  The plain versions bisect the
-31 magnitude bits and cumsum / scatter, as the reference does.
+31 magnitude bits and cumsum / scatter, as the reference does (the
+scatter of the kept entries only).
 """
 from __future__ import annotations
 
@@ -116,11 +117,15 @@ def topk_compact_plain(flat: torch.Tensor, thresh: torch.Tensor, k: int):
     c_gt = gt.sum(dim=1, keepdim=True)
     tie_rank = eq.to(torch.int32).cumsum(dim=1)
     keep = gt | (eq & (tie_rank <= k - c_gt))           # exactly k per row
-    slot = torch.where(keep, keep.to(torch.int32).cumsum(dim=1) - 1, k)
-    cols = torch.arange(n, dtype=torch.int32, device=flat.device)
-    idx = torch.zeros((m, k + 1), dtype=torch.int32, device=flat.device)
-    idx.scatter_(1, slot, cols.expand(m, n))            # column k: dropped
-    idx = idx[:, :k].contiguous()
+    slot = keep.to(torch.int32).cumsum(dim=1) - 1
+    # only the kept entries are written, each to its own slot: scattering
+    # every entry (the rest into a dropped column) makes deterministic
+    # CUDA serialise the colliding writes, seconds on a gradient leaf
+    rows, cols = keep.nonzero(as_tuple=True)
+    at = slot[rows, cols]
+    live = at < k
+    idx = torch.zeros((m, k), dtype=torch.int32, device=flat.device)
+    idx[rows[live], at[live]] = cols[live].to(torch.int32)
     return flat.gather(1, idx.long()), idx
 
 

@@ -139,6 +139,18 @@ def synthetic_stream(cfg, batch: int, seq: int, seed: int = 0,
         step += 1
 
 
+def make_batch(cfg, tokens, device) -> dict:
+    """A train step's batch from (n, S) numpy tokens, on ``device``: the
+    tokens, and zero (n, num_patches, d_model) bf16 patch embeddings for
+    the vision frontend (the reference's stub input)."""
+    b = {"tokens": torch.from_numpy(tokens).to(device, torch.int64)}
+    if cfg.frontend == "vision":
+        b["patch_embeds"] = torch.zeros(
+            (tokens.shape[0], cfg.num_patches, cfg.d_model),
+            dtype=torch.bfloat16, device=device)
+    return b
+
+
 def build_policy(name: str, feedback: str = "none", k_frac: float = 0.1):
     """The named policy, or the unresolved ``PolicyRules`` of a rule spec
     (a bad one raises ``ValueError``); ``feedback`` replaces every cut
@@ -468,10 +480,9 @@ def _train(ap, args, tracing: bool) -> int:
         toks, ids = next(stream)
         with obs_trace.span("train.step", cat="train", step=step) as sa:
             extra = [s for s in (dp_state, tp_state) if s is not None]
-            out = step_fn(
-                params, opt_state, bstates,
-                {"tokens": torch.from_numpy(toks).to(dev, torch.int64)},
-                torch.from_numpy(ids).to(dev), *extra)
+            out = step_fn(params, opt_state, bstates,
+                          make_batch(cfg, toks, dev),
+                          torch.from_numpy(ids).to(dev), *extra)
             params, opt_state, bstates, m = out[0], out[1], out[2], out[-1]
             rest = list(out[3:-1])
             if dp_state is not None:

@@ -1,10 +1,18 @@
 """Per-layer blocks.
 
-Port of the dense attention block of ``repro/models/blocks.py``
-(``_attn_block_train`` / ``_prefill`` / ``_decode`` / ``_cache``):
-pre-norm GQA attention + MLP with residuals, and its tensor-parallel
-twin :func:`attn_block_train_tp`.  Other kinds (moe, rwkv, hymba,
-local/global) are not ported yet and raise.
+Port of the attention-family blocks of ``repro/models/blocks.py``
+(``_attn_block_train`` / ``_prefill`` / ``_decode`` / ``_decode_span`` /
+``_cache``): GQA attention + MLP with residuals, pre-norm, and gemma2's
+sandwich norms (``pn1`` / ``pn2`` after each sublayer) when
+``cfg.post_norm``; and the tensor-parallel twin
+:func:`attn_block_train_tp`.  Kinds:
+
+  dense        GQA attention (``cfg.window`` if any) + MLP
+  attn_local   sliding-window attention, ``cfg.window or 4096``
+               (gemma2's even layers), a ring cache of min(window, C)
+  attn_global  full attention (gemma2's odd layers)
+
+moe, rwkv and hymba are not ported yet and raise.
 
 Uniform interface, params stacked per group by the caller:
   block_init(gen, cfg, kind, groups)                   -> stacked params
@@ -25,7 +33,7 @@ from repro_torch.models.common import (DTYPE, dense_init, mlp_apply, mlp_init,
                                        norm_apply, norm_init)
 from repro_torch.models.config import ModelConfig
 
-PORTED_KINDS = ("dense",)
+PORTED_KINDS = ("dense", "attn_local", "attn_global")
 
 
 def _check_kind(kind: str):
@@ -34,34 +42,50 @@ def _check_kind(kind: str):
                                   f"to repro_torch (ported: {PORTED_KINDS})")
 
 
-def _attn_kwargs(cfg: ModelConfig):
+def _attn_kwargs(cfg: ModelConfig, kind: str):
+    window = cfg.window
+    if kind == "attn_local":
+        window = cfg.window or 4096
+    elif kind == "attn_global":
+        window = None
     return dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                 head_dim=cfg.resolved_head_dim, pos_embed=cfg.pos_embed,
-                rope_theta=cfg.rope_theta)
+                rope_theta=cfg.rope_theta, window=window,
+                attn_softcap=cfg.attn_softcap)
 
 
 def block_init(gen, cfg: ModelConfig, kind: str, groups: int):
     _check_kind(kind)
     d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd, lead = cfg.resolved_head_dim, (groups,)
-    return {"ln1": norm_init(d, cfg.norm, gen.device, lead),
-            "ln2": norm_init(d, cfg.norm, gen.device, lead),
-            "attn": {"wq": dense_init(gen, d, h * hd, DTYPE, lead),
-                     "wk": dense_init(gen, d, kv * hd, DTYPE, lead),
-                     "wv": dense_init(gen, d, kv * hd, DTYPE, lead),
-                     "wo": dense_init(gen, h * hd, d, DTYPE, lead)},
-            "mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp, DTYPE, lead)}
+    p = {"ln1": norm_init(d, cfg.norm, gen.device, lead),
+         "ln2": norm_init(d, cfg.norm, gen.device, lead),
+         "attn": {"wq": dense_init(gen, d, h * hd, DTYPE, lead),
+                  "wk": dense_init(gen, d, kv * hd, DTYPE, lead),
+                  "wv": dense_init(gen, d, kv * hd, DTYPE, lead),
+                  "wo": dense_init(gen, h * hd, d, DTYPE, lead)}}
+    if cfg.post_norm:
+        p["pn1"] = norm_init(d, cfg.norm, gen.device, lead)
+        p["pn2"] = norm_init(d, cfg.norm, gen.device, lead)
+    p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp, DTYPE, lead)
+    return p
 
 
-def _attn_block_train(p, x, cfg: ModelConfig):
-    x = x + A.attn_train(p["attn"], norm_apply(p["ln1"], x, cfg.norm),
-                         **_attn_kwargs(cfg))
-    return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.mlp)
+def _maybe_post(p, name, h, cfg: ModelConfig):
+    """gemma2's post-sublayer norm ``name`` on ``h`` when ``post_norm``."""
+    return norm_apply(p[name], h, cfg.norm) if cfg.post_norm else h
+
+
+def _attn_block_train(p, x, cfg: ModelConfig, kind: str):
+    h = A.attn_train(p["attn"], norm_apply(p["ln1"], x, cfg.norm),
+                     **_attn_kwargs(cfg, kind))
+    x = x + _maybe_post(p, "pn1", h, cfg)
+    h = mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.mlp)
+    return x + _maybe_post(p, "pn2", h, cfg)
 
 
 # Block kinds whose weights shard over the tensor ring (the dense family:
-# heads over tp for attention, d_ff over tp for the MLP); of these the port
-# has "dense" (PORTED_KINDS).
+# heads over tp for attention, d_ff over tp for the MLP).
 TP_BLOCK_KINDS = ("dense", "attn_local", "attn_global")
 
 
@@ -86,8 +110,9 @@ def attn_block_train_tp(ps, xs, cfg: ModelConfig, kind: str, tpc,
     hs, b1 = A.attn_train_tp([p["attn"] for p in ps],
                              [norm_apply(p["ln1"], x, cfg.norm)
                               for p, x in zip(ps, xs)],
-                             tpc, buf=b1, remat=remat, **_attn_kwargs(cfg))
-    xs = [x + h for x, h in zip(xs, hs)]
+                             tpc, buf=b1, remat=remat,
+                             **_attn_kwargs(cfg, kind))
+    xs = [x + _maybe_post(p, "pn1", h, cfg) for p, x, h in zip(ps, xs, hs)]
     fulls, b2 = tpc.gather_site([norm_apply(p["ln2"], x, cfg.norm)
                                  for p, x in zip(ps, xs)], b2)
 
@@ -97,56 +122,62 @@ def attn_block_train_tp(ps, xs, cfg: ModelConfig, kind: str, tpc,
     partials = [checkpoint(local, p["mlp"], f, use_reentrant=False) if remat
                 else local(p["mlp"], f) for p, f in zip(ps, fulls)]
     hs = tpc.scatter(partials)
-    return [x + h for x, h in zip(xs, hs)], (b1, b2)
+    return ([x + _maybe_post(p, "pn2", h, cfg)
+             for p, x, h in zip(ps, xs, hs)], (b1, b2))
 
 
-def _attn_block_prefill(p, x, cfg: ModelConfig, cache_len: int,
+def _attn_block_prefill(p, x, cfg: ModelConfig, kind: str, cache_len: int,
                         pad_mask=None):
     h, cache = A.attn_prefill(p["attn"], norm_apply(p["ln1"], x, cfg.norm),
                               cache_len=cache_len, pad_mask=pad_mask,
-                              **_attn_kwargs(cfg))
-    x = x + h
-    x = x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.mlp)
-    return x, cache
+                              **_attn_kwargs(cfg, kind))
+    x = x + _maybe_post(p, "pn1", h, cfg)
+    h = mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.mlp)
+    return x + _maybe_post(p, "pn2", h, cfg), cache
 
 
-def _attn_block_decode(p, x1, cache, pos, cfg: ModelConfig, pad_len=None):
+def _attn_block_decode(p, x1, cache, pos, cfg: ModelConfig, kind: str,
+                       pad_len=None):
     h, cache = A.attn_decode(p["attn"], norm_apply(p["ln1"], x1, cfg.norm),
-                             cache, pos, pad_len=pad_len, **_attn_kwargs(cfg))
-    x1 = x1 + h
-    x1 = x1 + mlp_apply(p["mlp"], norm_apply(p["ln2"], x1, cfg.norm),
-                        cfg.mlp)
-    return x1, cache
+                             cache, pos, pad_len=pad_len,
+                             **_attn_kwargs(cfg, kind))
+    x1 = x1 + _maybe_post(p, "pn1", h, cfg)
+    h = mlp_apply(p["mlp"], norm_apply(p["ln2"], x1, cfg.norm), cfg.mlp)
+    return x1 + _maybe_post(p, "pn2", h, cfg), cache
 
 
-def _attn_block_decode_span(p, x, cache, pos, cfg: ModelConfig,
+def _attn_block_decode_span(p, x, cache, pos, cfg: ModelConfig, kind: str,
                             pad_len=None, page_map=None, valid_len=None):
     h, cache = A.attn_decode_span(
         p["attn"], norm_apply(p["ln1"], x, cfg.norm), cache, pos,
         pad_len=pad_len, page_map=page_map, valid_len=valid_len,
-        **_attn_kwargs(cfg))
-    x = x + h
-    x = x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.mlp)
-    return x, cache
+        **_attn_kwargs(cfg, kind))
+    x = x + _maybe_post(p, "pn1", h, cfg)
+    h = mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.mlp)
+    return x + _maybe_post(p, "pn2", h, cfg), cache
 
 
-def _attn_block_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
-                      device):
-    return A.init_cache(batch, cache_len, cfg.num_kv_heads,
-                        cfg.resolved_head_dim, dtype, device)
+def _attn_block_cache(cfg: ModelConfig, kind: str, batch: int,
+                      cache_len: int, dtype, device):
+    """``cache_len`` rows, or a ring of min(window, cache_len) rows."""
+    window = _attn_kwargs(cfg, kind)["window"]
+    c = cache_len if window is None else min(window, cache_len)
+    return A.init_cache(batch, c, cfg.num_kv_heads, cfg.resolved_head_dim,
+                        dtype, device)
 
 
 def block_train(p, x, cfg: ModelConfig, kind: str):
     """Returns (y, aux_loss); the dense kind has no auxiliary loss."""
     _check_kind(kind)
-    return _attn_block_train(p, x, cfg), x.new_zeros((), dtype=torch.float32)
+    return (_attn_block_train(p, x, cfg, kind),
+            x.new_zeros((), dtype=torch.float32))
 
 
 def block_prefill(p, x, cfg: ModelConfig, kind: str, cache_len: int,
                   pad_mask=None):
     """``pad_mask``: (B, S) bool, True = real token."""
     _check_kind(kind)
-    return _attn_block_prefill(p, x, cfg, cache_len, pad_mask)
+    return _attn_block_prefill(p, x, cfg, kind, cache_len, pad_mask)
 
 
 def block_decode(p, x1, cache, pos, cfg: ModelConfig, kind: str,
@@ -154,7 +185,7 @@ def block_decode(p, x1, cache, pos, cfg: ModelConfig, kind: str,
     """``pos``: an int or a (B,) tensor of per-slot positions;
     ``pad_len``: (B,) — cache slots before it are left-padding."""
     _check_kind(kind)
-    return _attn_block_decode(p, x1, cache, pos, cfg, pad_len)
+    return _attn_block_decode(p, x1, cache, pos, cfg, kind, pad_len)
 
 
 def block_decode_span(p, x, cache, pos, cfg: ModelConfig, kind: str,
@@ -162,11 +193,11 @@ def block_decode_span(p, x, cache, pos, cfg: ModelConfig, kind: str,
     """Multi-token decode over a slab or paged KV cache (see
     attention.attn_decode_span).  Attention kinds only."""
     _check_kind(kind)
-    return _attn_block_decode_span(p, x, cache, pos, cfg, pad_len,
+    return _attn_block_decode_span(p, x, cache, pos, cfg, kind, pad_len,
                                    page_map, valid_len)
 
 
 def block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                 dtype=DTYPE, device=None):
     _check_kind(kind)
-    return _attn_block_cache(cfg, batch, cache_len, dtype, device)
+    return _attn_block_cache(cfg, kind, batch, cache_len, dtype, device)

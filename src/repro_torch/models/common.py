@@ -1,4 +1,4 @@
-"""Shared model building blocks: norms, MLP, RoPE, initializers.
+"""Shared model building blocks: norms, MLP, RoPE, softcap, initializers.
 
 Port of ``repro/models/common.py``.  Params are nested dicts of tensors;
 bf16 weights and activations, fp32 norm statistics and RoPE angles.
@@ -8,6 +8,7 @@ device; ``lead`` prepends stacked dims (the layer-group dim).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -85,3 +86,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """``tanh(x / cap) * cap`` (gemma2's logit softcap); ``None``: x.
+    A division, as the reference writes it, not a product by 1/cap."""
+    if cap is None:
+        return x
+    return torch.tanh(x / cap) * cap

@@ -45,21 +45,20 @@ from repro_torch.core.boundary import (boundary_apply, boundary_eval,
 from repro_torch.core.policy import CompressionPolicy, NO_POLICY
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
-from repro_torch.models.common import DTYPE, embed_init, norm_apply, norm_init
+from repro_torch.models.common import (DTYPE, embed_init, norm_apply,
+                                       norm_init, softcap)
 from repro_torch.models.config import ModelConfig
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for architecture features this port does not have yet."""
+    """Raise for architecture features this port does not have yet: the
+    layer kinds outside ``blocks.PORTED_KINDS`` (moe, rwkv, hymba), the
+    encoder-decoder stack and the audio frontend."""
     missing = [f"layer kind {k!r}" for k in cfg.layer_kinds()
                if k not in B.PORTED_KINDS]
-    for feature, present in (("sliding window", cfg.window is not None),
-                             ("attention softcap", cfg.attn_softcap),
-                             ("final softcap", cfg.final_softcap),
-                             ("post-norm", cfg.post_norm),
-                             ("encoder-decoder", cfg.enc_dec),
+    for feature, present in (("encoder-decoder", cfg.enc_dec),
                              (f"{cfg.frontend} frontend",
-                              cfg.frontend != "none")):
+                              cfg.frontend not in ("none", "vision"))):
         if present:
             missing.append(feature)
     if missing:
@@ -102,14 +101,23 @@ def _group(tree, g: int):
 
 
 def _lm_logits(params, x, cfg: ModelConfig):
-    """Logits in bf16 (fp32 accumulation inside the matmul); tied head."""
+    """Logits in bf16 (fp32 accumulation inside the matmul), through the
+    ``lm_head`` or the tied embedding, softcapped in bf16 when the config
+    has a final softcap (gemma2)."""
     x = norm_apply(params["final_norm"], x, cfg.norm)
     head = params.get("lm_head", params["embed"])
-    return x.to(DTYPE) @ head.to(DTYPE).T
+    return softcap(x.to(DTYPE) @ head.to(DTYPE).T, cfg.final_softcap)
 
 
-def _embed(params, batch):
-    return params["embed"][batch["tokens"]].to(DTYPE)
+def _embed_input(params, batch, cfg: ModelConfig):
+    """batch: {"tokens": (B, S)} (+ "patch_embeds": (B, P, d) for the
+    vision frontend, whose patch embeddings take the first P rows: P rows
+    even when S < P, as in the reference)."""
+    x = params["embed"][batch["tokens"]].to(DTYPE)
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        p = batch["patch_embeds"].shape[1]
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x[:, p:]], dim=1)
+    return x
 
 
 def forward_hidden(params, batch, cfg: ModelConfig,
@@ -123,7 +131,7 @@ def forward_hidden(params, batch, cfg: ModelConfig,
     ``i``'s new backward state once backward has run (the reference
     returns it as the cotangent of the bw buffer)."""
     kinds = cfg.layer_kinds()
-    x = _embed(params, batch)
+    x = _embed_input(params, batch, cfg)
     aux = x.new_zeros((), dtype=torch.float32)
     segs = segment_bounds(cfg.num_groups, policy.num_stages)
     new_fw, slots = [], []
@@ -274,7 +282,7 @@ def forward_eval(params, batch, cfg: ModelConfig,
     """Logits with the cuts compressed by the plain fw compressor
     (``compress``) or not compressed at all."""
     kinds = cfg.layer_kinds()
-    x = _embed(params, batch)
+    x = _embed_input(params, batch, cfg)
     segs = segment_bounds(cfg.num_groups, policy.num_stages)
     for si, (g0, g1) in enumerate(segs):
         for g in range(g0, g1):
@@ -365,7 +373,7 @@ def prefill(params, batch, cfg: ModelConfig,
     the reference).  ``wire=True``: the cuts pack/unpack real payloads."""
     kinds = cfg.layer_kinds()
     beval = boundary_wire_eval if wire else boundary_eval
-    x = _embed(params, batch)
+    x = _embed_input(params, batch, cfg)
     cache_len = cache_len or x.shape[1]
     pad_mask = None
     if pad_len is not None:

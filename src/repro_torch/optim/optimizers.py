@@ -5,7 +5,12 @@ are nested dicts and lists of tensors mirroring each other (the CNN's
 ``stages`` is a list of lists of dicts); every update is
 computed in float32 and cast back to the parameter's (and the moment's)
 dtype, step for step as in the reference.  Updates run under
-``torch.no_grad`` and return new tensors; nothing is updated in place.
+``torch.no_grad``, one leaf at a time, the gradient clip's scale applied
+per leaf, and return new tensors; with ``donate=True`` (the port of the
+reference step's ``donate_argnums``) the params and moments are
+overwritten in place instead, so a large model never holds two copies of
+its AdamW state.  The arithmetic, and so every bit, is the same either
+way.
 """
 from __future__ import annotations
 
@@ -91,26 +96,51 @@ def _global_norm(grads) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _work(t: torch.Tensor, donate: bool) -> torch.Tensor:
+    """``t`` as a float32 tensor the update may overwrite: ``t`` itself
+    when donated and already float32, else a float32 copy."""
+    if donate and t.dtype == torch.float32:
+        return t
+    return t.to(torch.float32, copy=True)
+
+
+def _give(dst: torch.Tensor, new: torch.Tensor, dtype, donate: bool):
+    """The updated leaf: ``new`` written into ``dst`` when donated, else
+    ``new`` cast to ``dtype``."""
+    if not donate:
+        return new.to(dtype)
+    if new is not dst:
+        dst.copy_(new)
+    return dst
+
+
 @torch.no_grad()
-def apply_updates(cfg: OptimizerConfig, params, grads, state):
-    """Returns ``(new_params, new_state)``."""
+def apply_updates(cfg: OptimizerConfig, params, grads, state,
+                  donate: bool = False):
+    """Returns ``(new_params, new_state)``.  ``donate``: ``params`` and
+    ``state`` are updated in place and returned (the caller must not
+    expect the old values), the same bits as without it."""
     step = state["step"] + 1
     lr = schedule_lr(cfg, step)
-
+    scale = None
     if cfg.grad_clip:
         scale = torch.clamp(cfg.grad_clip / (_global_norm(grads) + 1e-9),
                             max=1.0)
+
+    def grad32(g):
         # the reference's bf16 grad times its f32 scale is promoted to f32
-        grads = tree_map(lambda g: g.to(torch.float32) * scale, grads)
+        gf = g.to(torch.float32)
+        return gf if scale is None else gf * scale
 
     if cfg.kind == "sgd":
         def upd(p, g, m):
-            gf = g.to(torch.float32)
+            gf = grad32(g)
             if cfg.weight_decay:
                 gf = gf + cfg.weight_decay * p.to(torch.float32)
             m_new = cfg.momentum * m.to(torch.float32) + gf
             p_new = p.to(torch.float32) - lr * m_new
-            return p_new.to(p.dtype), m_new.to(cfg.moment_dtype)
+            return (_give(p, p_new, p.dtype, donate),
+                    _give(m, m_new, cfg.moment_dtype, donate))
         out = tree_map(upd, params, grads, state["mu"])
         return (_pick(out, 0),
                 {"step": step, "mu": _pick(out, 1)})
@@ -120,16 +150,32 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state):
     bc2 = 1 - torch.pow(torch.full_like(lr, b2), step.to(torch.float32))
 
     def upd(p, g, m, v):
-        gf = g.to(torch.float32)
-        m_new = b1 * m.to(torch.float32) + (1 - b1) * gf
-        v_new = b2 * v.to(torch.float32) + (1 - b2) * gf * gf
-        mh = m_new / bc1
-        vh = v_new / bc2
+        # b1 * m + (1 - b1) * g, b2 * v + (1 - b2) * g * g, then
+        # p - lr * (m^ / (sqrt(v^) + eps) + wd * p), rounded op by op as
+        # the expression would be, in at most three leaf-sized temporaries
+        gf = grad32(g)
+        m_new = _work(m, donate)
+        m_new *= b1
+        m_new += gf * (1 - b1)
+        v_new = _work(v, donate)
+        v_new *= b2
+        t = gf * (1 - b2)
+        t *= gf
+        v_new += t
+        del gf, t
+        step_ = m_new / bc1
+        den = v_new / bc2
+        den.sqrt_()
+        den += cfg.eps
+        step_ /= den
+        del den
         pf = p.to(torch.float32)
-        p_new = pf - lr * (mh / (torch.sqrt(vh) + cfg.eps)
-                           + cfg.weight_decay * pf)
-        return (p_new.to(p.dtype), m_new.to(cfg.moment_dtype),
-                v_new.to(cfg.moment_dtype))
+        step_ += cfg.weight_decay * pf
+        step_ *= lr
+        p_new = pf - step_
+        return (_give(p, p_new, p.dtype, donate),
+                _give(m, m_new, cfg.moment_dtype, donate),
+                _give(v, v_new, cfg.moment_dtype, donate))
 
     out = tree_map(upd, params, grads, state["mu"], state["nu"])
     return (_pick(out, 0),

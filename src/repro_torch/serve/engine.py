@@ -67,6 +67,18 @@ def left_pad_unsupported(cfg: ModelConfig) -> set:
     return bad
 
 
+def _make_batch(cfg: ModelConfig, tokens: torch.Tensor) -> dict:
+    """A prefill batch from (B, S) device tokens: the tokens, and zero
+    (B, num_patches, d_model) bf16 patch embeddings for the vision
+    frontend (the reference's stub input)."""
+    b = {"tokens": tokens}
+    if cfg.frontend == "vision":
+        b["patch_embeds"] = torch.zeros(
+            (tokens.shape[0], cfg.num_patches, cfg.d_model),
+            dtype=torch.bfloat16, device=tokens.device)
+    return b
+
+
 class ServeEngine:
     """Static batch: left-pad prompts to the longest, prefill once, decode
     greedily (argmax, first index on ties) to the batch's max new tokens.
@@ -85,8 +97,17 @@ class ServeEngine:
     def _pack(self, requests: List[Request]):
         """Left-pad prompts to a common length; the per-request pad length
         masks the padding out of attention, so a short prompt generates
-        what it would alone."""
+        what it would alone.  Archs in :func:`left_pad_unsupported` take
+        equal-length prompts only."""
         plen = max(len(r.prompt) for r in requests)
+        if plen != min(len(r.prompt) for r in requests):
+            unsupported = left_pad_unsupported(self.cfg)
+            if unsupported:
+                raise ValueError(
+                    "mixed-length prompts need left-padding, which "
+                    f"{sorted(unsupported)} cannot support (see "
+                    "left_pad_unsupported) — batch equal-length "
+                    "prompts for this arch")
         prompts = np.zeros((len(requests), plen), np.int64)
         for i, r in enumerate(requests):
             prompts[i, plen - len(r.prompt):] = r.prompt
@@ -100,9 +121,9 @@ class ServeEngine:
 
     def _prefill(self, prompts, pad_len):
         logits, caches = transformer.prefill(
-            self.params, {"tokens": prompts}, self.cfg, self.policy,
-            cache_len=self.max_seq, compress=self.compress, pad_len=pad_len,
-            wire=True)
+            self.params, _make_batch(self.cfg, prompts), self.cfg,
+            self.policy, cache_len=self.max_seq, compress=self.compress,
+            pad_len=pad_len, wire=True)
         return torch.argmax(logits[:, -1], dim=-1), caches
 
     def _decode(self, token, caches, pos: int, pad_len):
@@ -300,9 +321,10 @@ class ContinuousEngine:
         """Prefill one request at its bucket length and splice its KV into
         ``slot``; returns its first sampled token (a device scalar)."""
         logits, one = transformer.prefill(
-            self.params, {"tokens": host_ints(tokens, self.device)}, self.cfg,
-            self.policy, cache_len=self.max_seq, compress=self.compress,
-            pad_len=host_ints([pad], self.device), wire=True)
+            self.params, _make_batch(self.cfg, host_ints(tokens, self.device)),
+            self.cfg, self.policy, cache_len=self.max_seq,
+            compress=self.compress, pad_len=host_ints([pad], self.device),
+            wire=True)
         C.write_slot(self._caches, one, slot)
         return sample_tokens(logits.reshape(1, -1), [gen], self.sampling)[0]
 

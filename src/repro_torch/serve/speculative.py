@@ -106,10 +106,12 @@ class DraftWorker:
         toks = np.zeros((1, bucket), np.int64)
         toks[0, bucket - len(prompt):] = prompt
         pad = bucket - len(prompt)
+        from repro_torch.serve.engine import _make_batch
         _, one = transformer.prefill(
-            self.params, {"tokens": host_ints(toks, self.device)}, self.cfg,
-            self.policy, cache_len=self.max_seq, compress=self.compress,
-            pad_len=host_ints([pad], self.device), wire=True)
+            self.params, _make_batch(self.cfg, host_ints(toks, self.device)),
+            self.cfg, self.policy, cache_len=self.max_seq,
+            compress=self.compress, pad_len=host_ints([pad], self.device),
+            wire=True)
         C.write_slot(self._caches, one, slot)
         self.pos[slot] = bucket
         self.pad[slot] = pad

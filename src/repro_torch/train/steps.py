@@ -207,7 +207,8 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
                        schedule: str = "gpipe", virtual_stages: int = 1,
                        dp=_UNSET, dp_codec=_UNSET, dp_feedback=_UNSET,
                        dp_k_frac=_UNSET, boundary_feat=None,
-                       parallel: Optional[ParallelSpec] = None):
+                       parallel: Optional[ParallelSpec] = None,
+                       donate: bool = False):
     """Returns ``step(params, opt_state, bstates, batch, ids) -> (params,
     opt_state, bstates, metrics)``.
 
@@ -218,7 +219,13 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
     batch: {"tokens": (B, S) int}; ``bstates``: one ``{"fw", "bw"}`` dict
     per cut (``[]`` without compression); ``ids``: (B,) example ids.  The
     caller's params are not modified; AQ-SGD's fw buffer is updated in
-    place (``core/feedback.aqsgd_message``).
+    place (``core/feedback.aqsgd_message``).  ``donate`` is the port of
+    the reference's ``donate`` argument (its ``donate_argnums``; the
+    reference defaults to it, the port does not, since an eager tensor
+    cannot be invalidated): with ``donate=True`` (simulated transport)
+    the params and optimizer state are updated in place instead
+    (``optim.apply_updates(donate=True)``, the same bits), and the
+    caller's old params and state then hold the new values.
 
     ``grad_accum > 1`` (simulated transport): the batch, ids and feedback
     buffers split along B into ``grad_accum`` pieces, run one after the
@@ -358,12 +365,13 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
         d_ax = spec.data
         return _make_dp_simulated_step(policy, opt, compute_grads, spec.dp,
                                        d_ax.codec, d_ax.feedback,
-                                       d_ax.k_frac)
+                                       d_ax.k_frac, donate)
 
     def step(params, opt_state, bstates, batch, ids):
         grads, new_states, metrics = compute_grads(params, bstates, batch,
                                                    ids)
-        params, opt_state = apply_updates(opt, params, grads, opt_state)
+        params, opt_state = apply_updates(opt, params, grads, opt_state,
+                                          donate=donate)
         return params, opt_state, new_states, metrics
 
     return step
@@ -383,7 +391,7 @@ def _merge_lanes(orig: FeedbackState, lanes) -> FeedbackState:
 
 
 def _make_dp_simulated_step(policy, opt, compute_grads, dp, dp_codec,
-                            dp_feedback, dp_k_frac):
+                            dp_feedback, dp_k_frac, donate=False):
     """Data-parallel wrapper around the simulated-boundary gradient: ``dp``
     lanes, one per contiguous batch shard (the reference's ``jax.vmap``,
     written out as a loop), then one compressed all-reduce of the lanes'
@@ -420,7 +428,8 @@ def _make_dp_simulated_step(policy, opt, compute_grads, dp, dp_codec,
             lane_states.append(new_states)
             lane_metrics.append(m)
         grads, dp_state, wire = reduce_fn(grads_dp, dp_state)
-        params, opt_state = apply_updates(opt, params, grads, opt_state)
+        params, opt_state = apply_updates(opt, params, grads, opt_state,
+                                          donate=donate)
         new_states = [{d: _merge_lanes(st[d], [ls[i][d] for ls in
                                                lane_states])
                        for d in ("fw", "bw")}
@@ -486,7 +495,7 @@ def _pipeline_lm_grads(cfg, params, batch, n_slices: int, rows: int,
     each row's ``out``."""
     params = tree_map(lambda p: p.detach().requires_grad_(True), params)
     labels, mask = _labels_and_mask(batch["tokens"])
-    x = transformer._embed(params, batch)
+    x = transformer._embed_input(params, batch, cfg)
     stack = transformer.stack_layer_stages(params, n_slices)
     stacks = [tree_map(lambda a: a.detach().requires_grad_(True), stack)
               for _ in range(rows)]

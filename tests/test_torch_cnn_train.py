@@ -172,7 +172,7 @@ def test_train_step_gradients_match_reference(model, data, monkeypatch):
     """One uncompressed step with the optimizer swapped for one that hands
     back the gradients as the new params."""
     jp, tp = model
-    grads_out = lambda opt, params, grads, state: (grads, state)  # noqa
+    grads_out = lambda opt, params, grads, state, **kw: (grads, state)  # noqa
     monkeypatch.setattr(JS, "apply_updates", grads_out)
     monkeypatch.setattr(TS, "apply_updates", grads_out)
     x, y, ids = next(data[0].epoch(B, 0))
@@ -437,7 +437,7 @@ def test_pipeline_cnn_step_matches_reference(name, pipe_ref, monkeypatch):
     gpipe's in the port bitwise."""
     pname, sched = PIPE[name]
     params = _pipe_params(pipe_ref)
-    monkeypatch.setattr(TS, "apply_updates", lambda o, p, g, s: (g, s))
+    monkeypatch.setattr(TS, "apply_updates", lambda o, p, g, s, **kw: (g, s))
     pol = _policy(TP, pname, PIPE_S)
     data = TData(**DATA)
     st = TL._pipeline_bstates(pol, (32, 32, WIDTH), batch=PIPE_B,

@@ -12,7 +12,9 @@ the other test workers beside it.
 Cases: a toy MLP stage stack (f32, d=256) and the gpt2-small smoke model
 with 4 layer groups (bf16, batch 16, seq 32), under none / q8 / q4 / topk
 / topk_reuse, gpipe / 1f1b / interleaved, and EF / EF21 / EF-mixed /
-AQ-SGD over two steps (the second reads the buffers the first wrote).
+AQ-SGD over two steps (the second reads the buffers the first wrote);
+and gemma2-27b's smoke model (2 local/global groups, window 16 < seq,
+softcaps, post-norm) under q4q8 / gpipe.
 
 Tolerances (measured on the CPU, then given headroom):
   * toy (f32, every case): loss within ``TOY_LOSS_RTOL`` = 1e-5 relative
@@ -115,8 +117,21 @@ LM = {
     "top10reuse_1f1b": ("top10reuse", "none", "1f1b", 1),
     "aqsgd_gpipe": ("none", "aqsgd", "gpipe", 1),
     "ef21_1f1b": ("none", "ef21", "1f1b", 1),
+    "gemma2_q4q8_gpipe": ("q4q8", "none", "gpipe", 1),
 }
+# the LM cases on another arch's smoke model than gpt2-small's
+LM_ARCHS = {"gemma2_q4q8_gpipe": "gemma2-27b"}
 LM_B, LM_SEQ, LM_MB = 16, 32, 2
+
+
+def lm_config(get, name=None):
+    """An LM case's smoke config from the registry ``get``: gpt2-small's
+    with 4 layer groups, or the arch of ``LM_ARCHS`` as it is."""
+    arch = LM_ARCHS.get(name, "gpt2-small")
+    cfg = get(arch, smoke=True)
+    if arch == "gpt2-small":
+        cfg = dataclasses.replace(cfg, num_layers=4)
+    return cfg
 
 
 def toy_inputs():
@@ -201,12 +216,12 @@ for name, (scheme, sched, s, v, mb) in T.TOY.items():
             out[f"{p}/{d}_mirror"] = np.asarray(state.mirror)
 
 JS.apply_updates = lambda opt, p, g, s: (g, s)
-cfg = dataclasses.replace(get("gpt2-small", smoke=True), num_layers=4)
-params = JT.init_params(jax.random.PRNGKey(0), cfg)
 opt = JO.OptimizerConfig(kind="sgd", lr=0.1)
-toks, lids = T.lm_inputs(cfg.vocab_size)
 mesh = Mesh(np.array(jax.devices()[:2]), ("stage",))
 for name, (pname, feedback, sched, v) in T.LM.items():
+    cfg = T.lm_config(get, name)
+    params = JT.init_params(jax.random.PRNGKey(0), cfg)
+    toks, lids = T.lm_inputs(cfg.vocab_size)
     pol = POLICIES[pname]()
     if feedback == "aqsgd":
         pol = CompressionPolicy(num_stages=2, boundary=aqsgd_policy(0.1))
@@ -390,10 +405,18 @@ def test_pipeline_apply_refuses_bad_calls():
 
 @pytest.fixture(scope="module")
 def lm():
-    jcfg = dataclasses.replace(jget("gpt2-small", smoke=True), num_layers=4)
-    tcfg = dataclasses.replace(tget("gpt2-small", smoke=True), num_layers=4)
-    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
-    return tcfg, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    """``load(name=None) -> (tcfg, params)``: an LM case's smoke model
+    with the reference's seed-0 params, carried through numpy."""
+    models = {}
+
+    def load(name=None):
+        arch = LM_ARCHS.get(name, "gpt2-small")
+        if arch not in models:
+            jp = JT.init_params(jax.random.PRNGKey(0), lm_config(jget, name))
+            models[arch] = (lm_config(tget, name), params_from_numpy(
+                jax.tree.map(np.asarray, jp), "cpu"))
+        return models[arch]
+    return load
 
 
 def _lm_policy(pname, feedback):
@@ -411,11 +434,11 @@ def _leaves(tree, prefix=""):
 
 @pytest.mark.parametrize("name", list(LM))
 def test_lm_pipeline_step_matches_reference(name, ref, lm, monkeypatch):
-    tcfg, params = lm
+    tcfg, params = lm(name)
     pname, feedback, sched, v = LM[name]
     pol = _lm_policy(pname, feedback)
     monkeypatch.setattr(TS, "apply_updates",
-                        lambda opt, p, g, s: (g, s))
+                        lambda opt, p, g, s, **kw: (g, s))
     opt = TO.OptimizerConfig(kind="sgd", lr=0.1)
     st = _pipeline_bstates(pol, (LM_SEQ, tcfg.d_model), batch=LM_B,
                            microbatches=LM_MB, num_samples=LM_B,
@@ -453,7 +476,7 @@ def test_lm_pipeline_step_matches_reference(name, ref, lm, monkeypatch):
 def test_lm_1f1b_equals_gpipe_bitwise(lm):
     """Same cuts, same order: rematerialization and framed hops change no
     bit of the loss or the updated params."""
-    tcfg, params = lm
+    tcfg, params = lm()
     pol = _lm_policy("q4q8", "none")
     opt = TO.OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
                              schedule="cosine", t_max=2, grad_clip=1.0)

@@ -303,7 +303,7 @@ def test_lm_step_under_a_per_cut_rule_policy(monkeypatch, pallas_reference):
     tcfg = dataclasses.replace(tget("gpt2-small", smoke=True), num_layers=4)
     jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
-    grads_out = lambda opt, p, g, s: (g, s)  # noqa: E731
+    grads_out = lambda opt, p, g, s, **kw: (g, s)  # noqa: E731
     monkeypatch.setattr(JS, "apply_updates", grads_out)
     monkeypatch.setattr(TS, "apply_updates", grads_out)
     kw = dict(kind="adamw", lr=1e-3, weight_decay=0.01, schedule="cosine",

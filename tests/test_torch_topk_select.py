@@ -85,3 +85,43 @@ def test_plain_select_matches_pallas_across_chunks(kind, dtype):
         kept = set(idx[0].tolist())
         assert {length - 8 + i for i in range(10)} <= kept
         assert length + 2 not in kept and length + 1 in kept
+
+
+def _special_rows(m, n, rng):
+    """``m`` rows of ``n`` holding few distinct magnitudes (ties across
+    the row), 0.0 beside -0.0, NaN and +-inf."""
+    x = rng.randint(-2, 3, size=(m, n)).astype(np.float32)
+    x[x == 0] = rng.choice([0.0, -0.0], size=int((x == 0).sum()))
+    specials = [np.nan, np.inf, -np.inf, -0.0]
+    for r in range(m):
+        cols = rng.choice(n, size=r + 1, replace=False)
+        x[r, cols] = [specials[(r + j) % 4] for j in range(r + 1)]
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5])
+def test_plain_compact_matches_reference_epilogue(m, dtype):
+    """The plain compaction (which writes the kept entries only) against
+    the reference's cumsum / scatter epilogue of ``topk_select_wire`` on
+    tied, -0.0, NaN and +-inf rows, given the reference's own thresholds
+    and the plain ones: the indices equal, the values bit for bit but for
+    a NaN's sign and payload (PyTorch's CPU ``gather`` of a bfloat16 NaN
+    returns 0xffff), where both are NaN."""
+    n = 41
+    x = _special_rows(m, n, np.random.RandomState(m))
+    xj = jnp.asarray(x, dtype)
+    xt = tensor_from_numpy(np.asarray(xj), "cpu")
+    for k in (1, 2, 7, n // 2, n - 1, n):
+        jv, ji = JTS.topk_select_wire(xj, k, interpret=True)
+        jt = JTS.topk_threshold(xj, k, interpret=True)
+        for thresh in (tensor_from_numpy(np.asarray(jt), "cpu"),
+                       TTS.topk_threshold(xt, k)):
+            vals, idx = TTS.topk_compact_plain(xt, thresh, k)
+            np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+            got = vals.float().numpy()
+            want = np.asarray(jv.astype(jnp.float32))
+            nan = np.isnan(want)
+            np.testing.assert_array_equal(np.isnan(got), nan)
+            np.testing.assert_array_equal(got.view(np.int32)[~nan],
+                                          want.view(np.int32)[~nan])

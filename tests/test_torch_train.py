@@ -102,7 +102,7 @@ def test_train_step_loss_and_gradients(models, monkeypatch):
     """One ``make_lm_train_step`` in each package with the optimizer
     swapped for one that hands back the gradients as the new params."""
     jcfg, tcfg, jp, tp = models
-    grads_out = lambda opt, params, grads, state: (grads, state)
+    grads_out = lambda opt, params, grads, state, **kw: (grads, state)
     monkeypatch.setattr(JS, "apply_updates", grads_out)
     monkeypatch.setattr(TS, "apply_updates", grads_out)
     toks = _tokens(jcfg)
@@ -145,6 +145,40 @@ def test_train_step_updates_params(models):
         _assert_rel(p, jl[name], f"param {name}")
     for name, p in _leaves(tp):          # the caller's params stay as given
         assert not p.requires_grad and p.grad is None
+
+
+@pytest.mark.parametrize("dp", [1, 2])
+def test_donated_step_is_the_undonated_step(models, dp):
+    """``make_lm_train_step(donate=True)`` (q4q8, AdamW with clipping, on
+    one lane or two data-parallel lanes): the undonated step's losses and
+    params bit for bit, the params and moments updated in place."""
+    from repro_torch.core.parallel import ParallelSpec
+    from repro_torch.core.policy import POLICIES
+    from repro_torch.train.loop import init_lm_dp_state
+    _, tcfg, _, tp = models
+    pol = POLICIES["q4q8"]()
+    kw = {} if dp == 1 else {"parallel": ParallelSpec({"data": dp})}
+    runs = []
+    for donate in (False, True):
+        p = TO.tree_map(torch.clone, tp)
+        o = TO.init_opt_state(_topt(), p)
+        step = TS.make_lm_train_step(tcfg, pol, _topt(), donate=donate, **kw)
+        extra = ([init_lm_dp_state(tcfg, p, pol, dp, "none")] if dp > 1
+                 else [])
+        losses = []
+        for seed in (1, 2):
+            given = TO.tree_leaves([p, o["mu"], o["nu"]])
+            res = step(p, o, [], {"tokens": torch.from_numpy(
+                _tokens(tcfg, seed))}, torch.arange(B), *extra)
+            p, o, extra, m = res[0], res[1], list(res[3:-1]), res[-1]
+            same = [a is b for a, b in
+                    zip(given, TO.tree_leaves([p, o["mu"], o["nu"]]))]
+            assert all(same) if donate else not any(same)
+            losses.append(float(m["loss"]))
+        runs.append((losses, TO.tree_leaves([p, o])))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
 
 
 def test_eval_step_matches(models):
@@ -211,6 +245,36 @@ def test_optimizer_matches(case):
                     _assert_ulps(a, b, f"{key}{n} step {i}")
         for (n, a), (_, b) in zip(_leaves(tp), _leaves(jp)):
             _assert_ulps(a, b, f"param{n} step {i}")
+
+
+@pytest.mark.parametrize("case", list(OPT_CASES))
+def test_donated_update_is_the_same_bits(case):
+    """``donate=True`` overwrites the params and moments in place (the
+    reference step's ``donate_argnums``) with the bits of the update
+    that returns new tensors, which leaves its inputs as they were."""
+    gen = torch.Generator().manual_seed(0)
+
+    def tree():
+        return {"a": torch.randn(3, 4, generator=gen).to(torch.bfloat16),
+                "b": {"c": torch.randn(5, generator=gen)}}
+
+    cfg = TO.OptimizerConfig(**OPT_CASES[case])
+    kept = tree()
+    p, s = kept, TO.init_opt_state(cfg, kept)
+    dp = {"a": kept["a"].clone(), "b": {"c": kept["b"]["c"].clone()}}
+    ds = TO.init_opt_state(cfg, dp)
+    before = [t.clone() for t in TO.tree_leaves(kept)]
+    for i in range(3):
+        g = tree()
+        p, s = TO.apply_updates(cfg, p, g, s)
+        leaves = TO.tree_leaves([dp, ds])
+        dp, ds = TO.apply_updates(cfg, dp, g, ds, donate=True)
+        new = TO.tree_leaves([dp, ds])
+        assert all(a is b for a, b in zip(leaves, new) if a.dim())
+        for a, b in zip(TO.tree_leaves([p, s]), new):
+            assert a.dtype == b.dtype and torch.equal(a, b), (case, i)
+    assert all(torch.equal(a, b)
+               for a, b in zip(TO.tree_leaves(kept), before))
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +453,7 @@ def _accum_step(pkg, cfg, params, pname, monkeypatch):
     import repro.core.compressors as JC
     from repro_torch.core.boundary import init_boundary_state as tinit
     from repro_torch.core.policy import POLICIES as TPOL
-    grads_out = lambda opt, p, g, s: (g, s)  # noqa: E731
+    grads_out = lambda opt, p, g, s, **kw: (g, s)  # noqa: E731
     toks = _tokens(cfg, seed=4)
     ids = np.arange(B, dtype=np.int32)
     if pkg == "jax":
@@ -459,7 +523,7 @@ def test_grad_accumulation_equals_the_pieces_by_hand(pname, models,
     from repro_torch.core.boundary import init_boundary_state as tinit
     from repro_torch.core.policy import POLICIES as TPOL
     _, tcfg, _, tp = models
-    monkeypatch.setattr(TS, "apply_updates", lambda o, p, g, s: (g, s))
+    monkeypatch.setattr(TS, "apply_updates", lambda o, p, g, s, **kw: (g, s))
     pol = TPOL[pname]()
     rng = np.random.RandomState(6)
 

@@ -237,7 +237,7 @@ def test_dp_step_with_grad_accum_matches_reference(name, ref, model,
 def _check_dp_case(name, case, accum, ref, model, monkeypatch):
     cfg, params = model
     pname, fb, codec, dfb = case
-    monkeypatch.setattr(TS, "apply_updates", lambda opt, p, g, s: (g, s))
+    monkeypatch.setattr(TS, "apply_updates", lambda opt, p, g, s, **kw: (g, s))
     pol = _policy(pname, fb)
     opt = TO.OptimizerConfig(kind="sgd", lr=0.1)
     bst = [init_boundary_state(pol.at(0), (SEQ, cfg.d_model), batch=B,

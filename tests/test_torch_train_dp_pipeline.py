@@ -530,8 +530,8 @@ def test_dp_pipeline_steps_match_reference(name, ref, models, monkeypatch):
     pname, feedback, sched, v, layers, codec, dfb, k = TRAIN[name]
     grads = []
     real = TS.apply_updates
-    monkeypatch.setattr(TS, "apply_updates", lambda o, p, g, s: (
-        grads.append(g), real(o, p, g, s))[1])
+    monkeypatch.setattr(TS, "apply_updates", lambda o, p, g, s, **kw: (
+        grads.append(g), real(o, p, g, s, **kw))[1])
     states = []
     _, p, st, losses, wires, ids = _run_port(name, models, states)
     exact = (pname, feedback, codec) == ("none", "none", "none")

@@ -10,7 +10,9 @@ axes fail under jax 0.9, see ``ROADMAP.md`` §3): ``Mesh(devices[:2],
 ("tensor",))`` for TP alone and ``Mesh(devices[:n].reshape(dp, stages,
 tp), ("data", "stage", "tensor"))`` for the rest.  Each case trains
 gpt2-small smoke (2 layers, d 256, 4 heads, 2 KV heads: only tp = 2
-divides) for 3 steps at batch 8 x 32 from the reference's params
+divides), or gemma2-27b smoke (``TRAIN_ARCHS``: 2 local/global groups,
+window 16, softcaps, post-norm, 4 heads, 2 KV heads) under tp 2 and no
+compression, for 3 steps at batch 8 x 32 from the reference's params
 (carried through numpy), with the launcher's AdamW (lr 1e-3, weight
 decay 0.01, cosine over the 3 steps, clip 1.0); the optimizer is
 wrapped in both packages to hand back the gradient it was given.
@@ -123,7 +125,11 @@ TRAIN = {
     "s2t2_1f1b": ((1, "none", "none"), (2, "q8"), (2, "q4", "none"),
                   "1f1b"),
     "d2s2t2": ((2, "q8", "none"), (2, "q8"), (2, "q4", "none"), "gpipe"),
+    "gemma2_t2_none": ((1, "none", "none"), (1, "none"), (2, "none", "none"),
+                       "gpipe"),
 }
+# the cases on another arch's smoke model than gpt2-small's
+TRAIN_ARCHS = {"gemma2_t2_none": "gemma2-27b"}
 # the tensor codecs whose step-1 gradient is held by the witness
 WITNESSED = ("q4",)
 # run_lm_experiment's data; a rule-coded tensor wire resolves against the
@@ -178,12 +184,12 @@ def updates_and_grads(opt, p, g, s):
     return p, {"state": s, "grad": g}
 JS.apply_updates = updates_and_grads
 devs = np.array(jax.devices())
-cfg = get("gpt2-small", smoke=True)
-params = JT.init_params(jax.random.PRNGKey(0), cfg)
 opt = JO.OptimizerConfig(**T.OPT)
-toks = T.tokens(cfg.vocab_size)
 ids = jnp.arange(T.B, dtype=jnp.int32)
 for name, ((dp, _, dfb), (s, _), (tp, tc, tfb), sched) in T.TRAIN.items():
+    cfg = get(T.TRAIN_ARCHS.get(name, "gpt2-small"), smoke=True)
+    params = JT.init_params(jax.random.PRNGKey(0), cfg)
+    toks = T.tokens(cfg.vocab_size)
     spec = T.spec_of(name, sys.modules["repro.core.parallel"])
     mesh = (Mesh(devs[:tp], ("tensor",)) if dp == s == 1 else
             Mesh(devs[:dp * s * tp].reshape(dp, s, tp),
@@ -232,6 +238,9 @@ for name, ((dp, _, dfb), (s, _), (tp, tc, tfb), sched) in T.TRAIN.items():
                 out[f"train/{name}/tp_mirror"] = np.asarray(extra[-1].mirror)
     save(f"train/{name}/params", p)
 
+cfg = get("gpt2-small", smoke=True)
+params = JT.init_params(jax.random.PRNGKey(0), cfg)
+toks = T.tokens(cfg.vocab_size)
 # a buffered stage policy with a tensor axis is refused at trace time
 try:
     spec = ParallelSpec({"stage": AxisSpec(2, "q8", "ef"), "tensor": 2})
@@ -275,11 +284,20 @@ def ref(tmp_path_factory):
     return dict(np.load(path))
 
 
+def _model(arch):
+    jcfg = jget(arch, smoke=True)
+    return tget(arch, smoke=True), params_from_numpy(jax.tree.map(
+        np.asarray, JT.init_params(jax.random.PRNGKey(0), jcfg)), "cpu")
+
+
 @pytest.fixture(scope="module")
 def model():
-    jcfg = jget("gpt2-small", smoke=True)
-    return tget("gpt2-small", smoke=True), params_from_numpy(jax.tree.map(
-        np.asarray, JT.init_params(jax.random.PRNGKey(0), jcfg)), "cpu")
+    return _model("gpt2-small")
+
+
+@pytest.fixture(scope="module")
+def gemma2_model():
+    return _model("gemma2-27b")
 
 
 def _f32(t):
@@ -309,8 +327,8 @@ def _run_port(name, model, monkeypatch):
     cfg, params = model
     grads = []
     real = TS.apply_updates
-    monkeypatch.setattr(TS, "apply_updates", lambda o, p, g, st: (
-        grads.append(g), real(o, p, g, st))[1])
+    monkeypatch.setattr(TS, "apply_updates", lambda o, p, g, st, **kw: (
+        grads.append(g), real(o, p, g, st, **kw))[1])
     opt = TO.OptimizerConfig(**OPT)
     step = TS.make_lm_train_step(cfg, TPOL.NO_POLICY, opt,
                                  parallel=spec_of(name),
@@ -337,8 +355,10 @@ def _run_port(name, model, monkeypatch):
 
 
 @pytest.mark.parametrize("name", list(TRAIN))
-def test_tp_steps_match_reference(name, ref, model, monkeypatch):
+def test_tp_steps_match_reference(name, ref, request, monkeypatch):
     (dp, dc, dfb), (s, sc), (tp, tc, tfb), sched = TRAIN[name]
+    model = request.getfixturevalue(
+        "gemma2_model" if TRAIN_ARCHS.get(name) == "gemma2-27b" else "model")
     losses, grads, first, p, wires = _run_port(name, model, monkeypatch)
     exact = (dc, sc, tc) == ("none", "none", "none")
     for i, loss in enumerate(losses):
@@ -410,9 +430,9 @@ def _check_wire(name, cfg, wires):
     # the tensor rings: every lane (or every row's microbatch) runs the
     # whole stack's sites, forward and backward, on its batch
     rows_b = B // dp if s == 1 else B // (dp * MB)
+    jcfg = jget(TRAIN_ARCHS.get(name, "gpt2-small"), smoke=True)
     rep = JTP.tp_wire_report((rows_b, SEQ, d), tp, tc,
-                             sites=JT.tp_sites(jget("gpt2-small",
-                                                    smoke=True)))
+                             sites=JT.tp_sites(jcfg))
     runs = dp * (1 if s == 1 else MB)
     tp_w = {"tp_hops": runs * 2 * tp * 2 * rep["sites_per_forward"]
             * rep["hops_per_collective"],
