@@ -272,9 +272,41 @@ failure fatal:
      4,608), a slab insert (1, 1,024 x 4,608) and decode (2, 4,608);
      pixtral's prefill (2, 512 x 5,120) and decode (2, 5,120)), timing
      the two prefills (``big_kernels``).
- 14. one ``{"kernels": [...]}`` line (launches summed over phases 3-13;
+ 14. Mixture-of-Experts (``models/moe.py``) at full width (launch
+     counters set to 0 just before and read just after), depth cut with
+     ``dataclasses.replace``, seed-0 weights drawn on the card (expert
+     stacks an (in, out) slice at a time): mixtral-8x7b (2 of 32 layers,
+     2 MoE groups, 8 experts top-2, window 4,096; 1 cut) trains 3 steps
+     of 1 x 8,192 tokens (two routing groups of 4,096) under none / q4q8
+     / top10 as phase 13 does ("# big train": losses, aux, step seconds,
+     tokens/s, ``max_memory_allocated`` a step, launches exact, 2 cut
+     kernels a compressing step; a profiled q4q8 step), is served by
+     ``ServeEngine`` on prompts of 4,100 and 300 tokens under none / q4q8
+     (the ring wraps; the MoE routes densely) and by the slab
+     ``ContinuousEngine`` under q4q8 (phase 13's recipe), and the page
+     pool and prefix cache refuse it with the reference's message;
+     llama4-maverick-400b-a17b (4 of 48 layers, 2 (dense, MoE) groups,
+     128 experts top-1 and a shared expert: 35.0 B parameters, 70.1 GB)
+     is served by ``ServeEngine`` on prompts of 300 and 200 tokens and by
+     the paged ``ContinuousEngine`` (a 256-token shared prefix, 3
+     requests, 2 slots, chunks of 128) under q4q8, each with its
+     ``max_memory_allocated``; then both smoke models on the card
+     against the CPU on six seeds, their routing pinned
+     (``RoutingReplay``: each parting a near-tie), eval logits and a
+     q4q8 step's loss and gradient (tests/test_torch_archs.py's bounds)
+     and its aux within 1e-2 of the CPU's.  Phase 2 holds
+     ``quant_dequant`` and ``topk_block`` bit-exact at mixtral's cut
+     (1, 8,192 x 4,096) bf16 and times them, and the q4 pair at every
+     row shape phase 14 feeds it (mixtral's static prefill (2, 4,100 x
+     4,096), its slab inserts (1, 512 | 1,024 | 4,100 x 4,096), the
+     static prefills of its requests alone (2, 512 | 1,024 x 4,096), the
+     decodes (2, 4,096); llama4's static prefill (2, 300 x 5,120), paged
+     prefill chunk (128, 5,120) and decode (2, 5,120)), timing the long
+     ones; phase 14 fails if it feeds the pair a row shape phase 2 did
+     not check.
+ 15. one ``{"kernels": [...]}`` line (launches summed over phases 3-14;
      the select kernels timed at the 38.6 M-element DP leaf), then the
-     ``{"ok": true, ...}`` line.  Every number's line of phases 8-13
+     ``{"ok": true, ...}`` line.  Every number's line of phases 8-14
      carries the card's name and power limit.
 
 Every profiled step of phases 3-11 records the card's activity only and
@@ -4837,15 +4869,17 @@ BIG_Q4 = {"gemma2 static prefill (2, 4100*4608) f32": ((2, 4100 * 4608), True),
           "pixtral decode (2, 5120) f32": ((2, 5120), False)}
 
 
-def big_kernels(torch, D, ops, pack4):
-    """Phase 2 at phase 13's shapes: ``quant_dequant`` (bits 4, 8) and
-    ``topk_block`` (k 0.1, 0.3) at the training cuts, and the q4 pair at
-    the serving wire's rows with per-row statistics (the codec's
-    ``per_request=True``), bit-exact against their plain versions; then
-    the cuts and the long rows timed with their bounds."""
+def big_kernels(torch, D, ops, pack4, cut_shapes=None, q4_rows=None):
+    """Phase 2 at phase 13's shapes (or phase 14's: ``cut_shapes``,
+    ``q4_rows``): ``quant_dequant`` (bits 4, 8) and ``topk_block`` (k 0.1,
+    0.3) at the training cuts, and the q4 pair at the serving wire's rows
+    with per-row statistics (the codec's ``per_request=True``), bit-exact
+    against their plain versions; then the cuts and the long rows timed
+    with their bounds."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     cuts = {label: torch.randn(shape, generator=gen, device="cuda")
-            .to(torch.bfloat16) for label, shape in BIG_CUTS.items()}
+            .to(torch.bfloat16)
+            for label, shape in (cut_shapes or BIG_CUTS).items()}
     err = check_cut_kernels(torch, D, ops, cuts)
     timed = {}
     for label, x in cuts.items():
@@ -4853,7 +4887,7 @@ def big_kernels(torch, D, ops, pack4):
         for name, row in timed[label].items():
             log(f"# {name} {label}: " + json.dumps(row))
     del cuts
-    for label, (shape, timed_too) in BIG_Q4.items():
+    for label, (shape, timed_too) in (q4_rows or BIG_Q4).items():
         # the wire casts the bf16 cut tensor to f32
         x = torch.randn(shape, generator=gen, device="cuda") \
             .to(torch.bfloat16).float()
@@ -4887,7 +4921,7 @@ def big_train_run(torch, build, cfg, arch, name, smi, profile_step=None):
     from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
     from repro_torch.train.steps import make_lm_train_step
 
-    batch, seq, _, per_step = BIG_TRAIN[arch]
+    batch, seq, _, per_step = {**BIG_TRAIN, **MOE_TRAIN}[arch]
     policy = build_policy(name, "none")
     opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
                           schedule="cosine", t_max=BIG_STEPS, grad_clip=1.0)
@@ -4904,7 +4938,7 @@ def big_train_run(torch, build, cfg, arch, name, smi, profile_step=None):
     stream = synthetic_stream(cfg, batch, seq, 0)
     kernel = TRAIN_CUT_KERNELS[name]
     want = {k: per_step if k == kernel else 0 for k in KERNELS}
-    losses, seconds, prof = [], [], None
+    losses, auxes, seconds, peaks, prof = [], [], [], [], None
     for i in range(1, BIG_STEPS + 1):
         toks, ids = next(stream)
         b = make_batch(cfg, toks, "cuda")
@@ -4924,6 +4958,8 @@ def big_train_run(torch, build, cfg, arch, name, smi, profile_step=None):
             torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
+        auxes.append(float(m["aux"]))
+        peaks.append(torch.cuda.max_memory_allocated())
         got = {k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
                for k in KERNELS}
         if got != want:
@@ -4936,12 +4972,18 @@ def big_train_run(torch, build, cfg, arch, name, smi, profile_step=None):
             and losses[-1] < losses[0]):
         raise AssertionError(f"{cfg.arch_id} {name}: losses {losses} are "
                              "not finite and falling")
+    if cfg.num_experts and not all(math.isfinite(v) and v > 0
+                                   for v in auxes):
+        raise AssertionError(f"{cfg.arch_id} {name}: MoE aux {auxes}")
     row = {"arch": cfg.arch_id, "policy": name, "card": smi,
            "batch": batch, "seq": seq, "cuts": cuts, "losses": losses,
+           "aux": auxes,
            "launches_per_step": {k: v for k, v in want.items() if v},
            "step_s": seconds,
+           "tokens_per_s": [batch * seq / t for t in seconds],
            "tokens_per_s_steps_2_to_3": batch * seq * (BIG_STEPS - 1)
-           / sum(seconds[1:]), "max_memory_allocated": peak}
+           / sum(seconds[1:]), "max_memory_allocated_by_step": peaks,
+           "max_memory_allocated": peak}
     if prof is not None:
         dev = sorted(device_records(prof), reverse=True)
         busy = sum(ms for ms, _ in dev)
@@ -4991,15 +5033,18 @@ def big_static(torch, np, build, params, cfg, name, prompts, smi):
     return toks
 
 
-def big_continuous(torch, np, build, params, cfg, smi):
-    """gemma2 through the slab ``ContinuousEngine``: the ring leaves'
+def big_continuous(torch, np, build, params, cfg, smi, names=BIG_SERVE):
+    """A windowed arch (gemma2, mixtral) through the slab
+    ``ContinuousEngine`` under each policy of ``names``: the ring leaves'
     rows, the drains' launches, each stream against the single-tick run
     (near-tie rule) and against each request served alone by the static
     engine; the prefix cache refused with the reference's message."""
     import functools
     from repro_torch.core.policy import POLICIES
     from repro_torch.models import transformer
+    from repro_torch.models.blocks import _attn_kwargs
     from repro_torch.serve.engine import ContinuousEngine
+    arch = cfg.arch_id.split("-")[0]
     rng = np.random.RandomState(5)
     reqs = [(rng.randint(0, cfg.vocab_size, n).astype(np.int64), BIG_NEW, i)
             for i, n in enumerate(G2_CS_PROMPTS)]
@@ -5013,18 +5058,22 @@ def big_continuous(torch, np, build, params, cfg, smi):
             raise
         log(f"# big continuous: prefix_cache=True refused: {e}")
     else:
-        raise AssertionError("gemma2: prefix_cache=True was not refused")
-    for name in BIG_SERVE:
+        raise AssertionError(f"{arch}: prefix_cache=True was not refused")
+    # a ring of min(window, max_seq) rows where the kind has a window
+    want_rows = {}
+    for i, kind in enumerate(cfg.layer_kinds()):
+        w = _attn_kwargs(cfg, kind)["window"]
+        want_rows[f"b{i}"] = (cfg.num_groups, G2_CS_SLOTS,
+                              G2_CS_MAX_SEQ if w is None
+                              else min(w, G2_CS_MAX_SEQ),
+                              cfg.num_kv_heads, cfg.resolved_head_dim)
+    for name in names:
         make = functools.partial(ContinuousEngine, params, cfg,
                                  POLICIES[name](), **kw)
         eng = make()
         rows = {b: tuple(eng._caches[b]["k"].shape) for b in eng._caches}
-        want_rows = {"b0": (2, G2_CS_SLOTS, cfg.window, cfg.num_kv_heads,
-                            cfg.resolved_head_dim),
-                     "b1": (2, G2_CS_SLOTS, G2_CS_MAX_SEQ, cfg.num_kv_heads,
-                            cfg.resolved_head_dim)}
         if rows != want_rows:
-            raise AssertionError(f"gemma2 slab cache leaves {rows}, "
+            raise AssertionError(f"{arch} slab cache leaves {rows}, "
                                  f"expected {want_rows}")
         before = dict(build.LAUNCHES)
         torch.cuda.synchronize()
@@ -5039,7 +5088,7 @@ def big_continuous(torch, np, build, params, cfg, smi):
         want = {k: (forwards * cuts if k in POLICY_KERNELS[name] else 0)
                 for k in KERNELS}
         if moved != want:
-            raise AssertionError(f"gemma2 continuous {name}: launches "
+            raise AssertionError(f"{arch} continuous {name}: launches "
                                  f"{moved}, expected {want} ({st})")
         assert all(((t >= 0) & (t < cfg.vocab_size)).all()
                    for t in out.values())
@@ -5053,12 +5102,12 @@ def big_continuous(torch, np, build, params, cfg, smi):
                                   "ticks")}}))
         del eng
         ref, gaps, tops = cs_gap_run(torch, make, reqs, tops=True)
-        cs_parts(out, ref, gaps, f"gemma2 slab/{name} 8-tick chunks vs "
+        cs_parts(out, ref, gaps, f"{arch} slab/{name} 8-tick chunks vs "
                  "single ticks", smi, tops)
         alone = cs_static(np, params, cfg, POLICIES[name](), reqs,
                           max_prompt=max(G2_CS_PROMPTS),
                           max_seq=G2_CS_MAX_SEQ)
-        cs_parts(alone, ref, gaps, f"gemma2 slab/{name} vs each request "
+        cs_parts(alone, ref, gaps, f"{arch} slab/{name} vs each request "
                  "alone (static engine)", smi, tops)
 
 
@@ -5170,6 +5219,376 @@ def big_models(torch, np, build, smi):
     log(f"# phase 13 launches {launches} ({time.perf_counter() - t0:.1f} s)")
     check_big_against_cpu(torch, smi)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: Mixture-of-Experts (models/moe.py) through mixtral-8x7b and
+# llama4-maverick-400b-a17b at full width
+# ---------------------------------------------------------------------------
+
+# the registry configs at full width, depth cut with dataclasses.replace:
+# mixtral 2 of its 32 layers (2 MoE groups, 8 experts top-2: the 4-stage
+# presets stop at the 2 groups, 1 cut), llama4 4 of its 48 (2 (dense, MoE)
+# groups, 128 experts top-1 and a shared expert, 1 cut)
+MOE_LAYERS = {"mixtral-8x7b": 2, "llama4-maverick-400b-a17b": 4}
+# mixtral trains 1 x 8,192 tokens (two routing groups of 4,096, twice the
+# window): the training cut's launches of a step, forward and backward at
+# its one cut
+MOE_TRAIN = {"mixtral-8x7b": (1, 8192, ("none", "q4q8", "top10"), 2)}
+# mixtral serves as gemma2 does (G2_PROMPTS, the slab recipe); llama4
+# static on two prompts, then through the paged engine: 3 requests behind
+# a 256-token shared prefix, 2 slots, prefill chunks of 128 tokens
+L4_PROMPTS = (300, 200)
+L4_PAGED_SHARED, L4_PAGED_TAILS = 256, (44, 100, 20)
+L4_PAGED = dict(num_slots=2, max_seq=1024, prefix_cache=True,
+                prefill_chunk=128, page_size=16)
+# phase 2 at phase 14's shapes: mixtral's cut, and the q4q8 serving rows
+# (the static prefills left-padded to the longest prompt, the decodes)
+MOE_CUTS = {"mixtral cut (1, 8192*4096) bf16": (1, 8192 * 4096)}
+# every row shape phase 14 feeds the q4 pair (moe_models fails on any
+# other): the slab engine's inserts at their buckets (512, 1,024, 4,100)
+# and the static engine serving each of those requests alone (cs_static:
+# 2 rows a bucket), the paged engine's prefill chunks (a (1, d) payload a
+# token: boundary_wire_eval_tokens)
+MOE_Q4 = {
+    "mixtral static prefill (2, 4100*4096) f32": ((2, 4100 * 4096), True),
+    "mixtral slab insert (1, 4100*4096) f32": ((1, 4100 * 4096), True),
+    "mixtral slab insert (1, 1024*4096) f32": ((1, 1024 * 4096), False),
+    "mixtral slab insert (1, 512*4096) f32": ((1, 512 * 4096), False),
+    "mixtral alone prefill (2, 1024*4096) f32": ((2, 1024 * 4096), False),
+    "mixtral alone prefill (2, 512*4096) f32": ((2, 512 * 4096), False),
+    "mixtral decode (2, 4096) f32": ((2, 4096), False),
+    "llama4 static prefill (2, 300*5120) f32": ((2, 300 * 5120), True),
+    "llama4 paged prefill chunk (128, 5120) f32": ((128, 5120), True),
+    "llama4 decode (2, 5120) f32": ((2, 5120), False)}
+# the smoke models card vs CPU: params seeds (the batch is seed + 1); a
+# routed row is near its CPU row within MOE_ROW_TOL in probability
+# (tests/test_torch_archs.py's); the q4q8 step's aux within
+# MOE_AUX_RTOL of the CPU's, relative (PERF.md: readings up to 2.1e-3)
+MOE_CPU_SEEDS = (1, 2, 3, 4, 5, 6)
+MOE_ROW_TOL = 2.0 ** -3
+MOE_AUX_RTOL = 1e-2
+
+
+class RoutingReplay:
+    """Model-level MoE parity: a first run's routing pinned into a second
+    run of the same model, row by row, each parting shown to be a
+    near-tie.  The first run is the port on the CPU (``recording``: the
+    port's own ``moe._top_k`` feeds ``keep``) or, in the CPU tests, the
+    JAX package (a ``jax.debug.callback`` feeds ``keep``, ``barrier`` is
+    ``jax.effects_barrier``).  ``top_k`` takes ``moe._top_k``'s place;
+    ``own`` is the port's real ``moe._top_k``, passed in, since a
+    replay left in place by an earlier run would otherwise be wrapped.
+
+    The hidden state entering a router is bf16 and differs between the
+    runs by ulps (and, past a compressed cut, by a code step now and
+    then), so a token whose k-th and (k+1)-th experts are that close can
+    route apart, which moves its output far past the bf16 bound.  Each
+    routing call of the second run is matched to the recorded call of
+    its shape with the most rows near its own (a row's largest
+    probability difference within ``row_tol``; then the least median),
+    and row (token) r to its row r: by position, since left-padding and
+    idle slots make rows that are near copies of each other.  A near row
+    takes the recorded choices; where one differs from its own, the
+    parting must be a near-tie: its log-probability margin between its
+    own and the recorded expert, at the first place they differ, no
+    larger than the call's noise, the largest shift of any pairwise
+    log-probability difference between the runs,
+    max_e(dlp_e) - min_e(dlp_e) with dlp = log p_second - log p_first,
+    over the call's near rows that did not part (where it has none, over
+    every such row so far).  A row farther away (a stream after a
+    parting) keeps its own routing.  ``partings`` lists (margin, the
+    call's noise) of each; ``hits`` / ``misses`` count the near and the
+    other rows."""
+
+    def __init__(self, torch, own, row_tol, barrier=None):
+        self.torch, self.own, self.row_tol = torch, own, row_tol
+        self.barrier, self.recording = barrier, False
+        self.bank, self.partings, self.noise = {}, [], 0.0
+        self.hits = self.misses = 0
+
+    def keep(self, probs, idx):
+        """Record one routing call: probs (..., E), idx (..., k)."""
+        import numpy as np
+        e, k = probs.shape[-1], idx.shape[-1]
+        probs = np.asarray(probs).reshape(-1, e)
+        self.bank.setdefault(probs.shape + (k,), []).append(
+            (probs, np.asarray(idx).reshape(-1, k)))
+
+    def top_k(self, probs, k):
+        import numpy as np
+        torch = self.torch
+        vals, idx, onehot = self.own(probs, k)
+        e = probs.shape[-1]
+        got = probs.detach().float().cpu().reshape(-1, e).numpy()
+        own = idx.cpu().reshape(-1, k).numpy()
+        if self.recording:
+            self.keep(got, own)
+            return vals, idx, onehot
+        if self.barrier is not None:
+            self.barrier()
+        calls = self.bank.get(got.shape + (k,), [])
+        rows = [np.abs(rp - got).max(1) for rp, _ in calls]
+        score = [(-int((r <= self.row_tol).sum()), float(np.median(r)))
+                 for r in rows]
+        best = min(range(len(calls)), key=score.__getitem__, default=None)
+        if best is None or score[best][0] == 0:
+            self.misses += len(got)
+            return vals, idx, onehot
+        rp, ref = calls[best]
+        near = rows[best] <= self.row_tol
+        self.hits += int(near.sum())
+        self.misses += int((~near).sum())
+        parted = near & (ref != own).any(1)
+        tiny = np.finfo(np.float32).tiny
+        dlp = np.log(np.maximum(got, tiny)) - np.log(np.maximum(rp, tiny))
+        noise = (dlp.max(1) - dlp.min(1))[near & ~parted]
+        if noise.size:
+            bound = float(noise.max())
+            self.noise = max(self.noise, bound)
+        else:
+            bound = self.noise
+        for r in np.nonzero(parted)[0]:
+            c = int(np.argmax(ref[r] != own[r]))
+            margin = float(np.log(got[r, own[r, c]])
+                           - np.log(got[r, ref[r, c]]))
+            if not 0 <= margin <= bound:
+                raise AssertionError(
+                    f"routing parts at a margin {margin} over the call's "
+                    f"noise {bound}: {own[r]}, recorded {ref[r]}")
+            self.partings.append((margin, bound))
+        if not parted.any():
+            return vals, idx, onehot
+        pinned = np.where(parted[:, None], ref, own).astype(np.int64)
+        idx = torch.from_numpy(pinned).reshape(idx.shape).to(idx.device)
+        onehot = torch.nn.functional.one_hot(idx, e).to(probs.dtype)
+        return (probs[..., None, :] * onehot).sum(-1), idx, onehot
+
+
+def check_moe_against_cpu(torch, smi):
+    """mixtral's and llama4's smoke models on ``MOE_CPU_SEEDS``, the same
+    params and batch on the CPU (routing recorded) and on the card
+    (routing pinned, each parting a near-tie; see RoutingReplay): eval
+    logits within 2**-5 of their largest magnitude, one q4q8 step's loss
+    within 0.05 and gradient within 0.3 of its norm
+    (tests/test_torch_archs.py's bounds), its aux within ``MOE_AUX_RTOL``
+    of the CPU's.  llama4's smoke step is its only training on the
+    card."""
+    from repro_torch.configs.registry import get
+    from repro_torch.core.boundary import init_boundary_state
+    from repro_torch.core.policy import POLICIES
+    from repro_torch.models import moe, transformer
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.steps import make_lm_train_step
+    real = moe._top_k
+    try:
+        for arch, seed in ((a, s) for a in MOE_LAYERS for s in MOE_CPU_SEEDS):
+            cfg = get(arch, smoke=True)
+            params = transformer.init_params(
+                torch.Generator().manual_seed(seed), cfg)
+            gen = torch.Generator().manual_seed(seed + 1)
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 32),
+                                             generator=gen)}
+            policy = POLICIES["q4q8"]()
+            opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                                  schedule="cosine", t_max=2, grad_clip=1.0)
+            cuts = len(transformer.segment_bounds(cfg.num_groups,
+                                                  policy.num_stages)) - 1
+            pins = RoutingReplay(torch, real, MOE_ROW_TOL)
+            moe._top_k = pins.top_k
+            res = {}
+            for first, dev in ((True, "cpu"), (False, "cuda")):
+                pins.recording = first
+                p, b = _tree_to(params, dev), _tree_to(batch, dev)
+                with torch.no_grad():
+                    logits = transformer.forward_eval(p, b, cfg).float().cpu()
+                bst = [init_boundary_state(policy.at(i), (32, cfg.d_model),
+                                           batch=4, dtype=torch.bfloat16,
+                                           device=dev) for i in range(cuts)]
+                grads = []
+                with first_gradient(grads):
+                    _, _, _, m = make_lm_train_step(cfg, policy, opt)(
+                        p, init_opt_state(opt, p), bst, b,
+                        torch.arange(4, device=dev))
+                res[first] = (logits, float(m["loss"]), float(m["aux"]),
+                              _tree_to(grads[0], "cpu"))
+            recorded = sum(len(r) for calls in pins.bank.values()
+                           for r, _ in calls)
+            if pins.misses or pins.hits != recorded:
+                raise AssertionError(
+                    f"{arch} seed {seed}: {pins.hits} routed rows on the "
+                    f"card near their CPU rows, {pins.misses} not, "
+                    f"{recorded} recorded")
+            (lc, loss_c, aux_c, gc), (lg, loss_g, aux_g, gg) = \
+                res[True], res[False]
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"{arch} smoke: non-finite logits on "
+                                     "the card")
+            gap = (lg - lc).abs().max().item()
+            bound = 2.0 ** -5 * lc.abs().max().item()
+            rel = tree_rel_gap(gg, gc)
+            aux_rel = abs(aux_g - aux_c) / abs(aux_c)
+            if not (gap <= bound and abs(loss_g - loss_c) <= 0.05
+                    and aux_rel <= MOE_AUX_RTOL and rel <= 0.3):
+                raise AssertionError(
+                    f"{arch} smoke seed {seed}, card vs CPU: logits gap "
+                    f"{gap} (bound {bound}), q4q8 loss {loss_g} vs "
+                    f"{loss_c}, aux {aux_g} vs {aux_c}, gradient {rel}")
+            log("# moe smoke card vs CPU " + json.dumps({
+                "arch": cfg.arch_id, "seed": seed, "card": smi,
+                "logit_gap": gap, "logit_bound": bound,
+                "q4q8_loss": [loss_g, loss_c], "q4q8_aux": [aux_g, aux_c],
+                "q4q8_aux_rel_gap": aux_rel, "q4q8_grad_rel_gap": rel,
+                "routed_rows": pins.hits,
+                "routing_partings": pins.partings}))
+    finally:
+        moe._top_k = real
+
+
+def moe_paged(torch, np, build, params, cfg, smi):
+    """llama4 through the paged ``ContinuousEngine`` under q4q8: three
+    requests behind a shared prefix (prefix hits, chunked prefill: its
+    MoE meets ``decode_span`` over pages), launches exact (each cut packs
+    once a forward: a prefill chunk or a decode tick), every page back in
+    the pool, its peak memory."""
+    from repro_torch.core.policy import POLICIES
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ContinuousEngine
+    rng = np.random.RandomState(6)
+    shared = rng.randint(0, cfg.vocab_size, L4_PAGED_SHARED)
+    reqs = [(np.concatenate([shared, rng.randint(0, cfg.vocab_size, n)])
+             .astype(np.int64), BIG_NEW, i)
+            for i, n in enumerate(L4_PAGED_TAILS)]
+    policy = POLICIES["q4q8"]()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousEngine(params, cfg, policy, **L4_PAGED)
+    before = dict(build.LAUNCHES)
+    torch.cuda.synchronize()
+    out, wall = cs_serve(eng, reqs)
+    torch.cuda.synchronize()
+    moved = {k: build.LAUNCHES.get(k, 0) - before.get(k, 0) for k in KERNELS}
+    st = eng.stats()
+    cuts = len(transformer.segment_bounds(cfg.num_groups,
+                                          policy.num_stages)) - 1
+    forwards = st["prefill_chunks"] + st["ticks"]
+    want = {k: (forwards * cuts if k in POLICY_KERNELS["q4q8"] else 0)
+            for k in KERNELS}
+    if moved != want:
+        raise AssertionError(f"llama4 paged: launches {moved}, expected "
+                             f"{want} ({st})")
+    eng.pages.check_invariants()
+    if eng.pages.active_pages() or st["prefix_hits"] < 1:
+        raise AssertionError(f"llama4 paged: {eng.pages.active_pages()} "
+                             f"pages active after the drain, stats {st}")
+    if not all(len(t) == BIG_NEW and ((t >= 0) & (t < cfg.vocab_size)).all()
+               for t in out.values()):
+        raise AssertionError(f"llama4 paged: tokens {out}")
+    log("# moe serve " + json.dumps({
+        "arch": cfg.arch_id, "engine": "continuous (paged)",
+        "policy": "q4q8", "card": smi, "shared_prefix": L4_PAGED_SHARED,
+        "tails": list(L4_PAGED_TAILS), "wall_s": wall,
+        "tok_per_s": sum(len(t) for t in out.values()) / wall,
+        "launches": {k: v for k, v in moved.items() if v},
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        **{k: st[k] for k in ("mean_ttft_s", "ticks", "prefill_chunks",
+                              "prefix_hits", "prefix_hit_tokens")}}))
+
+
+@contextlib.contextmanager
+def q4_row_shapes(seen: set):
+    """Add the (rows, n) of every q4 pack and unpack through the codecs
+    to ``seen`` while the block runs."""
+    from repro_torch.transport import codecs
+    pack, unpack = codecs.pack4_wire, codecs.unpack4_wire
+
+    def pack_spy(flat, mn, sc):
+        seen.add(tuple(flat.shape))
+        return pack(flat, mn, sc)
+
+    def unpack_spy(packed, mn, sc, n):
+        seen.add((packed.shape[0], n))
+        return unpack(packed, mn, sc, n)
+
+    codecs.pack4_wire, codecs.unpack4_wire = pack_spy, unpack_spy
+    try:
+        yield
+    finally:
+        codecs.pack4_wire, codecs.unpack4_wire = pack, unpack
+
+
+def moe_models(torch, np, build, smi):
+    """Phase 14: mixtral-8x7b (2 layers) trained under none / q4q8 / top10
+    and served statically and through the slab engine, its paged pool
+    refused; llama4-maverick (4 layers, 128 experts drawn slice by slice
+    on the card) served statically and through the paged engine under
+    q4q8; then each smoke model on the card against the CPU.  Returns the
+    launches of the phase's main paths, and fails if they fed the q4
+    pair a row shape that phase 2 did not check."""
+    t0 = time.perf_counter()
+    build.reset_launches()                  # the phase 14 paths start here
+    rng = np.random.RandomState(4)
+    q4_rows = set()
+    with q4_row_shapes(q4_rows):
+        moe_paths(torch, np, build, smi, rng)
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}  # read here
+    log(f"# phase 14 launches {launches} ({time.perf_counter() - t0:.1f} s)")
+    unchecked = q4_rows - {shape for shape, _ in MOE_Q4.values()}
+    if unchecked:
+        raise AssertionError(f"phase 14 fed the q4 pair rows {unchecked} "
+                             "that phase 2 did not check (MOE_Q4)")
+    log(f"# phase 14 q4 rows, each checked in phase 2: {sorted(q4_rows)}")
+    check_moe_against_cpu(torch, smi)
+    return launches
+
+
+def moe_paths(torch, np, build, smi, rng):
+    """Phase 14's main paths (see moe_models)."""
+    import dataclasses
+    from repro_torch.configs.registry import get
+    from repro_torch.models import transformer
+    from repro_torch.models.config import param_count
+    from repro_torch.serve import pages as PG
+    for arch, layers in MOE_LAYERS.items():
+        cfg = dataclasses.replace(get(arch), num_layers=layers)
+        log(f"# moe {arch}: {param_count(cfg)} parameters at full width, "
+            f"{layers} layers, {cfg.num_groups} groups, "
+            f"{cfg.num_experts} experts top-{cfg.top_k}")
+        for name in (MOE_TRAIN[arch][2] if arch in MOE_TRAIN else ()):
+            big_train_run(torch, build, cfg, arch, name, smi,
+                          profile_step=3 if name == "q4q8" else None)
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        params = transformer.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        log(f"# moe {arch}: params drawn on the card in "
+            f"{time.perf_counter() - t1:.1f} s, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()}")
+        if arch == "mixtral-8x7b":
+            prompts = [rng.randint(0, cfg.vocab_size, n) for n in G2_PROMPTS]
+            for name in BIG_SERVE:
+                big_static(torch, np, build, params, cfg, name, prompts, smi)
+            try:
+                PG.init_page_pool(transformer, cfg, 8, 16, device="cuda")
+            except ValueError as e:
+                if "sliding-window" not in str(e):
+                    raise
+                log(f"# moe mixtral: the page pool refused: {e}")
+            else:
+                raise AssertionError("mixtral: the page pool was not "
+                                     "refused")
+            big_continuous(torch, np, build, params, cfg, smi,
+                           names=("q4q8",))
+        else:
+            prompts = [rng.randint(0, cfg.vocab_size, n) for n in L4_PROMPTS]
+            torch.cuda.reset_peak_memory_stats()
+            big_static(torch, np, build, params, cfg, "q4q8", prompts, smi)
+            log(f"# moe llama4 static: max_memory_allocated "
+                f"{torch.cuda.max_memory_allocated()}")
+            moe_paged(torch, np, build, params, cfg, smi)
+        del params
+        _free(torch)
 
 
 def _leaves(tree, prefix=""):
@@ -5291,13 +5710,15 @@ def main() -> int:
                                   codecs, collectives, tiling)
     cs_err, cs_timed = cs_kernels(torch, D, pack4, topk)
     big_err, big_timed = big_kernels(torch, D, ops, pack4)
+    moe_err, moe_timed = big_kernels(torch, D, ops, pack4, MOE_CUTS, MOE_Q4)
     err = {k: max(err.get(k, 0.0), cnn_err[k], pd_err[k], tp_err[k],
-                  cs_err[k], big_err[k]) for k in KERNELS}
+                  cs_err[k], big_err[k], moe_err[k]) for k in KERNELS}
     timed.update(cnn_timed)
     timed.update(pd_timed)
     timed.update(tp_timed)
     timed.update(cs_timed)
     timed.update(big_timed)
+    timed.update(moe_timed)
     torch.cuda.empty_cache()
     for label, rows in timed.items():
         for name, row in ({"decode_sum_fused": rows} if "ms" in rows
@@ -5313,7 +5734,7 @@ def main() -> int:
                     f"the launches; its times are not to be used")
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
-    # -- phases 3-13: each main path, its counts set to 0 just before it and
+    # -- phases 3-14: each main path, its counts set to 0 just before it and
     # read just after; the kernels line sums them
     paths = []
     for phase, run in ((3, lambda: serve(torch, np, D, _build)),
@@ -5326,7 +5747,8 @@ def main() -> int:
                        (10, lambda: tensor_axis(torch, D, _build, smi)),
                        (11, lambda: continuous(torch, np, D, _build, smi)),
                        (12, lambda: telemetry(torch, D, _build, smi)),
-                       (13, lambda: big_models(torch, np, _build, smi))):
+                       (13, lambda: big_models(torch, np, _build, smi)),
+                       (14, lambda: moe_models(torch, np, _build, smi))):
         paths.append(run())
         log(f"# phase {phase} done at {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
@@ -5334,7 +5756,7 @@ def main() -> int:
         if not v:
             raise AssertionError(f"{k} was launched on no main path")
 
-    # -- phase 14 -----------------------------------------------------------
+    # -- phase 15: the kernels line -----------------------------------------
     line = []
     for name, (src, replaces) in KERNELS.items():
         row = (timed[DPQ8] if name in DP_KERNELS else

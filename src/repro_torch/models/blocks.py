@@ -11,8 +11,12 @@ sandwich norms (``pn1`` / ``pn2`` after each sublayer) when
   attn_local   sliding-window attention, ``cfg.window or 4096``
                (gemma2's even layers), a ring cache of min(window, C)
   attn_global  full attention (gemma2's odd layers)
+  moe          GQA attention + the MoE FFN (``models/moe.py``; mixtral,
+               llama4's odd layers): capacity routing in training, dropless
+               (dense) routing in prefill and span decode, and through
+               ``s == 1`` in single-token decode
 
-moe, rwkv and hymba are not ported yet and raise.
+rwkv and hymba are not ported yet and raise.
 
 Uniform interface, params stacked per group by the caller:
   block_init(gen, cfg, kind, groups)                   -> stacked params
@@ -32,8 +36,9 @@ from repro_torch.models import attention as A
 from repro_torch.models.common import (DTYPE, dense_init, mlp_apply, mlp_init,
                                        norm_apply, norm_init)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import moe_apply, moe_init
 
-PORTED_KINDS = ("dense", "attn_local", "attn_global")
+PORTED_KINDS = ("dense", "attn_local", "attn_global", "moe")
 
 
 def _check_kind(kind: str):
@@ -67,7 +72,11 @@ def block_init(gen, cfg: ModelConfig, kind: str, groups: int):
     if cfg.post_norm:
         p["pn1"] = norm_init(d, cfg.norm, gen.device, lead)
         p["pn2"] = norm_init(d, cfg.norm, gen.device, lead)
-    p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp, DTYPE, lead)
+    if kind == "moe":
+        p["moe"] = moe_init(gen, d, cfg.d_ff, cfg.num_experts, cfg.mlp,
+                            cfg.num_shared_experts, DTYPE, lead)
+    else:
+        p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp, DTYPE, lead)
     return p
 
 
@@ -76,16 +85,29 @@ def _maybe_post(p, name, h, cfg: ModelConfig):
     return norm_apply(p[name], h, cfg.norm) if cfg.post_norm else h
 
 
+def _ffn(p, h, cfg: ModelConfig, kind: str, dropless: bool = False):
+    """The block's FFN: ``(y, aux)``, the MoE's load-balance loss or 0."""
+    if kind == "moe":
+        return moe_apply(p["moe"], h, num_experts=cfg.num_experts,
+                         top_k=cfg.top_k, mlp_kind=cfg.mlp,
+                         capacity_factor=cfg.capacity_factor,
+                         dispatch_quant=cfg.moe_dispatch_quant,
+                         dropless=dropless)
+    return (mlp_apply(p["mlp"], h, cfg.mlp),
+            h.new_zeros((), dtype=torch.float32))
+
+
 def _attn_block_train(p, x, cfg: ModelConfig, kind: str):
     h = A.attn_train(p["attn"], norm_apply(p["ln1"], x, cfg.norm),
                      **_attn_kwargs(cfg, kind))
     x = x + _maybe_post(p, "pn1", h, cfg)
-    h = mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.mlp)
-    return x + _maybe_post(p, "pn2", h, cfg)
+    h, aux = _ffn(p, norm_apply(p["ln2"], x, cfg.norm), cfg, kind)
+    return x + _maybe_post(p, "pn2", h, cfg), aux
 
 
 # Block kinds whose weights shard over the tensor ring (the dense family:
-# heads over tp for attention, d_ff over tp for the MLP).
+# heads over tp for attention, d_ff over tp for the MLP).  moe routes its
+# parallelism over experts and stays off the compressed TP path.
 TP_BLOCK_KINDS = ("dense", "attn_local", "attn_global")
 
 
@@ -132,7 +154,9 @@ def _attn_block_prefill(p, x, cfg: ModelConfig, kind: str, cache_len: int,
                               cache_len=cache_len, pad_mask=pad_mask,
                               **_attn_kwargs(cfg, kind))
     x = x + _maybe_post(p, "pn1", h, cfg)
-    h = mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.mlp)
+    # inference: dropless routing, so decode continuations match prefill
+    h, _ = _ffn(p, norm_apply(p["ln2"], x, cfg.norm), cfg, kind,
+                dropless=True)
     return x + _maybe_post(p, "pn2", h, cfg), cache
 
 
@@ -142,7 +166,8 @@ def _attn_block_decode(p, x1, cache, pos, cfg: ModelConfig, kind: str,
                              cache, pos, pad_len=pad_len,
                              **_attn_kwargs(cfg, kind))
     x1 = x1 + _maybe_post(p, "pn1", h, cfg)
-    h = mlp_apply(p["mlp"], norm_apply(p["ln2"], x1, cfg.norm), cfg.mlp)
+    # one token a row: the MoE routes densely through s == 1
+    h, _ = _ffn(p, norm_apply(p["ln2"], x1, cfg.norm), cfg, kind)
     return x1 + _maybe_post(p, "pn2", h, cfg), cache
 
 
@@ -153,7 +178,10 @@ def _attn_block_decode_span(p, x, cache, pos, cfg: ModelConfig, kind: str,
         pad_len=pad_len, page_map=page_map, valid_len=valid_len,
         **_attn_kwargs(cfg, kind))
     x = x + _maybe_post(p, "pn1", h, cfg)
-    h = mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.mlp)
+    # dropless, as the T = 1 decode: span and per-token decode see the
+    # same expert math
+    h, _ = _ffn(p, norm_apply(p["ln2"], x, cfg.norm), cfg, kind,
+                dropless=True)
     return x + _maybe_post(p, "pn2", h, cfg), cache
 
 
@@ -167,10 +195,10 @@ def _attn_block_cache(cfg: ModelConfig, kind: str, batch: int,
 
 
 def block_train(p, x, cfg: ModelConfig, kind: str):
-    """Returns (y, aux_loss); the dense kind has no auxiliary loss."""
+    """Returns (y, aux_loss): the MoE's load-balance loss, 0 for the
+    dense kinds."""
     _check_kind(kind)
-    return (_attn_block_train(p, x, cfg, kind),
-            x.new_zeros((), dtype=torch.float32))
+    return _attn_block_train(p, x, cfg, kind)
 
 
 def block_prefill(p, x, cfg: ModelConfig, kind: str, cache_len: int,

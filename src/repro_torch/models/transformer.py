@@ -52,7 +52,7 @@ from repro_torch.models.config import ModelConfig
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for architecture features this port does not have yet: the
-    layer kinds outside ``blocks.PORTED_KINDS`` (moe, rwkv, hymba), the
+    layer kinds outside ``blocks.PORTED_KINDS`` (rwkv, hymba), the
     encoder-decoder stack and the audio frontend."""
     missing = [f"layer kind {k!r}" for k in cfg.layer_kinds()
                if k not in B.PORTED_KINDS]
@@ -69,7 +69,10 @@ def check_supported(cfg: ModelConfig) -> None:
 def init_params(generator: torch.Generator, cfg: ModelConfig, dtype=DTYPE):
     """Random params in the reference's tree layout, drawn from
     ``generator`` on its device (same layout, not the same numbers as
-    ``jax.random``: use checkpoint.convert to carry reference params)."""
+    ``jax.random``: use checkpoint.convert to carry reference params).
+    MoE expert stacks are drawn an (in, out) slice at a time
+    (``moe.dense_init_slices``); every other leaf whole, so the dense
+    archs' draws are those they always were."""
     check_supported(cfg)
     layers = {f"b{i}": B.block_init(generator, cfg, kind, cfg.num_groups)
               for i, kind in enumerate(cfg.layer_kinds())}

@@ -348,10 +348,13 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
             piece_states.append(new_states)
         div = loss_s.new_full((), grad_accum)
         grads = tree_map(lambda a: (a / div).to(torch.bfloat16), gacc)
+        # one state a cut that exists: a preset's stages stop at the
+        # model's groups, and the caller may hand in more states (the
+        # reference's scan returns the pieces' own)
         new_states = [{d: _merge_lanes(st[d], [ps[j][d] for ps in
                                                piece_states])
                        for d in ("fw", "bw")}
-                      for j, st in enumerate(bstates)]
+                      for j, st in enumerate(bstates[:len(piece_states[0])])]
         metrics = {"loss": loss_s / div, "aux": aux_s / div,
                    "total": (loss_s + aux_weight * aux_s) / div}
         return grads, new_states, metrics

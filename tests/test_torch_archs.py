@@ -2,9 +2,19 @@
 granite-8b, glm4-9b and starcoder2-7b at their smoke configs (2 layer
 groups, d=256; granite and glm4 SwiGLU + RMSNorm, starcoder2 GELU +
 LayerNorm), gemma2-27b (2 local/global groups, window 16, softcaps 50
-and 30, post-norm, tied head) and pixtral-12b (2 layers, untied head, 8
-patch embeddings in the batch, drawn from a seed), reference params
+and 30, post-norm, tied head), pixtral-12b (2 layers, untied head, 8
+patch embeddings in the batch, drawn from a seed), mixtral-8x7b (2 MoE
+layers, 4 experts top-2, window 16) and llama4-maverick-400b-a17b (2
+dense/MoE groups, 4 experts top-1 and a shared expert), reference params
 carried over through numpy, batch 4, seq 32.
+
+The MoE archs run with the reference's routing pinned into the port
+(``test_torch_moe.pin_reference_routing``): a token routes apart only
+at a near-tie, whose margin is printed (``-s``) and held under the
+call's cross-package noise.  Measured: eval, llama4 one parting (margin 0.0043
+under 0.031), mixtral none; the q4q8 step, past the q4 cut, mixtral 9 and
+llama4 3 (margins at most 0.136 under 0.79 and 0.053 under 0.85), each
+seen again in the remat's recompute.
 
 Bounds (bf16 activations in both; nothing model-level is bitwise):
   * eval loss within ``LOSS_ATOL`` = 2e-3, the bound of
@@ -21,7 +31,11 @@ Bounds (bf16 activations in both; nothing model-level is bitwise):
     ``GRAD_RTOL`` = 0.3 of its norm, tests/test_torch_train.py's bounds
     for a compressed step (gemma2 and pixtral measured 3.8e-3 and
     1.7e-3 on the loss, 0.063 and 0.070 on the gradient).  The reference
-    runs its kernel path (``KERNEL_BACKEND = "pallas"``).
+    runs its kernel path (``KERNEL_BACKEND = "pallas"``).  The step's
+    ``aux`` (the MoE load-balance loss, 0 for the dense archs) within
+    ``AUX_ATOL`` = 1e-3 of the reference's (mixtral and llama4 measured
+    7.6e-4 and 7.8e-4: past the q4 cut the routers see hidden states a
+    code step apart), and ``total`` = loss + 0.01 aux.
 """
 import numpy as np
 import jax
@@ -47,20 +61,40 @@ from repro_torch.core.policy import NO_POLICY as TNONE
 from repro_torch.core.policy import POLICIES as TPOL
 from repro_torch.optim import optimizers as TO
 
+from test_torch_moe import pin_reference_routing
+
 # One intra-op thread: the suite runs in several worker processes at
 # once, and a torch thread pool per worker that outnumbers the cores
 # slows its CPU ops by an order of magnitude.
 torch.set_num_threads(1)
 
 ARCHS = ("granite-8b", "glm4-9b", "starcoder2-7b", "gemma2-27b",
-         "pixtral-12b")
+         "pixtral-12b", "mixtral-8x7b", "llama4-maverick-400b-a17b")
 B, S = 4, 32
 LOSS_ATOL = 2e-3
 LOGIT_RTOL = 2.0 ** -5
 STEP_LOSS_ATOL = 0.05
+AUX_ATOL = 1e-3
 GRAD_RTOL = 0.3
 OPT = dict(kind="adamw", lr=1e-3, weight_decay=0.01, schedule="cosine",
            t_max=5, grad_clip=1.0)
+
+
+def _pin(cfg, monkeypatch):
+    """The reference's routing pinned into the port (MoE archs).  Rows
+    are matched within 2**-3: past the q4 cut of the q4q8 step, a code
+    that flips moves a token's router probabilities by up to ~0.1 (no
+    stream parts here, so every row is its reference row)."""
+    if not cfg.num_experts:
+        return None
+    return pin_reference_routing(monkeypatch, row_tol=2.0 ** -3)
+
+
+def _report(arch, pin):
+    if pin is not None:
+        assert pin.hits and not pin.misses, (pin.hits, pin.misses)
+        print(f"# {arch}: {pin.hits} routed rows, partings (margin, "
+              f"near-tie bound): {pin.partings}")
 
 
 def _model(arch):
@@ -99,8 +133,9 @@ def _leaves(tree, prefix=""):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_eval_loss_and_logits_match_reference(arch):
+def test_eval_loss_and_logits_match_reference(arch, monkeypatch):
     jcfg, tcfg, jp, tp, toks = _model(arch)
+    pin = _pin(jcfg, monkeypatch)
     assert tcfg.arch_id == jcfg.arch_id
     TT.check_supported(tcfg)
     jb, tb = _batches(jcfg, toks)
@@ -114,11 +149,13 @@ def test_eval_loss_and_logits_match_reference(arch):
     gap = float(np.abs(tl - jl).max())
     assert gap <= LOGIT_RTOL * float(np.abs(jl).max()), (gap,
                                                          np.abs(jl).max())
+    _report(arch, pin)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_q4q8_train_step_matches_reference(arch, monkeypatch):
     jcfg, tcfg, jp, tp, toks = _model(arch)
+    pin = _pin(jcfg, monkeypatch)
     grads_out = lambda opt, p, g, s, **kw: (g, s)  # noqa: E731
     monkeypatch.setattr(JS, "apply_updates", grads_out)
     monkeypatch.setattr(TS, "apply_updates", grads_out)
@@ -138,8 +175,15 @@ def test_q4q8_train_step_matches_reference(arch, monkeypatch):
         tp, TO.init_opt_state(topt, tp), tst, tb, torch.arange(B))
     assert np.isfinite(float(tm["loss"]))
     assert abs(float(tm["loss"]) - float(jm["loss"])) <= STEP_LOSS_ATOL
+    # the MoE load-balance loss, counted into the total with weight 0.01
+    # on the simulated cuts; 0 for the dense archs
+    assert abs(float(tm["aux"]) - float(jm["aux"])) <= AUX_ATOL
+    assert (float(tm["aux"]) > 0) == bool(jcfg.num_experts)
+    assert abs(float(tm["total"]) - float(tm["loss"])
+               - 0.01 * float(tm["aux"])) <= 1e-6
     jl, tl = dict(_leaves(jg)), dict(_leaves(tg))
     assert sorted(jl) == sorted(tl)
     got = np.concatenate([_f32(tl[n]).ravel() for n in sorted(tl)])
     want = np.concatenate([_f32(jl[n]).ravel() for n in sorted(tl)])
     assert np.linalg.norm(got - want) <= GRAD_RTOL * np.linalg.norm(want)
+    _report(arch, pin)

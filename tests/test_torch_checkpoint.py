@@ -3,7 +3,9 @@
 A params-only file written by one package is read by the other bitwise:
 the CNN's tree (lists of lists of dicts, keys such as
 ``stages/0/1/conv1``), the pipeline CNN's stacked tree, and the smoke
-LM's, whose bf16 leaves travel as uint16 views under ``<key>@bf16``.
+LMs', whose bf16 leaves travel as uint16 views under ``<key>@bf16``:
+gpt2-small's and llama4-maverick's (dense / MoE groups: an f32 router,
+expert stacks with a leading expert dim, a shared expert).
 The step and the meta's ``extra`` cross with them.
 """
 import json
@@ -35,6 +37,9 @@ def _trees():
                                                 width=8),
         "lm": JT.init_params(jax.random.PRNGKey(2),
                              jget("gpt2-small", smoke=True)),
+        "llama4": JT.init_params(
+            jax.random.PRNGKey(3),
+            jget("llama4-maverick-400b-a17b", smoke=True)),
     }
 
 
@@ -56,7 +61,7 @@ def _assert_same(tport, tref):
         assert torch.equal(b.view(torch.uint8), want.view(torch.uint8)), path
 
 
-@pytest.mark.parametrize("name", ["cnn", "pipeline_cnn", "lm"])
+@pytest.mark.parametrize("name", ["cnn", "pipeline_cnn", "lm", "llama4"])
 def test_reference_file_restores_in_the_port(name, tmp_path):
     tree = _trees()[name]
     path = str(tmp_path / "ref.npz")
@@ -69,7 +74,7 @@ def test_reference_file_restores_in_the_port(name, tmp_path):
     _assert_same(got, tree)
 
 
-@pytest.mark.parametrize("name", ["cnn", "pipeline_cnn", "lm"])
+@pytest.mark.parametrize("name", ["cnn", "pipeline_cnn", "lm", "llama4"])
 def test_port_file_restores_in_the_reference(name, tmp_path):
     tree = _trees()[name]
     port = params_from_numpy(jax.tree.map(np.asarray, tree), "cpu")

@@ -13,8 +13,10 @@ Cases: a toy MLP stage stack (f32, d=256) and the gpt2-small smoke model
 with 4 layer groups (bf16, batch 16, seq 32), under none / q8 / q4 / topk
 / topk_reuse, gpipe / 1f1b / interleaved, and EF / EF21 / EF-mixed /
 AQ-SGD over two steps (the second reads the buffers the first wrote);
-and gemma2-27b's smoke model (2 local/global groups, window 16 < seq,
-softcaps, post-norm) under q4q8 / gpipe.
+gemma2-27b's smoke model (2 local/global groups, window 16 < seq,
+softcaps, post-norm) and mixtral-8x7b's (2 MoE layers, 4 experts top-2,
+capacity routing in each microbatch) under q4q8 / gpipe; their aux is 0.0
+on the pipeline in both packages.
 
 Tolerances (measured on the CPU, then given headroom):
   * toy (f32, every case): loss within ``TOY_LOSS_RTOL`` = 1e-5 relative
@@ -118,9 +120,11 @@ LM = {
     "aqsgd_gpipe": ("none", "aqsgd", "gpipe", 1),
     "ef21_1f1b": ("none", "ef21", "1f1b", 1),
     "gemma2_q4q8_gpipe": ("q4q8", "none", "gpipe", 1),
+    "mixtral_q4q8_gpipe": ("q4q8", "none", "gpipe", 1),
 }
 # the LM cases on another arch's smoke model than gpt2-small's
-LM_ARCHS = {"gemma2_q4q8_gpipe": "gemma2-27b"}
+LM_ARCHS = {"gemma2_q4q8_gpipe": "gemma2-27b",
+            "mixtral_q4q8_gpipe": "mixtral-8x7b"}
 LM_B, LM_SEQ, LM_MB = 16, 32, 2
 
 
@@ -242,6 +246,7 @@ for name, (pname, feedback, sched, v) in T.LM.items():
                            jnp.asarray(lids[i]))
         p = f"lm/{name}/{i}"
         out[f"{p}/loss"] = np.float32(m["loss"])
+        out[f"{p}/aux"] = np.float32(m["aux"])
         save(f"{p}/grad", g)
         if st:
             for d in ("fw", "bw"):
@@ -455,6 +460,8 @@ def test_lm_pipeline_step_matches_reference(name, ref, lm, monkeypatch):
         p = f"lm/{name}/{i}"
         gap = abs(float(m["loss"]) - float(ref[f"{p}/loss"]))
         assert gap <= (LM_EXACT_ATOL if exact else LM_LOSS_ATOL), gap
+        # the pipeline drops the MoE load-balance loss, as the reference
+        assert float(m["aux"]) == float(ref[f"{p}/aux"]) == 0.0
         hops = LM_MB * (2 * v - 1)
         assert m["wire"]["fw_hops"] == m["wire"]["bw_hops"] == hops
         got = {path: _f32(leaf) for path, leaf in _leaves(g)}

@@ -18,7 +18,10 @@ with EF21; q8 under an EF21 TopK cut (its global buffers split by batch
 shard across the lanes); q8 under an AQ-SGD TopK cut (its buffer split by
 example id, the ids localized by ``shard_ids``); and, with
 ``grad_accum=2`` on each lane (pieces of 1: accumulate locally, reduce
-once), q8 under the EF21 TopK cut, held to the same bounds.
+once), q8 under the EF21 TopK cut, held to the same bounds; and
+mixtral-8x7b's smoke model (2 MoE layers, capacity routing on each lane)
+with DP codec q8.  Every case's ``aux`` (the lanes' mean MoE load-balance
+loss, 0 for gpt2) within ``AUX_ATOL`` = 1e-3 of the reference's.
 
 Bounds (measured on the CPU, then given headroom):
   * loss: ``LOSS_ATOL`` = 2e-3 without compression (the bound of
@@ -98,6 +101,11 @@ CASES = {
 # the same, with grad_accum=2 on each lane (pieces of 1): accumulate
 # locally, reduce once
 ACCUM = {"q8_ef21top10_accum2": ("ef21top10", "none", "q8", "none")}
+# the cases on another arch's smoke model than gpt2-small's: mixtral's
+# (2 MoE layers), its capacity routing per lane, its aux the lanes' mean
+CASES["mixtral_q8"] = ("none", "none", "q8", "none")
+DP_ARCHS = {"mixtral_q8": "mixtral-8x7b"}
+AUX_ATOL = 1e-3
 
 
 def inputs(cfg):
@@ -132,11 +140,11 @@ def save(prefix, tree):
         out[f"{prefix}/{key}"] = np.asarray(jnp.asarray(leaf, jnp.float32))
 
 JS.apply_updates = lambda opt, p, g, s: (g, s)
-cfg = get("gpt2-small", smoke=True)
-params = JT.init_params(jax.random.PRNGKey(0), cfg)
 opt = JO.OptimizerConfig(kind="sgd", lr=0.1)
-toks, ids = T.inputs(cfg)
 for name, (pname, fb, codec, dfb) in [*T.CASES.items(), *T.ACCUM.items()]:
+    cfg = get(T.DP_ARCHS.get(name, "gpt2-small"), smoke=True)
+    params = JT.init_params(jax.random.PRNGKey(0), cfg)
+    toks, ids = T.inputs(cfg)
     pol = (CompressionPolicy(num_stages=2, boundary=aqsgd_policy(0.1))
            if fb == "aqsgd" else POLICIES[pname]())
     pol = CompressionPolicy(num_stages=2, boundary=pol.boundary)
@@ -160,6 +168,7 @@ for name, (pname, fb, codec, dfb) in [*T.CASES.items(), *T.ACCUM.items()]:
                                 (bst, dst))
         p = f"{name}/{i}"
         out[f"{p}/loss"] = np.float32(m["loss"])
+        out[f"{p}/aux"] = np.float32(m["aux"])
         save(f"{p}/grad", g)
         if dfb != "none":
             save(f"{p}/resid", dst.resid)
@@ -208,13 +217,17 @@ def _rel(got, want):
                  / max(np.linalg.norm(want), 1e-12))
 
 
-@pytest.fixture(scope="module")
-def model():
-    cfg = tget("gpt2-small", smoke=True)
+def _arch_model(arch):
+    cfg = tget(arch, smoke=True)
     like = params_from_numpy(jax.tree.map(
         np.asarray, JT.init_params(jax.random.PRNGKey(0),
-                                   jget("gpt2-small", smoke=True))), "cpu")
+                                   jget(arch, smoke=True))), "cpu")
     return cfg, like
+
+
+@pytest.fixture(scope="module")
+def model():
+    return _arch_model("gpt2-small")
 
 
 def _policy(pname, fb):
@@ -223,6 +236,8 @@ def _policy(pname, fb):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_dp_step_matches_reference(name, ref, model, monkeypatch):
+    if name in DP_ARCHS:
+        model = _arch_model(DP_ARCHS[name])
     _check_dp_case(name, CASES[name], 1, ref, model, monkeypatch)
 
 
@@ -255,6 +270,8 @@ def _check_dp_case(name, case, accum, ref, model, monkeypatch):
         p = f"{name}/{i}"
         tol = LOSS_ATOL if pname == "none" and fb == "none" else LM_LOSS_ATOL
         assert abs(float(m["loss"]) - float(ref[f"{p}/loss"])) <= tol
+        assert abs(float(m["aux"]) - float(ref[f"{p}/aux"])) <= AUX_ATOL
+        assert (float(m["aux"]) > 0) == (name in DP_ARCHS)
         assert m["wire"]["dp_hops"] == DP * (DP - 1)
         want = _tree(ref, f"{p}/grad", g)
         if exact:
