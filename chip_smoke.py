@@ -145,18 +145,24 @@ failure fatal:
      DP q4 + EF21): losses, final params, AdamW moments and step and every
      feedback buffer bitwise equal to the uninterrupted run's, exact
      launches every step, each file's bytes and save / restore seconds;
-     ``launch/train --steps 4``, the same run saving every 2 steps, and
-     ``--resume`` from its step-2 file, whose loss lines equal the
-     uninterrupted run's steps 3-4, then ``launch/serve --engine static
-     --ckpt`` on the step-4 train-state file exiting 0; the rule policy
-     ``topk:0.1@depth<1, dir=fw;q4@dir=bw;q8`` on the simulated cuts (5 ``quant_dequant`` and
-     1 ``topk_block`` a step, the plain backend's losses), a one-rule q8
-     set bitwise equal to the static q8 policy, ``run_cnn_experiment``
-     (1 epoch) under ``topk:0.1@size>=65536;q4@size>=32768;q8`` (2
-     ``topk_block`` + 4 ``quant_dequant`` a step, 1 + 2 a compressed test
-     batch) and ``launch/train --mesh data=2 --wire
-     'data=q4@size>=100000000;q8'`` giving the lines of ``--wire
-     data=q4``.  Every line carries the card's name and power limit.
+     the rule policy ``topk:0.1@depth<1, dir=fw;q4@dir=bw;q8`` on the
+     simulated cuts (5 ``quant_dequant`` and 1 ``topk_block`` a step, the
+     plain backend's losses), a one-rule q8 set bitwise equal to the
+     static q8 policy, ``run_cnn_experiment`` (1 epoch) under
+     ``topk:0.1@size>=65536;q4@size>=32768;q8`` (2 ``topk_block`` + 4
+     ``quant_dequant`` a step, 1 + 2 a compressed test batch).  Six
+     launcher subprocesses, each a fresh process, run in two waves beside
+     those in-process runs: with the resumes, ``launch/train --steps 4``,
+     the same run saving every 2 steps, and ``launch/train --mesh data=2
+     --wire 'data=q4@size>=100000000;q8'`` and ``--wire data=q4``; with
+     the rule policies (they read the first wave's files), ``--resume``
+     from the step-2 file and ``launch/serve --engine static --ckpt`` on
+     the step-4 train-state file.  The saving run's loss lines equal the
+     uninterrupted run's, the resumed run's its steps 3-4, the rule-coded
+     wire's those of ``--wire data=q4``, and the server exits 0; the
+     launchers share the card, so no rate or second of theirs is
+     printed, and the resumes' save / restore seconds are taken beside
+     the first wave.  Every line carries the card's name and power limit.
  10. the tensor axis (launch counters set to 0 just before and read just
      after): full-width gpt2-small, seed-0 weights, the launch/train
      AdamW (cosine over 4 steps), every tensor rank a lane of the card, 3
@@ -304,9 +310,32 @@ failure fatal:
      prefill chunk (128, 5,120) and decode (2, 5,120)), timing the long
      ones; phase 14 fails if it feeds the pair a row shape phase 2 did
      not check.
- 15. one ``{"kernels": [...]}`` line (launches summed over phases 3-14;
+ 15. linear attention (``models/linattn.py``) at full width (launch
+     counters set to 0 just before and read just after), seed-0 weights
+     drawn on the card: rwkv6-3b (d 2,560, 40 heads of 64, d_ff 8,960,
+     vocab 65,536) and hymba-1.5b (d 1,600, 25 attention heads over 5 KV
+     heads with window 1,024 beside 25 SSD heads of state 16, vocab
+     32,001), each cut from 32 to 4 layers with ``dataclasses.replace`` (4
+     groups, 3 cuts), train 3 steps of 1 x 4,096 tokens under none / q4q8
+     / top10 as phase 13 does ("# big train": losses, step seconds,
+     tokens/s, ``max_memory_allocated``, launches exact, 6 cut kernels a
+     compressing step, a profiled q4q8 step's busy time and idle share);
+     at full depth (32 layers) each is served by ``ServeEngine`` on two
+     prompts of 1,100 tokens (a padded chunk; hymba's ring wraps) and 16
+     new tokens under none / q4q8 ("# big serve", its peak memory) and
+     refused by ``ContinuousEngine`` with the reference's message; then
+     both smoke models on the card against the CPU (eval logits, a q4q8
+     step's loss and gradient, tests/test_torch_archs.py's bounds, and
+     greedy tokens served through the carried state, near-tie rule).
+     Phase 2 holds ``quant_dequant`` and ``topk_block`` bit-exact at the
+     two cuts (1, 4,096 x 2,560) and (1, 4,096 x 1,600) bf16 and times
+     them, and the q4 pair at every row shape phase 15 feeds it (the
+     static prefills (2, 1,100 x 2,560) and (2, 1,100 x 1,600), the
+     decodes (2, 2,560) and (2, 1,600)), timing the prefills; phase 15
+     fails if it feeds the pair a row shape phase 2 did not check.
+ 16. one ``{"kernels": [...]}`` line (launches summed over phases 3-15;
      the select kernels timed at the 38.6 M-element DP leaf), then the
-     ``{"ok": true, ...}`` line.  Every number's line of phases 8-14
+     ``{"ok": true, ...}`` line.  Every number's line of phases 8-15
      carries the card's name and power limit.
 
 Every profiled step of phases 3-11 records the card's activity only and
@@ -3433,15 +3462,40 @@ def _flatten_feedback(st):
     return _flatten(_state_tree(st)["feedback"])
 
 
-def launcher(argv, timeout=600):
-    """One ``launch/train`` or ``launch/serve`` run in a subprocess on the
-    card: ``(exit code, JSON lines, stdout and the tail of stderr)``."""
+def launchers(argvs):
+    """One fresh ``launch/*`` subprocess on the card for each entry of
+    ``argvs`` (name -> argv), all started at once."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=timeout)
-    recs = [json.loads(ln) for ln in proc.stdout.splitlines()
-            if ln.startswith("{")]
-    return proc.returncode, recs, proc.stdout + proc.stderr[-2000:]
+    return {k: subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT,
+                                env=env, text=True, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+            for k, argv in argvs.items()}
+
+
+def launcher_results(procs, timeout=600):
+    """Wait for each of ``procs``: name -> (exit code, JSON lines, stdout
+    and the tail of stderr)."""
+    res = {}
+    for k, proc in procs.items():
+        out, err = proc.communicate(timeout=timeout)
+        recs = [json.loads(ln) for ln in out.splitlines()
+                if ln.startswith("{")]
+        res[k] = (proc.returncode, recs, out + err[-2000:])
+    return res
+
+
+@contextlib.contextmanager
+def reaped(waves: list):
+    """Kill whatever subprocess of ``waves`` (dicts of Popen) still runs
+    when the block ends: none on success, every one after a failure."""
+    try:
+        yield waves
+    finally:
+        for procs in waves:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
 
 
 def _loss_lines(recs):
@@ -3449,50 +3503,87 @@ def _loss_lines(recs):
             for r in recs]
 
 
-def launcher_resume(tmp, smi):
-    """``launch/train --steps 4``; the same run saving its train state
-    every 2 steps (one file a save); ``--resume`` from the step-2 file to
-    step 4: its lines equal the uninterrupted run's steps 3-4.  The cosine
-    schedule spans ``--steps``, so the interrupted run is a 4-step run
-    saved at step 2 (a ``--steps 2`` run is another run).  Then
-    ``launch/serve --engine static --ckpt`` restores the params from the
-    step-4 train-state file and exits 0 (phase 11 serves a params file
-    through the continuous engine)."""
-    base = ["repro_torch.launch.train", "--feedback", "aqsgd",
+def _resume_argv():
+    return ["repro_torch.launch.train", "--feedback", "aqsgd",
             "--num-samples", str(AQSGD_SAMPLES), "--batch", str(TRAIN_BATCH),
             "--seq", str(TRAIN_SEQ), "--log-every", "1", "--steps",
             str(RESUME_STEPS)]
+
+
+def launcher_wave1(tmp):
+    """Phase 9's first wave of launchers, started together: ``launch/train
+    --steps 4``; the same run saving its train state every 2 steps (one
+    file a save, under ``tmp``); ``--mesh data=2`` with the rule-coded
+    ``--wire`` and with ``--wire data=q4``."""
+    base = _resume_argv()
     ckpt = os.path.join(tmp, "run_{step}.npz")
-    runs = []
-    for extra in ([], ["--ckpt", ckpt, "--save-every", str(RESUME_AT)],
-                  ["--resume", ckpt.replace("{step}", str(RESUME_AT))]):
-        t0 = time.perf_counter()
-        rc, recs, tail = launcher(base + extra)
-        if rc != 0:
-            raise AssertionError(f"launch/train {' '.join(extra)} exited "
-                                 f"{rc}: {tail[-4000:]}")
-        runs.append((_loss_lines(recs), time.perf_counter() - t0))
-    (full, _), (saved, _), (resumed, _) = runs
+    wire = ["repro_torch.launch.train", "--mesh", "data=2", "--policy",
+            "q4q8", "--steps", "2", "--batch", str(2 * TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--log-every", "1"]
+    return launchers({
+        "full": base,
+        "saving": base + ["--ckpt", ckpt, "--save-every", str(RESUME_AT)],
+        "wire rules": wire + ["--wire", WIRE_RULES],
+        "wire q4": wire + ["--wire", "data=q4"]})
+
+
+def launcher_wave2(tmp, wave1, smi):
+    """Checks wave 1: the saving run's lines equal the uninterrupted
+    run's and it wrote its step-2 and step-4 files; a rule-coded data
+    codec gives the lines of the static codec it resolves to
+    (gpt2-small's gradient resolves ``q4@size>=100000000;q8`` to q4).
+    Then starts wave 2, which reads wave 1's files: ``--resume`` from the
+    step-2 file to step 4 (the cosine schedule spans ``--steps``, so the
+    interrupted run is a 4-step run saved at step 2), and ``launch/serve
+    --engine static --ckpt`` on the step-4 train-state file (phase 11
+    serves a params file through the continuous engine).  Returns
+    (wave 2, the uninterrupted run's lines)."""
+    res = launcher_results(wave1)
+    for k, (rc, recs, tail) in res.items():
+        if rc != 0 or not recs:
+            raise AssertionError(f"launch/train ({k}) exited {rc}: "
+                                 f"{tail[-4000:]}")
+    full, saved = (_loss_lines(res[k][1]) for k in ("full", "saving"))
     files = sorted(os.listdir(tmp))
-    if (saved != full or resumed != full[RESUME_AT:]
-            or files != ["run_2.npz", "run_4.npz"]
+    if (saved != full or files != ["run_2.npz", "run_4.npz"]
             or not all(math.isfinite(r["loss"]) for r in full)):
         raise AssertionError(f"launcher resume: full {full}, saved {saved}, "
-                             f"resumed {resumed}, files {files}")
-    file_bytes = os.path.getsize(os.path.join(tmp, "run_2.npz"))
-    rc, _, tail = launcher(["repro_torch.launch.serve", "--arch",
-                            "gpt2-small", "--engine", "static", "--ckpt",
-                            os.path.join(tmp, "run_4.npz"), "--batch", "2",
-                            "--prompt-len", "16", "--new-tokens", "4"])
+                             f"files {files}")
+    rules, q4 = (_loss_lines(res[k][1]) for k in ("wire rules", "wire q4"))
+    if rules != q4:
+        raise AssertionError(f"--wire {WIRE_RULES} {rules} != --wire "
+                             f"data=q4 {q4}")
+    log(f"# launch/train --wire '{WIRE_RULES}' equals --wire data=q4: "
+        + json.dumps({"card": smi, "steps": rules}))
+    wave2 = launchers({
+        "resumed": _resume_argv() + ["--resume",
+                                     os.path.join(tmp, "run_2.npz")],
+        "serve": ["repro_torch.launch.serve", "--arch", "gpt2-small",
+                  "--engine", "static", "--ckpt",
+                  os.path.join(tmp, "run_4.npz"), "--batch", "2",
+                  "--prompt-len", "16", "--new-tokens", "4"]})
+    return wave2, full
+
+
+def launcher_resume(tmp, wave2, full, smi):
+    """Checks wave 2: the resumed run's lines equal the uninterrupted
+    run's steps 3-4, and ``launch/serve --ckpt`` restored the step-4
+    params and exited 0.  The launchers share the card with each other
+    and with the phase's other runs, so no seconds are printed."""
+    res = launcher_results(wave2)
+    rc, recs, tail = res["resumed"]
+    resumed = _loss_lines(recs)
+    if rc != 0 or resumed != full[RESUME_AT:]:
+        raise AssertionError(f"launcher resume: exited {rc}, full {full}, "
+                             f"resumed {resumed}: {tail[-4000:]}")
+    rc, _, tail = res["serve"]
     if rc != 0 or "restored step-4 params" not in tail:
         raise AssertionError(f"launch/serve --ckpt exited {rc}: "
                              f"{tail[-4000:]}")
-    for f in files:
-        os.remove(os.path.join(tmp, f))
     log("# launcher resume " + json.dumps({
         "card": smi, "steps": full, "resumed": resumed, "identical": True,
-        "train_state_bytes": file_bytes,
-        "seconds": [round(s, 1) for _, s in runs]}))
+        "train_state_bytes": os.path.getsize(os.path.join(tmp,
+                                                          "run_2.npz"))}))
     log("# launch/serve --ckpt <train-state file> exits 0: "
         + json.dumps({"card": smi, "restored": [
             ln for ln in tail.splitlines() if "restored" in ln]}))
@@ -3574,46 +3665,32 @@ def rule_policies(torch, D, cfg, build, smi):
         "train_curve": res.train_curve, "seconds_with_eval": secs}))
 
 
-def launcher_rule_wire(smi):
-    """``--wire`` with a rule-coded data codec gives the lines of the
-    static codec it resolves to: gpt2-small's gradient resolves
-    ``q4@size>=100000000;q8`` to q4."""
-    base = ["repro_torch.launch.train", "--mesh", "data=2", "--policy",
-            "q4q8", "--steps", "2", "--batch", str(2 * TRAIN_BATCH), "--seq",
-            str(TRAIN_SEQ), "--log-every", "1"]
-    lines = []
-    for wire in (WIRE_RULES, "data=q4"):
-        rc, recs, tail = launcher(base + ["--wire", wire])
-        if rc != 0 or not recs:
-            raise AssertionError(f"launch/train --wire {wire} exited {rc}: "
-                                 f"{tail[-4000:]}")
-        lines.append(_loss_lines(recs))
-    if lines[0] != lines[1]:
-        raise AssertionError(f"--wire {WIRE_RULES} {lines[0]} != --wire "
-                             f"data=q4 {lines[1]}")
-    log(f"# launch/train --wire '{WIRE_RULES}' equals --wire data=q4: "
-        + json.dumps({"card": smi, "steps": lines[0]}))
-
-
 def train_state(torch, D, build, smi):
     """Phase 9: bitwise resumes of the four state layouts at full width,
     the launcher's resume and serving from its train-state file, the rule
-    policies on the LM and the CNN and a rule-coded DP wire."""
+    policies on the LM and the CNN and a rule-coded DP wire.  The six
+    launcher subprocesses run in two waves beside the in-process runs:
+    the first with the resumes, the second (which reads the first's
+    files) with the rule policies."""
     import tempfile
     from repro_torch.configs.registry import get
 
     cfg = get("gpt2-small")
     build.reset_launches()                  # the phase 9 paths start here
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, reaped([]) as waves:
+        runs = os.path.join(tmp, "launch")
+        os.mkdir(runs)
+        waves.append(launcher_wave1(runs))
         for name in RESUME_CASES:
             resume_case(torch, cfg, name, build, tmp, smi)
+        wave2, full = launcher_wave2(runs, waves[0], smi)
+        waves.append(wave2)
         rule_policies(torch, D, cfg, build, smi)
         torch.cuda.synchronize()
         launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}  # here
         log(f"# phase 9 launches {launches}")
-        torch.cuda.empty_cache()
-        launcher_resume(tmp, smi)
-    launcher_rule_wire(smi)
+        launcher_resume(runs, wave2, full, smi)
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -4410,25 +4487,17 @@ def cs_launchers(params, smi):
             "paged": ["--prefix-cache", "--prefill-chunk", "16",
                       "--shared-prefix", "48"],
             "speculative": ["--draft", "gpt2-small", "--spec-k", "4"]}
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, reaped([]) as waves:
         path = os.path.join(tmp, "params.npz")
         ckpt_io.save(path, params, step=7)
         runs["ckpt"] = ["--ckpt", path]
-        procs = {k: subprocess.Popen([sys.executable, "-m", *base, *v],
-                                     cwd=ROOT, env=env, text=True,
-                                     stdout=subprocess.PIPE,
-                                     stderr=subprocess.PIPE)
-                 for k, v in runs.items()}
-        res = {k: p.communicate(timeout=600) for k, p in procs.items()}
-    for k, (out, err) in res.items():
-        rc = procs[k].returncode
-        recs = [json.loads(ln) for ln in out.splitlines()
-                if ln.startswith("{")]
+        waves.append(launchers({k: base + v for k, v in runs.items()}))
+        res = launcher_results(waves[0])
+    for k, (rc, recs, out) in res.items():
         if rc != 0 or len(recs) != 1 or recs[0]["completed"] != 8 or (
                 k == "ckpt" and "restored step-7 params" not in out):
             raise AssertionError(f"launch/serve {' '.join(runs[k])} exited "
-                                 f"{rc}: {out[-2000:]}{err[-2000:]}")
+                                 f"{rc}: {out[-4000:]}")
         log("# launch/serve --engine continuous " + json.dumps({
             "run": k, "card": smi, "exit": rc, **{
                 x: recs[0][x] for x in (
@@ -4909,7 +4978,8 @@ def _free(torch):
 
 
 def big_train_run(torch, build, cfg, arch, name, smi, profile_step=None):
-    """``BIG_STEPS`` steps of ``cfg`` (``arch`` of ``BIG_TRAIN``) under
+    """``BIG_STEPS`` steps of ``cfg`` (``arch`` of ``BIG_TRAIN``,
+    ``MOE_TRAIN`` or ``REC_TRAIN``) under
     ``name`` as ``launch/train``
     builds them (its AdamW, ``make_batch``, the synthetic stream), the
     params and moments donated (updated in place, the same bits), from
@@ -4921,7 +4991,8 @@ def big_train_run(torch, build, cfg, arch, name, smi, profile_step=None):
     from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
     from repro_torch.train.steps import make_lm_train_step
 
-    batch, seq, _, per_step = {**BIG_TRAIN, **MOE_TRAIN}[arch]
+    batch, seq, _, per_step = {**BIG_TRAIN, **MOE_TRAIN,
+                               **REC_TRAIN}[arch]
     policy = build_policy(name, "none")
     opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
                           schedule="cosine", t_max=BIG_STEPS, grad_clip=1.0)
@@ -5591,6 +5662,192 @@ def moe_paths(torch, np, build, smi, rng):
         _free(torch)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: linear attention (models/linattn.py) through rwkv6-3b and
+# hymba-1.5b at full width
+# ---------------------------------------------------------------------------
+
+# training: the registry configs at full width, depth cut from 32 to 4
+# layers with dataclasses.replace (4 groups: the 4-stage presets, 3
+# cuts), 1 x 4,096 tokens (128 chunks of 32 a layer; hymba's window
+# 1,024), the training cut's launches of a compressing step: forward and
+# backward at each cut
+REC_LAYERS = 4
+REC_TRAIN = {"rwkv6-3b": (1, 4096, ("none", "q4q8", "top10"), 6),
+             "hymba-1.5b": (1, 4096, ("none", "q4q8", "top10"), 6)}
+# serving at full depth (32 layers, 3 cuts): two equal-length prompts of
+# 1,100 tokens (34 chunks of 32 and a padded one; hymba's ring of 1,024
+# rows wraps) and 16 new tokens, the static engine under none / q4q8
+REC_PROMPTS = (1100, 1100)
+# phase 2 at phase 15's shapes: the training cuts, and every row shape
+# the q4q8 serving wire is fed (the static prefills, the decode ticks)
+REC_CUTS = {"rwkv6 cut (1, 4096*2560) bf16": (1, 4096 * 2560),
+            "hymba cut (1, 4096*1600) bf16": (1, 4096 * 1600)}
+REC_Q4 = {
+    "rwkv6 static prefill (2, 1100*2560) f32": ((2, 1100 * 2560), True),
+    "rwkv6 decode (2, 2560) f32": ((2, 2560), False),
+    "hymba static prefill (2, 1100*1600) f32": ((2, 1100 * 1600), True),
+    "hymba decode (2, 1600) f32": ((2, 1600), False)}
+# the smoke models card vs CPU: 45-token rows (a chunk and a padded one),
+# 8 served tokens after a 45-token prompt (hymba's ring of 16 wraps)
+REC_CPU_SEQ, REC_CPU_NEW = 45, 8
+
+
+def greedy_gaps(torch, params, cfg, toks, new):
+    """The static engine's greedy loop (prefill, then ``decode_step``
+    with the real wire, uncompressed) on ``toks``: each row's tokens, and
+    its top-2 logit gap and top logit at every step."""
+    from repro_torch.models import transformer
+    out, gaps, tops = [], {}, {}
+    with torch.inference_mode():
+        logits, caches = transformer.prefill(
+            params, {"tokens": toks}, cfg, cache_len=toks.shape[1] + new,
+            wire=True)
+        logits = logits[:, -1]
+        for step in range(new):
+            top2 = torch.topk(logits.float(), 2).values.cpu()
+            for r in range(toks.shape[0]):
+                gaps[(r, step)] = float(top2[r, 0] - top2[r, 1])
+                tops[(r, step)] = float(top2[r, 0])
+            tok = torch.argmax(logits, dim=-1)
+            out.append(tok.cpu())
+            if step < new - 1:
+                logits, caches = transformer.decode_step(
+                    params, tok, caches, toks.shape[1] + step, cfg,
+                    wire=True)
+    gen = torch.stack(out, dim=1).numpy()
+    return {r: gen[r] for r in range(gen.shape[0])}, gaps, tops
+
+
+def check_rec_against_cpu(torch, smi):
+    """rwkv6's and hymba's smoke models, the same params and batch on the
+    card and on the CPU: eval logits within 2**-5 of their largest
+    magnitude, one q4q8 step's loss within 0.05 and gradient within 0.3
+    of its norm (tests/test_torch_archs.py's bounds), and the served
+    greedy tokens (the carried recurrent state on the card) equal but for
+    a parting at a near-tie of the CPU's logits (``cs_parts``)."""
+    from repro_torch.configs.registry import get
+    from repro_torch.core.boundary import init_boundary_state
+    from repro_torch.core.policy import POLICIES
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.steps import make_lm_train_step
+    for arch in REC_TRAIN:
+        cfg = get(arch, smoke=True)
+        params = transformer.init_params(torch.Generator().manual_seed(1),
+                                         cfg)
+        gen = torch.Generator().manual_seed(2)
+        toks = torch.randint(0, cfg.vocab_size, (4, REC_CPU_SEQ),
+                             generator=gen)
+        policy = POLICIES["q4q8"]()
+        opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                              schedule="cosine", t_max=2, grad_clip=1.0)
+        cuts = len(transformer.segment_bounds(cfg.num_groups,
+                                              policy.num_stages)) - 1
+        res = {}
+        for dev in ("cpu", "cuda"):
+            p, b = _tree_to(params, dev), {"tokens": toks.to(dev)}
+            with torch.no_grad():
+                logits = transformer.forward_eval(p, b, cfg).float().cpu()
+            bst = [init_boundary_state(policy.at(i),
+                                       (REC_CPU_SEQ, cfg.d_model), batch=4,
+                                       dtype=torch.bfloat16, device=dev)
+                   for i in range(cuts)]
+            grads = []
+            with first_gradient(grads):
+                _, _, _, m = make_lm_train_step(cfg, policy, opt)(
+                    p, init_opt_state(opt, p), bst, b,
+                    torch.arange(4, device=dev))
+            served = greedy_gaps(torch, p, cfg, toks[:2].to(dev),
+                                 REC_CPU_NEW)
+            res[dev] = (logits, float(m["loss"]), _tree_to(grads[0], "cpu"),
+                        served)
+        (lc, loss_c, gc, sc), (lg, loss_g, gg, sg) = res["cpu"], res["cuda"]
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{arch} smoke: non-finite logits on the "
+                                 "card")
+        gap = (lg - lc).abs().max().item()
+        bound = 2.0 ** -5 * lc.abs().max().item()
+        rel = tree_rel_gap(gg, gc)
+        if not (gap <= bound and abs(loss_g - loss_c) <= 0.05
+                and rel <= 0.3):
+            raise AssertionError(
+                f"{arch} smoke, card vs CPU: logits gap {gap} (bound "
+                f"{bound}), q4q8 loss {loss_g} vs {loss_c}, gradient "
+                f"{rel}")
+        parts = cs_parts(sg[0], sc[0], sc[1], f"{arch} smoke served, card "
+                         "vs CPU", smi, sc[2])
+        log("# recurrent smoke card vs CPU " + json.dumps({
+            "arch": cfg.arch_id, "card": smi, "logit_gap": gap,
+            "logit_bound": bound, "q4q8_loss": [loss_g, loss_c],
+            "q4q8_grad_rel_gap": rel, "served_partings": parts,
+            "served_tokens[0]": sg[0][0].tolist()}))
+
+
+def rec_models(torch, np, build, smi):
+    """Phase 15: rwkv6-3b and hymba-1.5b at full width, trained (4 layers)
+    under none / q4q8 / top10 and served (32 layers) statically under
+    none / q4q8, ``ContinuousEngine`` refused; then each smoke model on
+    the card against the CPU.  Returns the launches of the phase's main
+    paths, and fails if they fed the q4 pair a row shape that phase 2 did
+    not check."""
+    t0 = time.perf_counter()
+    build.reset_launches()                  # the phase 15 paths start here
+    q4_rows = set()
+    with q4_row_shapes(q4_rows):
+        rec_paths(torch, np, build, smi)
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}  # read here
+    log(f"# phase 15 launches {launches} ({time.perf_counter() - t0:.1f} s)")
+    unchecked = q4_rows - {shape for shape, _ in REC_Q4.values()}
+    if unchecked:
+        raise AssertionError(f"phase 15 fed the q4 pair rows {unchecked} "
+                             "that phase 2 did not check (REC_Q4)")
+    log(f"# phase 15 q4 rows, each checked in phase 2: {sorted(q4_rows)}")
+    check_rec_against_cpu(torch, smi)
+    return launches
+
+
+def rec_paths(torch, np, build, smi):
+    """Phase 15's main paths (see rec_models)."""
+    import dataclasses
+    from repro_torch.configs.registry import get
+    from repro_torch.models import transformer
+    from repro_torch.models.config import param_count
+    from repro_torch.serve.engine import ContinuousEngine
+    rng = np.random.RandomState(4)
+    for arch in REC_TRAIN:
+        cfg = dataclasses.replace(get(arch), num_layers=REC_LAYERS)
+        log(f"# recurrent {arch}: {param_count(cfg)} parameters at full "
+            f"width, {REC_LAYERS} layers, {cfg.num_groups} groups")
+        for name in REC_TRAIN[arch][2]:
+            big_train_run(torch, build, cfg, arch, name, smi,
+                          profile_step=3 if name == "q4q8" else None)
+        cfg = get(arch)
+        torch.cuda.reset_peak_memory_stats()
+        params = transformer.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        log(f"# recurrent {arch}: {param_count(cfg)} parameters at full "
+            f"width and depth ({cfg.num_layers} layers) drawn on the card")
+        prompts = [rng.randint(0, cfg.vocab_size, n) for n in REC_PROMPTS]
+        for name in BIG_SERVE:
+            big_static(torch, np, build, params, cfg, name, prompts, smi)
+        log(f"# recurrent {arch} static: max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()}")
+        try:
+            ContinuousEngine(params, cfg)
+        except ValueError as e:
+            if "continuous batching needs maskable left-padding" not in \
+                    str(e):
+                raise
+            log(f"# recurrent continuous: {arch} refused: {e}")
+        else:
+            raise AssertionError(f"{arch}: ContinuousEngine was not "
+                                 "refused")
+        del params
+        _free(torch)
+
+
 def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -5711,14 +5968,17 @@ def main() -> int:
     cs_err, cs_timed = cs_kernels(torch, D, pack4, topk)
     big_err, big_timed = big_kernels(torch, D, ops, pack4)
     moe_err, moe_timed = big_kernels(torch, D, ops, pack4, MOE_CUTS, MOE_Q4)
+    rec_err, rec_timed = big_kernels(torch, D, ops, pack4, REC_CUTS, REC_Q4)
     err = {k: max(err.get(k, 0.0), cnn_err[k], pd_err[k], tp_err[k],
-                  cs_err[k], big_err[k], moe_err[k]) for k in KERNELS}
+                  cs_err[k], big_err[k], moe_err[k], rec_err[k])
+           for k in KERNELS}
     timed.update(cnn_timed)
     timed.update(pd_timed)
     timed.update(tp_timed)
     timed.update(cs_timed)
     timed.update(big_timed)
     timed.update(moe_timed)
+    timed.update(rec_timed)
     torch.cuda.empty_cache()
     for label, rows in timed.items():
         for name, row in ({"decode_sum_fused": rows} if "ms" in rows
@@ -5734,7 +5994,7 @@ def main() -> int:
                     f"the launches; its times are not to be used")
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
-    # -- phases 3-14: each main path, its counts set to 0 just before it and
+    # -- phases 3-15: each main path, its counts set to 0 just before it and
     # read just after; the kernels line sums them
     paths = []
     for phase, run in ((3, lambda: serve(torch, np, D, _build)),
@@ -5748,7 +6008,8 @@ def main() -> int:
                        (11, lambda: continuous(torch, np, D, _build, smi)),
                        (12, lambda: telemetry(torch, D, _build, smi)),
                        (13, lambda: big_models(torch, np, _build, smi)),
-                       (14, lambda: moe_models(torch, np, _build, smi))):
+                       (14, lambda: moe_models(torch, np, _build, smi)),
+                       (15, lambda: rec_models(torch, np, _build, smi))):
         paths.append(run())
         log(f"# phase {phase} done at {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
@@ -5756,7 +6017,7 @@ def main() -> int:
         if not v:
             raise AssertionError(f"{k} was launched on no main path")
 
-    # -- phase 15: the kernels line -----------------------------------------
+    # -- phase 16: the kernels line -----------------------------------------
     line = []
     for name, (src, replaces) in KERNELS.items():
         row = (timed[DPQ8] if name in DP_KERNELS else

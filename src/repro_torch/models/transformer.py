@@ -52,8 +52,8 @@ from repro_torch.models.config import ModelConfig
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for architecture features this port does not have yet: the
-    layer kinds outside ``blocks.PORTED_KINDS`` (rwkv, hymba), the
-    encoder-decoder stack and the audio frontend."""
+    encoder-decoder stack and the audio frontend (and any layer kind
+    outside ``blocks.PORTED_KINDS``)."""
     missing = [f"layer kind {k!r}" for k in cfg.layer_kinds()
                if k not in B.PORTED_KINDS]
     for feature, present in (("encoder-decoder", cfg.enc_dec),
@@ -357,7 +357,10 @@ def lm_loss(logits, labels, mask=None):
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=DTYPE,
                 device=None):
-    """``{"b<i>": {"k", "v": (G, B, C, KV, hd)}}`` zeros."""
+    """``{"b<i>": {leaf: (G, B, ...)}}`` zeros: ``"k"`` / ``"v"`` (G, B,
+    C, KV, hd) for attention; the recurrent state ``"S"`` (G, B, H, K, V)
+    f32 and the token-shift rows ``"tm"`` / ``"cm"`` (G, B, d) for rwkv;
+    ``"ssm"`` (G, B, H, N, hd) f32 beside hymba's ring of K/V rows."""
     dev = resolve_device(device)
     caches = {}
     for i, kind in enumerate(cfg.layer_kinds()):
@@ -404,8 +407,9 @@ def decode_step(params, token, caches, pos, cfg: ModelConfig,
     """token: (B,) int; ``pos``: the new token's index, an int (the same
     for every row) or a (B,) tensor of per-slot positions (continuous
     batching).  Returns (logits (B, V), caches) — the caches updated IN
-    PLACE.  ``pad_len``: optional (B,) left-padding lengths (see
-    prefill)."""
+    PLACE: attention writes its K/V rows, rwkv and hymba's SSD heads
+    their new state, into the group views of ``caches``.  ``pad_len``:
+    optional (B,) left-padding lengths (see prefill)."""
     kinds = cfg.layer_kinds()
     beval = boundary_wire_eval if wire else boundary_eval
     x = params["embed"][token][:, None].to(DTYPE)

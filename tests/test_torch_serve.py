@@ -275,7 +275,7 @@ def test_launch_serve_static_refuses_continuous_flags(argv, capsys):
     assert "--engine continuous" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv", [["--arch", "rwkv6-3b"]])
+@pytest.mark.parametrize("argv", [["--arch", "whisper-small"]])
 def test_launch_serve_refuses_what_is_not_ported(argv, capsys):
     with pytest.raises(SystemExit) as e:
         tserve.main(["--smoke", "--device", "cpu", *argv])
