@@ -211,13 +211,15 @@ failure fatal:
      padded last chunk passes the last page; near-tie rule); (f)
      ``launch/serve --engine continuous`` in subprocesses (sampled, paged
      with a shared prefix, speculative, ``--ckpt`` of the seed-0 params),
-     each exiting 0 with every request served (they share the card, so
-     their rates are not printed).  Every counted drain prints tok/s,
-     mean TTFT and slot utilisation with the card's name and power limit,
-     the phase its launches split into drains and warm-ups, and three
-     profiled drains their idle share.  Phase 2 holds the q4 pair and the
-     select bit-exact at the per-token cut shapes (4, 768), (16, 768)
-     and (20, 768) and times them (``cs_kernels``).
+     started after the profiled drains and run beside the checks above,
+     which compare tokens only, each exiting 0 with every request served
+     (they share the card, so their rates are not printed).  Every
+     counted drain prints tok/s, mean TTFT and slot utilisation with the
+     card's name and power limit, the phase its launches split into
+     drains and warm-ups, and three profiled drains their idle share.
+     Phase 2 holds the q4 pair and the select bit-exact at the per-token
+     cut shapes (4, 768), (16, 768) and (20, 768) and times them
+     (``cs_kernels``).
  12. telemetry (launch counters set to 0 just before and read just
      after), full-width gpt2-small, seed-0 weights, in this process
      through the launchers' ``main(argv)``: (a) ``launch/train --feedback
@@ -333,9 +335,39 @@ failure fatal:
      static prefills (2, 1,100 x 2,560) and (2, 1,100 x 1,600), the
      decodes (2, 2,560) and (2, 1,600)), timing the prefills; phase 15
      fails if it feeds the pair a row shape phase 2 did not check.
- 16. one ``{"kernels": [...]}`` line (launches summed over phases 3-15;
+ 16. the encoder-decoder (``models/encdec.py``) through whisper-small at
+     full width and depth (12 encoder and 12 decoder layers, d 768, 12
+     heads of 64, d_ff 3,072, vocab 51,865, 1,500 frames; launch counters
+     set to 0 just before and read just after), seed-0 weights drawn on
+     the card: 3 steps of 8 x 448 decoder tokens against seeded N(0, 1)
+     bf16 frame embeddings under none / q4q8 / top10 ("# big train", as
+     phases 13-15: losses falling, 7 cut-kernel launches a compressing
+     step (the memory hop's forward and 3 cuts both ways), step seconds,
+     ``max_memory_allocated``, a profiled q4q8 step's idle share; "#
+     whisper encoder gradient": the encoder's gradient non-zero at step
+     1), 2 steps on 2 DP lanes with the q8 reduce and 2 with
+     ``grad_accum=2``; the static engine on 4 prompts
+     of 4 tokens, 64 new, under none / q4q8 / top10 (``throughput_probe``
+     and ``generate``: launches exact, a mixed-length batch refused) and
+     ``ContinuousEngine`` refused; the smoke model on the card against
+     the CPU (eval logits, a q4q8 step's loss and gradient with the
+     encoder's leaves, the greedy stream, near-tie rule) beside
+     ``launch/train`` and ``launch/serve --arch whisper-small`` as
+     concurrent subprocesses.  Phase 2 holds the cut kernels bit-exact at
+     the memory hop (8 | 4, 1,500 x 768) and the decoder cut (8 | 4, 448
+     x 768) bf16, the memory hop under autograd (``Compressor`` through
+     ``quant_dequant_ad`` / ``topk_block_ad``, q4, q8 and top10 at (8 |
+     4, 1,500 x 768) bf16 with a tied and a constant tile) forward and
+     backward against the same calls on the CPU (``check_hop_ad``), the
+     q4 pair and the select at the serving wire's rows
+     (the memory per request (4, 1,152,000), the prefill (4, 3,072), a
+     decode tick (4, 768)) and the DP q8 payload of whisper's 32 leaves
+     decoded and summed at dp = 2, timing the long ones; phase 16 fails
+     if it feeds a cut kernel, the q4 pair or the select a shape phase 2
+     did not check.
+ 17. one ``{"kernels": [...]}`` line (launches summed over phases 3-16;
      the select kernels timed at the 38.6 M-element DP leaf), then the
-     ``{"ok": true, ...}`` line.  Every number's line of phases 8-15
+     ``{"ok": true, ...}`` line.  Every number's line of phases 8-16
      carries the card's name and power limit.
 
 Every profiled step of phases 3-11 records the card's activity only and
@@ -717,6 +749,21 @@ def device_records(prof):
     return [(ms, key) for key, ms in by_name.items()]
 
 
+def record_counts(prof):
+    """``{(name, on the card): (records, ms)}`` of a profile, straight
+    from its raw records, as ``key_averages`` counts them (a device op's
+    self time is its duration), without the schedule's step markers."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("ProfilerStep"):
+            continue
+        key = (e.name(), e.device_type() == DeviceType.CUDA)
+        count, ms = out.get(key, (0, 0.0))
+        out[key] = (count + 1, ms + e.duration_ns() / 1e6)
+    return out
+
+
 # the host-side CUDA calls that each put one op on the card: what a library
 # call launches, which no launch counter of the wrappers sees
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -744,9 +791,10 @@ def device_ms(torch, fn, kernel=None, iters=20, warm=True, profiles=1,
     profile that sees no device time counts as short.  ``host_launches``:
     the launches a call makes are also counted from the profile's host
     side (``HOST_LAUNCHES`` a call), for a library call that no counter
-    sees.  Returns ``(ms, kernel ms, device ops a call, lost, launches a
-    call)``."""
-    from torch.autograd import DeviceType
+    sees.  The counts and times come from the profile's raw records
+    (:func:`record_counts`): ``key_averages`` first builds the host-side
+    event tree, which takes seconds for a call of many ops.  Returns
+    ``(ms, kernel ms, device ops a call, lost, launches a call)``."""
     from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.kernels import _build
     if warm:
@@ -767,17 +815,17 @@ def device_ms(torch, fn, kernel=None, iters=20, warm=True, profiles=1,
                                         - before) / (2 * iters)))
         total = mine = 0.0
         ops = host = 0
-        for ev in prof.key_averages():
-            runs = round(ev.count / iters)
-            if ev.device_type != DeviceType.CUDA:
-                if host_launches and ev.key in HOST_LAUNCHES:
+        for (key, on_card), (count, dur) in record_counts(prof).items():
+            runs = round(count / iters)
+            if not on_card:
+                if host_launches and key in HOST_LAUNCHES:
                     host += runs
                 continue
             if not runs:
                 continue
-            ms = ev.self_device_time_total / 1e3 / ev.count * runs
+            ms = dur / count * runs
             total += ms
-            mine += ms if kernel and kernel in ev.key else 0.0
+            mine += ms if kernel and kernel in key else 0.0
             ops += runs
         launched = max(launched, host)
         if total > 0 and (best is None or ops > best[2]):
@@ -1207,9 +1255,10 @@ def time_cut_kernels(torch, D, ops, x,
     magnitude (``ref.topk_exact_block_ref``'s threshold, not the
     bisection's bits) from ``torch.topk`` on precomputed magnitudes; the
     quantizer has no one-call equivalent."""
+    from repro_torch.kernels.tiling import lane_block
     m, n = x.shape
     e = x.element_size()
-    bn = 2048                                   # lane_block(128 * 768)
+    bn = lane_block(n) or n                     # the ops layer's tile
     k = math.ceil(0.1 * bn)
     mag = x.float().abs().view(m * n // bn, bn)
     cases = {
@@ -4271,6 +4320,7 @@ def continuous(torch, np, D, build, smi):
     chunked prefill, speculative — and ``launch/serve`` in subprocesses.
     Returns the phase's launches."""
     import functools
+    import tempfile
     from repro_torch.configs.registry import get
     from repro_torch.core.policy import POLICIES
     from repro_torch.models import transformer
@@ -4326,6 +4376,32 @@ def continuous(torch, np, D, build, smi):
     log(f"# phase 11 launches {launches}: drains {drained}, warm-ups "
         f"{ {k: launches[k] - drained[k] for k in KERNELS} } (runs done "
         f"at {time.perf_counter() - t0:.1f} s)")
+    for what, make, rq in (("slab/q4q8", slab["q4q8"], reqs),
+                           ("paged/top10", paged["top10"], preqs),
+                           ("speculative/q4q8/draft target",
+                            functools.partial(
+                                engine, "q4q8", draft_params=params,
+                                draft_cfg=cfg,
+                                draft_policy=POLICIES["q4q8"](),
+                                spec_k=CS_SPEC_K, **paged_kw), preqs)):
+        cs_profile(torch, make, rq, what, smi)
+    # the launchers run beside the checks below, which compare tokens only
+    with tempfile.TemporaryDirectory() as tmp, reaped([]) as waves:
+        waves.append(cs_launchers(params, tmp))
+        cs_checks(torch, np, D, smi, t0, cfg, params, reqs, preqs, engine,
+                  slab, paged, greedy, samp, sampled, smp, pout, spec)
+        log(f"# continuous checks done at {time.perf_counter() - t0:.1f} s")
+        cs_launcher_results(waves[0], smi)
+    log(f"# continuous launchers done at {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def cs_checks(torch, np, D, smi, t0, cfg, params, reqs, preqs, engine,
+              slab, paged, greedy, samp, sampled, smp, pout, spec):
+    """Phase 11's checks of the counted drains' tokens (see
+    ``continuous``)."""
+    import functools
+    from repro_torch.core.policy import POLICIES
 
     # (a) each request alone through the static engine, the plain backend
     gapsets = {}
@@ -4458,46 +4534,39 @@ def continuous(torch, np, D, build, smi):
     cs_parts(cs_serve(chunked(prefill_chunk=24), pfull)[0], ref, gaps,
              "paged/top10 24-token chunks past the last page vs 16-token "
              "chunks", smi)
-    for what, make, rq in (("slab/q4q8", slab["q4q8"], reqs),
-                           ("paged/top10", paged["top10"], preqs),
-                           ("speculative/q4q8/draft target",
-                            functools.partial(
-                                engine, "q4q8", draft_params=params,
-                                draft_cfg=cfg,
-                                draft_policy=POLICIES["q4q8"](),
-                                spec_k=CS_SPEC_K, **paged_kw), preqs)):
-        cs_profile(torch, make, rq, what, smi)
-    log(f"# continuous checks done at {time.perf_counter() - t0:.1f} s")
-    cs_launchers(params, smi)
-    log(f"# continuous launchers done at {time.perf_counter() - t0:.1f} s")
-    return launches
 
 
-def cs_launchers(params, smi):
-    """``launch/serve --engine continuous`` in subprocesses, all at once:
-    sampled, paged with a shared prefix, speculative, and from a params
-    file (``--ckpt``).  Each must exit 0 and serve every request; they
-    share the card, so their rates are not logged."""
-    import tempfile
+CS_LAUNCHERS = {"sampled": ["--temperature", "0.8", "--top-k", "40"],
+                "paged": ["--prefix-cache", "--prefill-chunk", "16",
+                          "--shared-prefix", "48"],
+                "speculative": ["--draft", "gpt2-small", "--spec-k", "4"],
+                "ckpt": ["--ckpt"]}
+
+
+def cs_launchers(params, tmp):
+    """``launch/serve --engine continuous`` in subprocesses, all started
+    at once: sampled, paged with a shared prefix, speculative, and from a
+    params file (``--ckpt``, saved under ``tmp``).  Returns the
+    processes (:func:`cs_launcher_results` reads them)."""
     from repro_torch.checkpoint import io as ckpt_io
     base = ["repro_torch.launch.serve", "--engine", "continuous",
             "--policy", "top10", "--requests", "8", "--prompt-len", "32",
             "--new-tokens", "8"]
-    runs = {"sampled": ["--temperature", "0.8", "--top-k", "40"],
-            "paged": ["--prefix-cache", "--prefill-chunk", "16",
-                      "--shared-prefix", "48"],
-            "speculative": ["--draft", "gpt2-small", "--spec-k", "4"]}
-    with tempfile.TemporaryDirectory() as tmp, reaped([]) as waves:
-        path = os.path.join(tmp, "params.npz")
-        ckpt_io.save(path, params, step=7)
-        runs["ckpt"] = ["--ckpt", path]
-        waves.append(launchers({k: base + v for k, v in runs.items()}))
-        res = launcher_results(waves[0])
+    path = os.path.join(tmp, "params.npz")
+    ckpt_io.save(path, params, step=7)
+    return launchers({k: base + v + ([path] if k == "ckpt" else [])
+                      for k, v in CS_LAUNCHERS.items()})
+
+
+def cs_launcher_results(procs, smi):
+    """Each launcher of :func:`cs_launchers` must exit 0 and serve every
+    request; they share the card, so their rates are not logged."""
+    res = launcher_results(procs)
     for k, (rc, recs, out) in res.items():
         if rc != 0 or len(recs) != 1 or recs[0]["completed"] != 8 or (
                 k == "ckpt" and "restored step-7 params" not in out):
-            raise AssertionError(f"launch/serve {' '.join(runs[k])} exited "
-                                 f"{rc}: {out[-4000:]}")
+            raise AssertionError(f"launch/serve {' '.join(CS_LAUNCHERS[k])} "
+                                 f"exited {rc}: {out[-4000:]}")
         log("# launch/serve --engine continuous " + json.dumps({
             "run": k, "card": smi, "exit": rc, **{
                 x: recs[0][x] for x in (
@@ -4977,42 +5046,63 @@ def _free(torch):
     torch.cuda.empty_cache()
 
 
-def big_train_run(torch, build, cfg, arch, name, smi, profile_step=None):
-    """``BIG_STEPS`` steps of ``cfg`` (``arch`` of ``BIG_TRAIN``,
-    ``MOE_TRAIN`` or ``REC_TRAIN``) under
-    ``name`` as ``launch/train``
-    builds them (its AdamW, ``make_batch``, the synthetic stream), the
-    params and moments donated (updated in place, the same bits), from
-    seed-0 weights drawn on the card.  Prints and returns the run."""
+def big_train_run(torch, build, cfg, arch, name, smi, profile_step=None,
+                  steps=BIG_STEPS, dp=1, grad_accum=1, policy_name=None,
+                  enc_embeds=None):
+    """``steps`` steps of ``cfg`` (``arch`` of ``BIG_TRAIN``,
+    ``MOE_TRAIN``, ``REC_TRAIN`` or ``WH_TRAIN``) under ``policy_name``
+    (``name``, the run's label, by default) as ``launch/train`` builds
+    them (its AdamW, ``make_batch``, the synthetic stream), the params and
+    moments donated (updated in place, the same bits), from seed-0
+    weights drawn on the card; ``dp`` DP lanes on the q8 reduce,
+    ``grad_accum`` pieces, and the encoder-decoder's frame embeddings a
+    step from ``enc_embeds``.  Launches exact, losses finite (and falling
+    over 3 steps or more).  Prints and returns the run."""
     from repro_torch.core.boundary import init_boundary_state
+    from repro_torch.core.parallel import AxisSpec, ParallelSpec
     from repro_torch.launch.train import (build_policy, make_batch,
                                           synthetic_stream)
-    from repro_torch.models import transformer
+    from repro_torch.models import encdec, transformer
     from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.loop import init_lm_dp_state
     from repro_torch.train.steps import make_lm_train_step
 
-    batch, seq, _, per_step = {**BIG_TRAIN, **MOE_TRAIN,
-                               **REC_TRAIN}[arch]
-    policy = build_policy(name, "none")
+    batch, seq, _, per_step = {**BIG_TRAIN, **MOE_TRAIN, **REC_TRAIN,
+                               **WH_TRAIN}[arch]
+    pname = policy_name or name
+    policy = build_policy(pname, "none")
     opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
-                          schedule="cosine", t_max=BIG_STEPS, grad_clip=1.0)
-    cuts = len(transformer.segment_bounds(cfg.num_groups,
-                                          policy.num_stages)) - 1
+                          schedule="cosine", t_max=steps, grad_clip=1.0)
+    mod = encdec if cfg.enc_dec else transformer
+    cuts = len(transformer.segment_bounds(
+        cfg.num_layers if cfg.enc_dec else cfg.num_groups,
+        policy.num_stages)) - 1
     bstates = [init_boundary_state(policy.at(i), (seq, cfg.d_model),
                                    batch=batch, dtype=torch.bfloat16,
                                    device="cuda") for i in range(cuts)]
     torch.cuda.reset_peak_memory_stats()
-    params = transformer.init_params(
+    params = mod.init_params(
         torch.Generator(device="cuda").manual_seed(0), cfg)
     opt_state = init_opt_state(opt, params)
-    step = make_lm_train_step(cfg, policy, opt, donate=True)
+    extra, kw = (), {}
+    if dp > 1:
+        kw["parallel"] = ParallelSpec({"data": AxisSpec(size=dp,
+                                                        codec="q8")})
+        extra = (init_lm_dp_state(cfg, params, policy, dp, "none"),)
+    step = make_lm_train_step(cfg, policy, opt, donate=True,
+                              grad_accum=grad_accum, **kw)
     stream = synthetic_stream(cfg, batch, seq, 0)
-    kernel = TRAIN_CUT_KERNELS[name]
-    want = {k: per_step if k == kernel else 0 for k in KERNELS}
+    kernel = TRAIN_CUT_KERNELS[pname]
+    want = {k: per_step * dp * grad_accum if k == kernel else 0
+            for k in KERNELS}
+    if dp > 1:
+        want.update(frame_parts=dp, decode_sum_fused=1)
     losses, auxes, seconds, peaks, prof = [], [], [], [], None
-    for i in range(1, BIG_STEPS + 1):
+    for i in range(1, steps + 1):
         toks, ids = next(stream)
         b = make_batch(cfg, toks, "cuda")
+        if enc_embeds is not None:
+            b["enc_embeds"] = enc_embeds[i - 1]
         ids = torch.from_numpy(ids).to("cuda")
         before = dict(build.LAUNCHES)
         torch.cuda.synchronize()
@@ -5020,14 +5110,14 @@ def big_train_run(torch, build, cfg, arch, name, smi, profile_step=None):
         if i == profile_step:
             from torch.profiler import ProfilerActivity, profile
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                params, opt_state, bstates, m = step(params, opt_state,
-                                                     bstates, b, ids)
+                out = step(params, opt_state, bstates, b, ids, *extra)
                 torch.cuda.synchronize()
         else:
-            params, opt_state, bstates, m = step(params, opt_state, bstates,
-                                                 b, ids)
+            out = step(params, opt_state, bstates, b, ids, *extra)
             torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
+        params, opt_state, bstates, m = out[0], out[1], out[2], out[-1]
+        extra = out[3:-1]
         losses.append(float(m["loss"]))
         auxes.append(float(m["aux"]))
         peaks.append(torch.cuda.max_memory_allocated())
@@ -5037,10 +5127,10 @@ def big_train_run(torch, build, cfg, arch, name, smi, profile_step=None):
             raise AssertionError(f"{cfg.arch_id} {name} step {i}: launches "
                                  f"{got}, expected {want}")
     peak = torch.cuda.max_memory_allocated()
-    del params, opt_state, step, bstates
+    del params, opt_state, step, bstates, extra, out
     _free(torch)
     if not (all(math.isfinite(v) for v in losses)
-            and losses[-1] < losses[0]):
+            and (steps < 3 or losses[-1] < losses[0])):
         raise AssertionError(f"{cfg.arch_id} {name}: losses {losses} are "
                              "not finite and falling")
     if cfg.num_experts and not all(math.isfinite(v) and v > 0
@@ -5052,9 +5142,11 @@ def big_train_run(torch, build, cfg, arch, name, smi, profile_step=None):
            "launches_per_step": {k: v for k, v in want.items() if v},
            "step_s": seconds,
            "tokens_per_s": [batch * seq / t for t in seconds],
-           "tokens_per_s_steps_2_to_3": batch * seq * (BIG_STEPS - 1)
+           "tokens_per_s_steps_2_to_3": batch * seq * (steps - 1)
            / sum(seconds[1:]), "max_memory_allocated_by_step": peaks,
            "max_memory_allocated": peak}
+    if cfg.enc_dec:
+        row.update(enc_seq=cfg.enc_seq, dp=dp, grad_accum=grad_accum)
     if prof is not None:
         dev = sorted(device_records(prof), reverse=True)
         busy = sum(ms for ms, _ in dev)
@@ -5693,16 +5785,19 @@ REC_Q4 = {
 REC_CPU_SEQ, REC_CPU_NEW = 45, 8
 
 
-def greedy_gaps(torch, params, cfg, toks, new):
+def greedy_gaps(torch, params, cfg, toks, new, mod=None, extra=None):
     """The static engine's greedy loop (prefill, then ``decode_step``
     with the real wire, uncompressed) on ``toks``: each row's tokens, and
-    its top-2 logit gap and top logit at every step."""
+    its top-2 logit gap and top logit at every step.  ``mod``: the model
+    module (``transformer`` by default); ``extra``: more of the prefill's
+    batch (the encoder-decoder's frame embeddings)."""
     from repro_torch.models import transformer
+    mod = mod or transformer
     out, gaps, tops = [], {}, {}
     with torch.inference_mode():
-        logits, caches = transformer.prefill(
-            params, {"tokens": toks}, cfg, cache_len=toks.shape[1] + new,
-            wire=True)
+        logits, caches = mod.prefill(
+            params, {"tokens": toks, **(extra or {})}, cfg,
+            cache_len=toks.shape[1] + new, wire=True)
         logits = logits[:, -1]
         for step in range(new):
             top2 = torch.topk(logits.float(), 2).values.cpu()
@@ -5712,7 +5807,7 @@ def greedy_gaps(torch, params, cfg, toks, new):
             tok = torch.argmax(logits, dim=-1)
             out.append(tok.cpu())
             if step < new - 1:
-                logits, caches = transformer.decode_step(
+                logits, caches = mod.decode_step(
                     params, tok, caches, toks.shape[1] + step, cfg,
                     wire=True)
     gen = torch.stack(out, dim=1).numpy()
@@ -5848,6 +5943,456 @@ def rec_paths(torch, np, build, smi):
         _free(torch)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the encoder-decoder stack (models/encdec.py) through
+# whisper-small at full width and depth
+# ---------------------------------------------------------------------------
+
+# the registry config unchanged: 12 encoder and 12 decoder layers, d 768,
+# 12 heads of 64, d_ff 3,072, vocab 51,865, 1,500 encoder frames.
+# Training: 8 x 448 decoder tokens against 1,500 frames (seeded N(0, 1)
+# bf16 frame embeddings from numpy), the 4-stage presets: 3 decoder cuts
+# and the memory hop, whose forward launches the cut kernel once a step
+# (its backward is torch reductions), the cuts forward and backward: 7
+# launches a step (batch, seq, policies, launches a step; big_train_run)
+WH_BATCH, WH_SEQ = 8, 448
+WH_TRAIN = {"whisper-small": (WH_BATCH, WH_SEQ, ("none", "q4q8", "top10"),
+                              7)}
+# run -> (policy, DP lanes (q8 reduce), grad_accum pieces), 2 steps each
+WH_EXTRA = {"dp2 q8/q4q8": ("q4q8", 2, 1), "q4q8/accum2": ("q4q8", 1, 2)}
+# serving: the static engine, 4 prompts of 4 tokens (whisper's start
+# sequence), 64 new tokens, 448 cache rows, throughput_probe
+WH_SERVE_BATCH, WH_PROMPT, WH_NEW, WH_MAX_SEQ = 4, 4, 64, 448
+WH_GEN = 16                   # tokens of the greedy generate beside the probe
+WH_SERVE = ("none", "q4q8", "top10")
+ENC_ROW = 1500 * 768          # one request's memory on the serving wire
+# phase 2 at phase 16's shapes: the memory hop and a decoder cut at the
+# train batch (timed) and at a DP lane's / an accumulation piece's 4 rows
+# (checked only), bf16
+WH_CUTS = {"whisper memory hop (8, 1500*768) bf16": (8, ENC_ROW),
+           "whisper decoder cut (8, 448*768) bf16": (8, 448 * 768)}
+WH_LANE_CUTS = {"whisper memory hop (4, 1500*768) bf16": (4, ENC_ROW),
+                "whisper decoder cut (4, 448*768) bf16": (4, 448 * 768)}
+# ... the q4 pair at every row shape the q4q8 serving wire is fed: the
+# memory packed per request, the prefill's and a decode tick's cuts
+WH_Q4 = {"whisper served memory (4, 1500*768) f32": ((4, ENC_ROW), True),
+         "whisper prefill (4, 4*768) f32": ((4, 4 * 768), False),
+         "whisper decode (4, 768) f32": ((4, 768), False)}
+# ... and the TopK select at the top10 wire's rows (bf16, k = 10%)
+WH_SELECT = {"whisper served memory (4, 1500*768) bf16": (4, ENC_ROW),
+             "whisper prefill (4, 4*768) bf16": (4, 4 * 768),
+             "whisper decode (4, 768) bf16": (4, 768)}
+WH_CPU_SEQ, WH_CPU_NEW = 24, 8
+
+
+def whisper_leaves(torch):
+    """The full-width whisper-small parameter leaves' shapes and dtypes,
+    in ``tree_leaves`` order."""
+    from repro_torch.configs.registry import get
+    from repro_torch.models import encdec
+    from repro_torch.optim.optimizers import tree_leaves
+    params = encdec.init_params(
+        torch.Generator(device="cuda").manual_seed(0), get("whisper-small"))
+    leaves = tree_leaves(params)
+    return [tuple(a.shape) for a in leaves], [a.dtype for a in leaves]
+
+
+def whisper_kernels(torch, D, ops, pack4, topk, codecs, collectives,
+                    framing):
+    """Phase 2 at phase 16's shapes: the cut kernels at the memory hop and
+    the decoder cuts (and the hop under autograd, ``check_hop_ad``), the
+    q4 pair and the select at the serving wire's rows, bit-exact against their plain versions, the train batch's cuts
+    and the memory's rows timed;
+    the DP q8 payload of whisper's 32 gradient leaves framed and decoded
+    + summed at dp = 2, bit-exact against the plain version and the
+    unfused loop."""
+    err, timed = big_kernels(torch, D, ops, pack4, WH_CUTS, WH_Q4)
+    check_hop_ad(torch, ops)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    lanes = {label: torch.randn(shape, generator=gen, device="cuda")
+             .to(torch.bfloat16) for label, shape in WH_LANE_CUTS.items()}
+    for name, e in check_cut_kernels(torch, D, ops, lanes).items():
+        err[name] = max(err[name], e)
+    del lanes
+    for label, shape in WH_SELECT.items():
+        x = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        check_select(torch, D, topk, x)
+        log(f"# select kernels bit-exact vs plain: {label}")
+        if shape[1] == ENC_ROW:
+            timed[label] = time_select(torch, D, topk, [x])
+            for name, row in timed[label].items():
+                log(f"# {name} {label}: " + json.dumps(row))
+        del x
+    from repro_torch.kernels import dp_reduce
+    shapes, _ = whisper_leaves(torch)
+    bank, plans, structs, leaves = dp_bank(torch, codecs, collectives, "q8",
+                                           shapes, 13, dp=2)
+    sizes = [a.numel() for a in leaves]
+    segs, plain = kernel_and_plain(
+        torch, D, lambda: framing.unframe_parts(bank[-1], sizes))
+    max_err(torch, segs, plain)
+    max_err(torch, segs, leaves)
+    got, want = kernel_and_plain(
+        torch, D, lambda: dp_reduce.decode_sum_fused(bank, plans, 2))
+    err["decode_sum_fused"] = max_err(torch, got, want)
+    c = codecs.get_codec("q8")
+    loop = [None] * len(shapes)
+    for s in range(2):
+        pls = codecs.unfuse_payload(bank[s], structs)
+        for i, shape in enumerate(shapes):
+            m = collectives.unpack_grad_leaf(c, pls[i], shape)
+            loop[i] = m if loop[i] is None else loop[i] + m
+    max_err(torch, [a.reshape(l.shape) for a, l in zip(got, loop)], loop)
+    log(f"# decode_sum_fused and unframe_parts bit-exact vs plain and the "
+        f"unfused loop: whisper-small q8 DP payload dp=2 ({len(sizes)} "
+        f"segments, {bank.shape[1]} B)")
+    del bank, leaves, got, want, loop
+    torch.cuda.empty_cache()
+    return err, timed
+
+
+# the memory hop under autograd, forward and backward, card against CPU
+WH_HOP = {"whisper memory hop (8, 1500*768) bf16": (8, ENC_ROW),
+          "whisper memory hop (4, 1500*768) bf16": (4, ENC_ROW)}
+
+
+def check_hop_ad(torch, ops):
+    """The memory hop as phase 16 differentiates it: a bare ``Compressor``
+    call (q4, q8, top10) through ``ops.quant_dequant_ad`` /
+    ``topk_block_ad``, forward and backward for a seeded bf16 cotangent
+    at ``WH_HOP``'s shapes, its first tile tied (integers -3..3) and its
+    second constant, on the card and on CPU copies of the same inputs.
+    C(x) bitwise; TopK's gradient bitwise; the quantizers' gradient
+    non-zero on the same entries (each tile's min and max) and within
+    one bf16 ulp (2**-7 relative) of the CPU's, plus 2**-16 of the
+    tile's sum of |g|: the f32 tile sums run in another order on each
+    device, which matters only where a sum nearly cancels."""
+    from repro_torch.core.compressors import Compressor
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    comps = {"q4": Compressor("quant", bits=4),
+             "q8": Compressor("quant", bits=8),
+             "top10": Compressor("topk", k_frac=0.1)}
+    for label, (m, n) in WH_HOP.items():
+        x = torch.randn((m, n), generator=gen, device="cuda")
+        bm, bn = ops._tile(x)
+        x[:bm, :bn] = torch.randint(-3, 4, (bm, bn), generator=gen,
+                                    device="cuda").float()
+        x[:bm, bn:2 * bn] = 3.25
+        x = x.to(torch.bfloat16)
+        g = torch.randn((m, n), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        worst = {}
+        for name, comp in comps.items():
+            res = []
+            for dev in ("cuda", "cpu"):
+                xi = x.detach().to(dev).requires_grad_()
+                y = comp(xi)
+                y.backward(g.to(dev))
+                res.append((y.detach().cpu(), xi.grad.cpu()))
+            (y_card, g_card), (y_cpu, g_cpu) = res
+            max_err(torch, [y_card], [y_cpu])
+            if comp.kind == "topk":
+                max_err(torch, [g_card], [g_cpu])
+                worst[name] = 0.0
+                continue
+            a, b = g_card.float(), g_cpu.float()
+            if not torch.equal(a != 0, b != 0):
+                raise AssertionError(f"hop gradient {name} {label}: "
+                                     "non-zero on other entries")
+            sums = g.cpu().float().abs().reshape(
+                m // bm, bm, n // bn, bn).sum(dim=(1, 3), keepdim=True)
+            tol = 2.0 ** -7 * b.abs() + 2.0 ** -16 * sums.expand(
+                m // bm, bm, n // bn, bn).reshape(m, n)
+            over = (a - b).abs() / tol
+            if bool((over > 1).any()):
+                raise AssertionError(f"hop gradient {name} {label}: "
+                                     f"{over.max().item()} of its bound")
+            worst[name] = over.max().item()
+        log(f"# memory hop forward and backward, card vs CPU: {label} "
+            "(gap / bound: " + json.dumps(worst) + ")")
+
+
+def wh_train(torch, build, cfg, name, smi, embeds, **kw):
+    """A :func:`big_train_run` of whisper-small on the frame embeddings
+    ``embeds`` whose first gradient must reach the encoder (through the
+    memory hop's backward): its ``enc_layers`` leaves' |g|_1 non-zero and
+    finite, printed."""
+    from repro_torch.optim.optimizers import tree_leaves
+    grads = []
+    with first_gradient(grads):
+        big_train_run(torch, build, cfg, cfg.arch_id, name, smi,
+                      enc_embeds=embeds, **kw)
+    enc = sum(float(g.float().abs().sum())
+              for g in tree_leaves(grads[0]["enc_layers"]))
+    del grads
+    _free(torch)
+    if not (enc and math.isfinite(enc)):
+        raise AssertionError(f"whisper {name}: the encoder's gradient "
+                             f"|g|_1 {enc} at step 1")
+    log("# whisper encoder gradient " + json.dumps(
+        {"run": name, "card": smi, "encoder_grad_l1_step1": enc}))
+
+
+def wh_enc_embeds(torch, np, cfg, step):
+    """Step ``step``'s seeded N(0, 1) frame embeddings (numpy
+    ``RandomState``), bf16 on the card."""
+    x = np.random.RandomState(100 + step).standard_normal(
+        (WH_BATCH, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return torch.from_numpy(x).to("cuda").to(torch.bfloat16)
+
+
+def wh_serve(torch, np, build, params, cfg, name, smi):
+    """``ServeEngine.throughput_probe`` (a warm 2-token run, then a
+    timed prefill and 63 decode steps) and greedy ``generate`` of 16
+    tokens on 4 equal-length 4-token prompts: launches exact (each
+    forward packs the 3 decoder cuts, a prefill the memory too), tokens
+    in the vocabulary, the refusal of a mixed-length batch."""
+    from repro_torch.core.policy import POLICIES
+    from repro_torch.serve.engine import Request, ServeEngine
+    eng = ServeEngine(params, cfg, POLICIES[name](),
+                      max_batch=WH_SERVE_BATCH, max_seq=WH_MAX_SEQ)
+    before = dict(build.LAUNCHES)
+    probe = eng.throughput_probe(WH_SERVE_BATCH, WH_PROMPT, WH_NEW)
+    rng = np.random.RandomState(5)
+    reqs = [Request(rng.randint(0, cfg.vocab_size, WH_PROMPT), WH_GEN)
+            for _ in range(WH_SERVE_BATCH)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = np.stack([r.out for r in out])
+    assert toks.shape == (WH_SERVE_BATCH, WH_GEN)
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+    moved = {k: build.LAUNCHES.get(k, 0) - before.get(k, 0) for k in KERNELS}
+    # prefills (probe warm-up, probe, generate) pack 4 cuts, decodes 3
+    forwards = 3 * 4 + 3 * ((2 - 1) + (WH_NEW - 1) + (WH_GEN - 1))
+    want = {k: (forwards if k in POLICY_KERNELS[name] else 0)
+            for k in KERNELS}
+    if moved != want:
+        raise AssertionError(f"whisper static {name}: launches {moved}, "
+                             f"expected {want}")
+    try:
+        eng.generate([Request(np.arange(1, 6), 2),
+                      Request(np.arange(1, 9), 2)])
+    except ValueError as e:
+        if "['enc-dec'] cannot support" not in str(e):
+            raise
+    else:
+        raise AssertionError("whisper: a mixed-length batch was served")
+    log("# whisper serve " + json.dumps({
+        "arch": cfg.arch_id, "engine": "static", "policy": name,
+        "card": smi, **probe, "generate_wall_s": wall,
+        "launches": {k: v for k, v in moved.items() if v},
+        "tokens[0][:8]": toks[0, :8].tolist()}))
+    return probe
+
+
+def check_whisper_against_cpu(torch, np, smi):
+    """whisper-small's smoke model, the same params and batch (seeded
+    frame embeddings) on the card and on the CPU: eval logits within
+    2**-5 of their largest magnitude, one q4q8 step's loss within 0.05
+    and gradient within 0.3 of its norm with the ``enc_layers`` leaves in
+    the tree (the encoder's leaves alone are printed, not bounded: only
+    each memory tile's min and max pass the q4 hop's gradient on, so one
+    flipped code there moves them by up to 0.33 of their norm between the
+    port and the reference on the CPU), and the served greedy tokens
+    equal but for a parting at a near-tie of the CPU's logits
+    (``cs_parts``)."""
+    from repro_torch.configs.registry import get
+    from repro_torch.core.boundary import init_boundary_state
+    from repro_torch.core.policy import POLICIES
+    from repro_torch.models import encdec
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.steps import make_lm_train_step
+    cfg = get("whisper-small", smoke=True)
+    params = encdec.init_params(torch.Generator().manual_seed(1), cfg)
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (4, WH_CPU_SEQ), generator=gen)
+    emb = torch.from_numpy(np.random.RandomState(3).standard_normal(
+        (4, cfg.enc_seq, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    policy = POLICIES["q4q8"]()
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="cosine", t_max=2, grad_clip=1.0)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p = _tree_to(params, dev)
+        b = {"tokens": toks.to(dev), "enc_embeds": emb.to(dev)}
+        with torch.no_grad():
+            logits = encdec.forward_eval(p, b, cfg).float().cpu()
+        bst = [init_boundary_state(policy.at(0), (WH_CPU_SEQ, cfg.d_model),
+                                   batch=4, dtype=torch.bfloat16, device=dev)]
+        grads = []
+        with first_gradient(grads):
+            _, _, _, m = make_lm_train_step(cfg, policy, opt)(
+                p, init_opt_state(opt, p), bst, b,
+                torch.arange(4, device=dev))
+        served = greedy_gaps(torch, p, cfg, toks[:2].to(dev), WH_CPU_NEW,
+                             mod=encdec,
+                             extra={"enc_embeds": emb[:2].to(dev)})
+        res[dev] = (logits, float(m["loss"]), _tree_to(grads[0], "cpu"),
+                    served)
+    (lc, loss_c, gc, sc), (lg, loss_g, gg, sg) = res["cpu"], res["cuda"]
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError("whisper smoke: non-finite logits on the card")
+    gap = (lg - lc).abs().max().item()
+    bound = 2.0 ** -5 * lc.abs().max().item()
+    rel = tree_rel_gap(gg, gc)
+    enc = tree_rel_gap(gg["enc_layers"], gc["enc_layers"])
+    enc_l1 = sum(float(a.float().abs().sum())
+                 for _, a in _leaves(gg["enc_layers"]))
+    if not (gap <= bound and abs(loss_g - loss_c) <= 0.05 and rel <= 0.3
+            and enc_l1 > 0):
+        raise AssertionError(
+            f"whisper smoke, card vs CPU: logits gap {gap} (bound {bound}), "
+            f"q4q8 loss {loss_g} vs {loss_c}, gradient {rel}, the card's "
+            f"encoder gradient |g|_1 {enc_l1}")
+    parts = cs_parts(sg[0], sc[0], sc[1], "whisper smoke served, card vs "
+                     "CPU", smi, sc[2])
+    log("# whisper smoke card vs CPU " + json.dumps({
+        "arch": cfg.arch_id, "card": smi, "logit_gap": gap,
+        "logit_bound": bound, "q4q8_loss": [loss_g, loss_c],
+        "q4q8_grad_rel_gap": rel, "q4q8_encoder_grad_rel_gap": enc,
+        "q4q8_encoder_grad_l1_card": enc_l1,
+        "served_partings": parts, "served_tokens[0]": sg[0][0].tolist()}))
+
+
+@contextlib.contextmanager
+def select_row_shapes(seen: set):
+    """Add the (rows, n, k) of every TopK select through the codecs to
+    ``seen`` while the block runs."""
+    from repro_torch.transport import codecs
+    real = codecs.topk_select_wire
+
+    def spy(flat, k):
+        seen.add((*flat.shape, k))
+        return real(flat, k)
+
+    codecs.topk_select_wire = spy
+    try:
+        yield
+    finally:
+        codecs.topk_select_wire = real
+
+
+@contextlib.contextmanager
+def cut_shapes(seen: set):
+    """Add the flattened (rows, n) of every training-cut kernel call
+    through the ops layer to ``seen`` while the block runs."""
+    from repro_torch.kernels import ops
+    real = {n: getattr(ops, n) for n in ("quant_dequant_op",
+                                        "topk_block_op")}
+
+    def spy(name):
+        def call(x, arg):
+            seen.add((x.shape[0], x[0].numel()))
+            return real[name](x, arg)
+        return call
+
+    for name in real:
+        setattr(ops, name, spy(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+
+
+def whisper_models(torch, np, build, smi):
+    """Phase 16: whisper-small at full width and depth, trained under
+    none / q4q8 / top10, data-parallel and with gradient accumulation,
+    served statically under none / q4q8 / top10 with ``ContinuousEngine``
+    refused; then its smoke model on the card against the CPU, beside
+    ``launch/train`` and ``launch/serve --arch whisper-small`` as
+    concurrent subprocesses.  Returns the launches of the phase's main
+    paths, and fails if they fed a kernel a shape that phase 2 did not
+    check."""
+    t0 = time.perf_counter()
+    build.reset_launches()                  # the phase 16 paths start here
+    seen_q4, seen_sel, seen_cut = set(), set(), set()
+    with q4_row_shapes(seen_q4), select_row_shapes(seen_sel), \
+            cut_shapes(seen_cut):
+        whisper_paths(torch, np, build, smi)
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}  # read here
+    log(f"# phase 16 launches {launches} ({time.perf_counter() - t0:.1f} s)")
+    checked = {
+        "q4 pair": (seen_q4, {shape for shape, _ in WH_Q4.values()}),
+        "select": (seen_sel, {(*s, select_k(s[1]))
+                              for s in WH_SELECT.values()}),
+        "cut kernels": (seen_cut, {*WH_CUTS.values(),
+                                   *WH_LANE_CUTS.values()})}
+    for what, (seen, ok) in checked.items():
+        if seen - ok:
+            raise AssertionError(f"phase 16 fed the {what} {seen - ok} "
+                                 "that phase 2 did not check")
+        log(f"# phase 16 {what} shapes, each checked in phase 2: "
+            f"{sorted(seen)}")
+    procs = launchers({
+        "train": ["repro_torch.launch.train", "--arch", "whisper-small",
+                  "--steps", "2", "--batch", "8", "--seq", "448",
+                  "--policy", "q4q8", "--log-every", "1"],
+        "serve": ["repro_torch.launch.serve", "--arch", "whisper-small",
+                  "--policy", "q4q8", "--batch", "4", "--prompt-len", "4",
+                  "--new-tokens", "16", "--max-seq", "448"]})
+    with reaped([procs]):
+        check_whisper_against_cpu(torch, np, smi)
+        res = launcher_results(procs)
+    for name, (code, recs, out) in res.items():
+        if code != 0:
+            raise AssertionError(f"launch/{name} --arch whisper-small "
+                                 f"exited {code}:\n{out}")
+        log(f"# launch/{name} --arch whisper-small " + json.dumps(
+            {"card": smi, "records": recs}))
+    if not (len(res["train"][1]) == 2 and all(
+            math.isfinite(r["loss"]) for r in res["train"][1])):
+        raise AssertionError(f"launch/train whisper: {res['train'][2]}")
+    if "['enc-dec'] cannot mask left-padding -> static engine" not in \
+            res["serve"][2] or res["serve"][1][0]["engine"] != "static":
+        raise AssertionError(f"launch/serve whisper: {res['serve'][2]}")
+    log(f"# phase 16 done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def whisper_paths(torch, np, build, smi):
+    """Phase 16's main paths (see whisper_models)."""
+    from repro_torch.configs.registry import get
+    from repro_torch.models import encdec
+    from repro_torch.models.config import param_count
+    from repro_torch.serve.engine import ContinuousEngine
+    cfg = get("whisper-small")
+    log(f"# whisper-small: {param_count(cfg)} parameters + dec_pos "
+        f"{cfg.max_seq * cfg.d_model}, {cfg.enc_layers} encoder and "
+        f"{cfg.num_layers} decoder layers, d {cfg.d_model}, "
+        f"{cfg.enc_seq} frames")
+    embeds = [wh_enc_embeds(torch, np, cfg, i) for i in range(BIG_STEPS)]
+    for name in WH_TRAIN[cfg.arch_id][2]:
+        wh_train(torch, build, cfg, name, smi, embeds,
+                 profile_step=3 if name == "q4q8" else None)
+    for name, (pname, dp, accum) in WH_EXTRA.items():
+        wh_train(torch, build, cfg, name, smi, embeds, steps=2, dp=dp,
+                 grad_accum=accum, policy_name=pname)
+    del embeds
+    torch.cuda.reset_peak_memory_stats()
+    params = encdec.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    for name in WH_SERVE:
+        wh_serve(torch, np, build, params, cfg, name, smi)
+    log(f"# whisper static: max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()}")
+    try:
+        ContinuousEngine(params, cfg)
+    except ValueError as e:
+        if "continuous batching needs maskable left-padding" not in str(e):
+            raise
+        log(f"# whisper continuous: refused: {e}")
+    else:
+        raise AssertionError("whisper: ContinuousEngine was not refused")
+    del params
+    _free(torch)
+
+
 def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -5969,8 +6514,11 @@ def main() -> int:
     big_err, big_timed = big_kernels(torch, D, ops, pack4)
     moe_err, moe_timed = big_kernels(torch, D, ops, pack4, MOE_CUTS, MOE_Q4)
     rec_err, rec_timed = big_kernels(torch, D, ops, pack4, REC_CUTS, REC_Q4)
+    wh_err, wh_timed = whisper_kernels(torch, D, ops, pack4, topk, codecs,
+                                       collectives, framing)
     err = {k: max(err.get(k, 0.0), cnn_err[k], pd_err[k], tp_err[k],
-                  cs_err[k], big_err[k], moe_err[k], rec_err[k])
+                  cs_err[k], big_err[k], moe_err[k], rec_err[k],
+                  wh_err.get(k, 0.0))
            for k in KERNELS}
     timed.update(cnn_timed)
     timed.update(pd_timed)
@@ -5979,6 +6527,7 @@ def main() -> int:
     timed.update(big_timed)
     timed.update(moe_timed)
     timed.update(rec_timed)
+    timed.update(wh_timed)
     torch.cuda.empty_cache()
     for label, rows in timed.items():
         for name, row in ({"decode_sum_fused": rows} if "ms" in rows
@@ -5994,7 +6543,7 @@ def main() -> int:
                     f"the launches; its times are not to be used")
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
-    # -- phases 3-15: each main path, its counts set to 0 just before it and
+    # -- phases 3-16: each main path, its counts set to 0 just before it and
     # read just after; the kernels line sums them
     paths = []
     for phase, run in ((3, lambda: serve(torch, np, D, _build)),
@@ -6009,7 +6558,9 @@ def main() -> int:
                        (12, lambda: telemetry(torch, D, _build, smi)),
                        (13, lambda: big_models(torch, np, _build, smi)),
                        (14, lambda: moe_models(torch, np, _build, smi)),
-                       (15, lambda: rec_models(torch, np, _build, smi))):
+                       (15, lambda: rec_models(torch, np, _build, smi)),
+                       (16, lambda: whisper_models(torch, np, _build,
+                                                   smi))):
         paths.append(run())
         log(f"# phase {phase} done at {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
@@ -6017,7 +6568,7 @@ def main() -> int:
         if not v:
             raise AssertionError(f"{k} was launched on no main path")
 
-    # -- phase 16: the kernels line -----------------------------------------
+    # -- phase 17: the kernels line -----------------------------------------
     line = []
     for name, (src, replaces) in KERNELS.items():
         row = (timed[DPQ8] if name in DP_KERNELS else

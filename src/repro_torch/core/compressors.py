@@ -10,7 +10,11 @@ per-``(bm, bn)``-tile quantization scales and the block-local TopK
 bisection, the kernels on a CUDA tensor and their plain versions on a CPU
 tensor.  That is the function the reference computes on its accelerator
 (``KERNEL_BACKEND`` "pallas" / a TPU), not the per-tensor quantization and
-exact per-example TopK its jnp path runs on a CPU.  Those two,
+exact per-example TopK its jnp path runs on a CPU.  Where autograd
+differentiates a bare call (the encoder-decoder's memory hop), its
+gradient is autodiff of the reference's per-tile oracle at the same tile
+(the ``_ad`` functions there), on every device; under ``no_grad`` or
+inside a cut's own backward only the forward runs.  Those two,
 :func:`quantize_dequantize` and :func:`topk_mask` / :func:`topk_compress`,
 stay for the callers that use them directly in the reference too: the
 EF-mixed message (``core/feedback.py``), the ``reuse_indices`` mask
@@ -28,7 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.ops import quant_dequant_op, topk_block_op
+from repro_torch.kernels.ops import quant_dequant_ad, topk_block_ad
 
 
 def quantize_kbit(x: torch.Tensor, bits: int, dim=None):
@@ -117,9 +121,9 @@ class Compressor:
         if self.kind == "none":
             return x
         if self.kind == "quant":
-            return quant_dequant_op(x, self.bits)
+            return quant_dequant_ad(x, self.bits)
         if self.kind == "topk":
-            return topk_block_op(x, self.k_frac)
+            return topk_block_ad(x, self.k_frac)
         raise ValueError(f"unknown compressor kind: {self.kind}")
 
     def wire_bytes_per_elem(self, elem_bytes: int = 2,

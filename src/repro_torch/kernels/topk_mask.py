@@ -45,7 +45,13 @@ def _tile(flat: torch.Tensor, k_frac: float, block):
     if not (1 <= m < 1 << 16 and 1 <= bn < 1 << 31) or n % bn:
         raise ValueError(f"tile width {bn} does not tile {(m, n)} "
                          "(or 65536 rows or more)")
-    return bn, max(1, int(math.ceil(k_frac * bn)))
+    return bn, block_k(k_frac, bn)
+
+
+def block_k(k_frac: float, bn: int) -> int:
+    """The entries a tile of ``bn`` lanes keeps: ``ceil(k_frac * bn)``, at
+    least 1."""
+    return max(1, int(math.ceil(k_frac * bn)))
 
 
 def topk_block_plain(flat: torch.Tensor, k_frac: float,

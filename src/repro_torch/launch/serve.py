@@ -52,7 +52,7 @@ from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs.registry import ARCHS, get
 from repro_torch.core.policy import POLICIES
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.export import to_chrome_trace, to_jsonl
 from repro_torch.serve.engine import (ContinuousEngine, Request, ServeEngine,
@@ -145,8 +145,9 @@ def _export_trace(args) -> None:
 
 
 def _init(cfg, seed, dev):
-    return transformer.init_params(
-        torch.Generator(device=dev).manual_seed(seed), cfg)
+    mod = encdec if cfg.enc_dec else transformer
+    return mod.init_params(torch.Generator(device=dev).manual_seed(seed),
+                           cfg)
 
 
 def main(argv=None) -> int:

@@ -92,7 +92,7 @@ from repro_torch.core.policy import (POLICIES, CompressionPolicy,
                                      aqsgd_policy, ef_policy,
                                      parse_policy_rules, resolve_policy)
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import param_count
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.export import to_chrome_trace, to_jsonl
@@ -141,12 +141,17 @@ def synthetic_stream(cfg, batch: int, seq: int, seed: int = 0,
 
 def make_batch(cfg, tokens, device) -> dict:
     """A train step's batch from (n, S) numpy tokens, on ``device``: the
-    tokens, and zero (n, num_patches, d_model) bf16 patch embeddings for
-    the vision frontend (the reference's stub input)."""
+    tokens, and the reference's stub inputs: zero (n, num_patches,
+    d_model) bf16 patch embeddings for the vision frontend, zero (n,
+    enc_seq, d_model) bf16 frame embeddings for the encoder-decoder."""
     b = {"tokens": torch.from_numpy(tokens).to(device, torch.int64)}
     if cfg.frontend == "vision":
         b["patch_embeds"] = torch.zeros(
             (tokens.shape[0], cfg.num_patches, cfg.d_model),
+            dtype=torch.bfloat16, device=device)
+    if cfg.enc_dec:
+        b["enc_embeds"] = torch.zeros(
+            (tokens.shape[0], cfg.enc_seq, cfg.d_model),
             dtype=torch.bfloat16, device=device)
     return b
 
@@ -387,10 +392,12 @@ def _train(ap, args, tracing: bool) -> int:
 
     opt = OptimizerConfig(kind="adamw", lr=args.lr, weight_decay=0.01,
                           schedule="cosine", t_max=args.steps, grad_clip=1.0)
-    params = transformer.init_params(
+    params = (encdec if cfg.enc_dec else transformer).init_params(
         torch.Generator(device=dev).manual_seed(args.seed), cfg)
     opt_state = init_opt_state(opt, params)
     if pipeline:
+        if cfg.enc_dec:
+            ap.error("pipeline transport: decoder-only archs")
         sched = get_schedule(args.schedule, virtual_stages)
         mb_eff = pipeline_mb or policy_eff.num_stages
         if args.batch % (mb_eff * dp_n):
@@ -411,8 +418,10 @@ def _train(ap, args, tracing: bool) -> int:
               f"microbatches={mb_eff} "
               f"{sched.describe(mb_eff, policy_eff.num_stages)}", flush=True)
     else:
-        # the cuts that exist: segment_bounds caps the stages at the groups
-        cuts = len(transformer.segment_bounds(cfg.num_groups,
+        # the cuts that exist: segment_bounds caps the stages at the
+        # groups (the decoder's layers for an encoder-decoder)
+        units = cfg.num_layers if cfg.enc_dec else cfg.num_groups
+        cuts = len(transformer.segment_bounds(units,
                                               policy_eff.num_stages)) - 1
         bstates = [init_boundary_state(policy_eff.at(i), (seq, cfg.d_model),
                                        batch=args.batch,

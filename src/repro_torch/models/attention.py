@@ -22,14 +22,15 @@ through a page map (:func:`attn_decode_span`, absolute positions only).
 :func:`attn_decode` and :func:`attn_decode_span` write the new K/V rows
 IN PLACE (the reference returns a new cache; its engine donates the old
 one).  :func:`attn_train_tp` is the head-sharded attention of the tensor
-axis.
+axis.  :func:`cross_attn` is the whisper decoder's attention over the
+encoder memory (and the encoder's bidirectional self-attention).
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.common import DTYPE, apply_rope, softcap
+from repro_torch.models.common import DTYPE, apply_rope, dense_init, softcap
 
 _MASKED = -1e30
 
@@ -305,3 +306,29 @@ def attn_decode_span(params, x, cache, pos, *, num_heads, num_kv_heads,
         mask = mask & (idx[None, None, :] >= pad_len[:, None, None])
     out = _sdpa(q, vk, vv, mask, attn_softcap)
     return out.reshape(b, t, num_heads * head_dim) @ params["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attn_init(gen: torch.Generator, d: int, num_heads: int,
+                    head_dim: int, dtype=DTYPE, lead=()):
+    """``wq`` / ``wk`` / ``wv`` / ``wo`` with as many KV heads as heads."""
+    return {"wq": dense_init(gen, d, num_heads * head_dim, dtype, lead),
+            "wk": dense_init(gen, d, num_heads * head_dim, dtype, lead),
+            "wv": dense_init(gen, d, num_heads * head_dim, dtype, lead),
+            "wo": dense_init(gen, num_heads * head_dim, d, dtype, lead)}
+
+
+def cross_attn(params, x, memory, *, num_heads, head_dim):
+    """x: (B, S, d) queries; memory: (B, T, d), every key visible (no
+    causal mask)."""
+    b, s, _ = x.shape
+    t = memory.shape[1]
+    q = (x @ params["wq"]).reshape(b, s, num_heads, head_dim)
+    k = (memory @ params["wk"]).reshape(b, t, num_heads, head_dim)
+    v = (memory @ params["wv"]).reshape(b, t, num_heads, head_dim)
+    mask = torch.ones((1, 1, 1, t), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, k, v, mask).reshape(b, s, num_heads * head_dim)
+    return out @ params["wo"]

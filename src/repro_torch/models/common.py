@@ -1,4 +1,5 @@
-"""Shared model building blocks: norms, MLP, RoPE, softcap, initializers.
+"""Shared model building blocks: norms, MLP, RoPE, sinusoidal positions,
+softcap, initializers.
 
 Port of ``repro/models/common.py``.  Params are nested dicts of tensors;
 bf16 weights and activations, fp32 norm statistics and RoPE angles.
@@ -87,6 +88,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(seq: int, d: int, device=None) -> torch.Tensor:
+    """(seq, d) float32 sinusoidal positions (the whisper encoder's): sin
+    on the even columns, cos on the odd ones."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

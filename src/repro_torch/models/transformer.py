@@ -1,8 +1,10 @@
 """Decoder-only transformer stack with compressed pipeline-stage cuts.
 
-Port of ``repro/models/transformer.py``.  The stack is ``num_groups``
-layer groups, evenly split into ``policy.num_stages`` stages; at each cut
-between stages sits a compression boundary: in training the
+Port of ``repro/models/transformer.py`` (the encoder-decoder stack is
+``models/encdec.py``, which shares its segmenting, logits and loss).
+The stack is ``num_groups`` layer groups, evenly split into
+``policy.num_stages`` stages; at each cut between stages sits a
+compression boundary: in training the
 ``core/boundary.boundary_apply`` autograd function, at inference the
 plain fw compressor or, when ``wire`` is set, the real wire codecs (what
 the serve engine does).  Layer params carry a leading group dim; a Python
@@ -51,16 +53,14 @@ from repro_torch.models.config import ModelConfig
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for architecture features this port does not have yet: the
-    encoder-decoder stack and the audio frontend (and any layer kind
-    outside ``blocks.PORTED_KINDS``)."""
+    """Raise for a layer kind outside ``blocks.PORTED_KINDS`` or a
+    frontend other than the stubbed vision and audio ones.  Every arch of
+    the registry passes: the encoder-decoder stack (whisper) runs through
+    ``models/encdec.py``."""
     missing = [f"layer kind {k!r}" for k in cfg.layer_kinds()
                if k not in B.PORTED_KINDS]
-    for feature, present in (("encoder-decoder", cfg.enc_dec),
-                             (f"{cfg.frontend} frontend",
-                              cfg.frontend not in ("none", "vision"))):
-        if present:
-            missing.append(feature)
+    if cfg.frontend not in ("none", "vision", "audio"):
+        missing.append(f"{cfg.frontend} frontend")
     if missing:
         raise NotImplementedError(f"{cfg.arch_id}: {', '.join(missing)} "
                                   "not yet ported to repro_torch")

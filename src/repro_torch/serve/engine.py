@@ -35,7 +35,7 @@ import torch
 from repro_torch.core.boundary import boundary_wire_bytes_per_token
 from repro_torch.core.policy import CompressionPolicy, NO_POLICY
 from repro_torch.device import host_ints, resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import trace
 from repro_torch.serve import cache as C
@@ -68,13 +68,18 @@ def left_pad_unsupported(cfg: ModelConfig) -> set:
 
 
 def _make_batch(cfg: ModelConfig, tokens: torch.Tensor) -> dict:
-    """A prefill batch from (B, S) device tokens: the tokens, and zero
-    (B, num_patches, d_model) bf16 patch embeddings for the vision
-    frontend (the reference's stub input)."""
+    """A prefill batch from (B, S) device tokens: the tokens, and the
+    reference's stub inputs: zero (B, num_patches, d_model) bf16 patch
+    embeddings for the vision frontend, zero (B, enc_seq, d_model) bf16
+    frame embeddings for the encoder-decoder."""
     b = {"tokens": tokens}
     if cfg.frontend == "vision":
         b["patch_embeds"] = torch.zeros(
             (tokens.shape[0], cfg.num_patches, cfg.d_model),
+            dtype=torch.bfloat16, device=tokens.device)
+    if cfg.enc_dec:
+        b["enc_embeds"] = torch.zeros(
+            (tokens.shape[0], cfg.enc_seq, cfg.d_model),
             dtype=torch.bfloat16, device=tokens.device)
     return b
 
@@ -82,6 +87,8 @@ def _make_batch(cfg: ModelConfig, tokens: torch.Tensor) -> dict:
 class ServeEngine:
     """Static batch: left-pad prompts to the longest, prefill once, decode
     greedily (argmax, first index on ties) to the batch's max new tokens.
+    An encoder-decoder config runs ``models/encdec.py`` (its decode state
+    is the self-attention caches and the encoder memory).
     """
 
     def __init__(self, params, cfg: ModelConfig,
@@ -93,6 +100,7 @@ class ServeEngine:
         self.compress = compress
         self.max_batch, self.max_seq = max_batch, max_seq
         self.device = params["embed"].device
+        self.mod = encdec if cfg.enc_dec else transformer
 
     def _pack(self, requests: List[Request]):
         """Left-pad prompts to a common length; the per-request pad length
@@ -120,14 +128,14 @@ class ServeEngine:
             torch.cuda.synchronize(self.device)
 
     def _prefill(self, prompts, pad_len):
-        logits, caches = transformer.prefill(
+        logits, caches = self.mod.prefill(
             self.params, _make_batch(self.cfg, prompts), self.cfg,
             self.policy, cache_len=self.max_seq, compress=self.compress,
             pad_len=pad_len, wire=True)
         return torch.argmax(logits[:, -1], dim=-1), caches
 
     def _decode(self, token, caches, pos: int, pad_len):
-        logits, caches = transformer.decode_step(
+        logits, caches = self.mod.decode_step(
             self.params, token, caches, pos, self.cfg, self.policy,
             compress=self.compress, pad_len=pad_len, wire=True)
         return torch.argmax(logits, dim=-1), caches

@@ -6,7 +6,10 @@ pipeline (alone, or on the ``(data, stage)`` grid), with or without a
 tensor axis,
 ``make_lm_eval_step``, and the CNN's
 ``make_cnn_train_step`` (simulated and pipeline) and
-``make_cnn_eval_step``.  The step is eager
+``make_cnn_eval_step``.  The LM steps run the decoder-only stack or,
+for an encoder-decoder config, ``models/encdec.py`` (simulated cuts,
+gradient accumulation and DP lanes; the pipeline and the tensor axis
+refuse it, as in the reference).  The step is eager
 PyTorch: one forward, the chunked LM loss, one backward, then the
 optimizer.  On the simulated transport each cut is a ``boundary_apply``
 in ``forward_hidden``; on the pipeline the embedding and the loss run on
@@ -53,7 +56,7 @@ from repro_torch.core.parallel import ParallelSpec, from_legacy, warn_legacy
 from repro_torch.core.policy import (NO_COMPRESSION, BoundaryPolicy,
                                      CompressionPolicy, PolicyRules,
                                      resolve_policy)
-from repro_torch.models import cnn, transformer
+from repro_torch.models import cnn, encdec, transformer
 from repro_torch.obs.keyed import keyed_step
 from repro_torch.optim.optimizers import (OptimizerConfig, apply_updates,
                                           tree_leaves, tree_map)
@@ -265,6 +268,7 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
     ``metrics["wire"]`` adds the ring's ``tp_hops`` / ``tp_bytes`` (both
     collectives, forward and backward, every rank)."""
     transformer.check_supported(cfg)
+    mod = encdec if cfg.enc_dec else transformer
     policy = _resolve_rules(policy, boundary_feat)
     grad_accum = _resolve_grad_accum(grad_accum, microbatches)
     spec, policy, transport = _resolve_parallel(
@@ -278,6 +282,9 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
                 "grad_accum > 1 is not supported with transport='pipeline' "
                 "— bound activation memory with pipeline_microbatches (the "
                 "1f1b schedule keeps the stash at the boundary tensors)")
+        if cfg.enc_dec:
+            raise NotImplementedError("pipeline transport: decoder-only "
+                                      "archs")
         if spec.tp > 1 and t_ax.feedback != "none":
             raise NotImplementedError(
                 "pipeline + tensor parallelism: feedback-free tensor wires "
@@ -312,7 +319,7 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
         from fresh leaf tensors (``p.grad`` never adds lanes together)."""
         params = tree_map(lambda p: p.detach().requires_grad_(True), params)
         labels, mask = _labels_and_mask(batch["tokens"])
-        x, aux, new_fw, slots = transformer.forward_hidden(
+        x, aux, new_fw, slots = mod.forward_hidden(
             params, batch, cfg, policy, bstates or None, ids, remat=remat)
         loss = transformer.hidden_lm_loss(params, x, labels, cfg, mask)
         total = loss + aux_weight * aux
@@ -701,6 +708,8 @@ def _make_tp_lm_train_step(cfg, policy: CompressionPolicy,
     ``step(params, opt_state, bstates, batch, ids[, dp_state], tp_state)
     -> (params, opt_state, bstates[, dp_state], tp_state, metrics)``; the
     new ``tp_state`` is made of new tensors."""
+    if cfg.enc_dec:
+        raise NotImplementedError("tensor parallelism: decoder-only archs")
     if policy.num_boundaries:
         raise NotImplementedError(
             "simulated boundary cuts + tensor parallelism: run the stage "
@@ -764,11 +773,12 @@ def _make_tp_lm_train_step(cfg, policy: CompressionPolicy,
 def make_lm_eval_step(cfg, policy: CompressionPolicy, compress: bool):
     """Returns ``step(params, batch) -> loss``: the LM loss with the cuts
     compressed by the plain fw compressor (``compress``) or not."""
+    mod = encdec if cfg.enc_dec else transformer
 
     @torch.no_grad()
     def step(params, batch):
-        logits = transformer.forward_eval(params, batch, cfg, policy,
-                                          compress=compress)
+        logits = mod.forward_eval(params, batch, cfg, policy,
+                                  compress=compress)
         labels, mask = _labels_and_mask(batch["tokens"])
         return transformer.lm_loss(logits, labels, mask)
 

@@ -117,6 +117,27 @@ def test_entry_points_without_device_ask_for_cuda(no_cuda):
         pretrain_lm(cfg, steps=1)
 
 
+def test_encdec_entry_points_without_device_ask_for_cuda(no_cuda):
+    """whisper's entry points: its caches and both launchers (which draw
+    its params through ``encdec.init_params`` on the resolved device and
+    serve with the static engine the serve launcher falls back to) ask
+    for CUDA; ``models/encdec.py`` is among the files the import check
+    reads."""
+    from repro_torch.models import encdec
+    cfg = get("whisper-small", smoke=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        encdec.init_caches(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tserve.main(["--arch", "whisper-small", "--smoke", "--batch", "1",
+                     "--new-tokens", "2"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        ttrain.main(["--arch", "whisper-small", "--smoke", "--steps", "1",
+                     "--batch", "1"])
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert "models/encdec.py" in names
+
+
 def test_obs_modules_are_checked_for_imports():
     """The telemetry package is among the files the import check reads."""
     names = {p.relative_to(PORT).as_posix() for p in _port_files()

@@ -56,7 +56,7 @@ from repro.launch import train as jtrain
 from repro.train.loop import run_lm_experiment as j_run_lm
 from repro.transport.collectives import init_dp_state as j_init_dp
 
-import repro_torch.core.compressors as TC
+import repro_torch.kernels.ops as TKO
 import repro_torch.models.transformer as TT
 import repro_torch.obs.export as TX
 import repro_torch.obs.keyed as TK
@@ -586,7 +586,7 @@ def test_launch_train_tracing_changes_nothing_but_the_tap(tmp_path,
             return op(*args)
         return call
     for name in ("quant_dequant_op", "topk_block_op"):
-        monkeypatch.setattr(TC, name, counted(getattr(TC, name)))
+        monkeypatch.setattr(TKO, name, counted(getattr(TKO, name)))
     argv = SMOKE_ARGV + ["--device", "cpu"]
     assert ttrain.main(argv) == 0
     plain, n_plain = _loss_lines(capsys.readouterr().out), len(calls)

@@ -275,12 +275,18 @@ def test_launch_serve_static_refuses_continuous_flags(argv, capsys):
     assert "--engine continuous" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv", [["--arch", "whisper-small"]])
+@pytest.mark.parametrize("argv", [["--arch", "whisper-small", "--engine",
+                                   "continuous"]])
 def test_launch_serve_refuses_what_is_not_ported(argv, capsys):
+    """What the port refuses, it refuses as the reference does: the
+    encoder-decoder under the continuous engine (absolute positions
+    cannot mask left-padding), exit 2 with the reference's message."""
     with pytest.raises(SystemExit) as e:
         tserve.main(["--smoke", "--device", "cpu", *argv])
     assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert ("--engine continuous: ['enc-dec'] cannot mask left-padding — "
+            "use --engine static (equal-length batches)") in \
+        capsys.readouterr().err
 
 
 SERVE_TRACE_ARGV = ["--smoke", "--device", "cpu", "--policy", "top10",

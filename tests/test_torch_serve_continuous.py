@@ -73,10 +73,14 @@ class PinnedRows:
     reference's as well; the codec's own bits are held eagerly by the
     function-level tests here and in ``tests/test_torch_serve.py``."""
 
-    def __init__(self, monkeypatch, jitted=False):
+    def __init__(self, monkeypatch, jitted=False, modules=None,
+                 names=("boundary_wire_eval", "boundary_wire_eval_tokens")):
+        """``modules``: the (reference, port) modules whose boundaries are
+        pinned, the decoder-only stacks' by default."""
         self.bank, self.hits, self.misses = {}, 0, 0
         self.jitted = jitted
-        for name in ("boundary_wire_eval", "boundary_wire_eval_tokens"):
+        self.modules = modules or (JT, TT)
+        for name in names:
             self._pin(monkeypatch, name)
 
     @staticmethod
@@ -86,7 +90,8 @@ class PinnedRows:
         return a.reshape(lead, -1)
 
     def _pin(self, monkeypatch, name):
-        orig_j, orig_t = getattr(JT, name), getattr(TT, name)
+        jmod, tmod = self.modules
+        orig_j, orig_t = getattr(jmod, name), getattr(tmod, name)
 
         def keep(x, y):
             xr, yr = self._rows(name, np.asarray(x)), self._rows(
@@ -134,8 +139,8 @@ class PinnedRows:
                         "reference's"
             return yr.reshape(x.shape)
 
-        monkeypatch.setattr(JT, name, record)
-        monkeypatch.setattr(TT, name, replay)
+        monkeypatch.setattr(jmod, name, record)
+        monkeypatch.setattr(tmod, name, replay)
 
 
 # ---------------------------------------------------------------------------

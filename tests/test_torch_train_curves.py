@@ -37,7 +37,7 @@ from repro.launch.train import POLICIES as JPOL
 from repro.launch.train import synthetic_stream
 from repro.optim import optimizers as JO
 
-import repro_torch.core.compressors as TC
+import repro_torch.kernels.ops as TKO
 import repro_torch.train.steps as TS
 from repro_torch.checkpoint.convert import params_from_numpy
 from repro_torch.configs.registry import get as tget
@@ -100,7 +100,7 @@ def loss_curves(models, name, monkeypatch):
             return op(*args)
         return call
     for name_ in ("quant_dequant_op", "topk_block_op"):
-        monkeypatch.setattr(TC, name_, counted(getattr(TC, name_)))
+        monkeypatch.setattr(TKO, name_, counted(getattr(TKO, name_)))
     jcfg, tcfg, jp, tp = models
     jpol, tpol = policies(name)
     cuts = jpol.num_boundaries

@@ -518,12 +518,13 @@ def test_refusals_match_reference(ref, model):
             with pytest.raises(NotImplementedError):
                 S.make_lm_train_step(c, pol, o, grad_accum=ga,
                                      parallel=spec)
-    # an encoder-decoder arch
-    with pytest.raises(NotImplementedError):
+    # an encoder-decoder arch: the reference's "decoder-only" refusal
+    msg = "tensor parallelism: decoder-only archs"
+    with pytest.raises(NotImplementedError, match=msg):
         JS.make_lm_train_step(jget("whisper-small", smoke=True),
                               JCP(num_stages=1), jopt,
                               parallel=JPAR.ParallelSpec({"tensor": 2}))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=msg):
         TS.make_lm_train_step(tget("whisper-small", smoke=True),
                               TPOL.NO_POLICY, opt,
                               parallel=TPAR.ParallelSpec({"tensor": 2}))
