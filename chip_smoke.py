@@ -365,9 +365,28 @@ failure fatal:
      decoded and summed at dp = 2, timing the long ones; phase 16 fails
      if it feeds a cut kernel, the q4 pair or the select a shape phase 2
      did not check.
- 17. one ``{"kernels": [...]}`` line (launches summed over phases 3-16;
+ 17. the tooling: ``launch/dryrun --all --policy q4q8``, started as a
+     subprocess before phase 1 with no card in sight (it runs on the
+     meta device), joined here: rc 0, last line ``# 40/40 OK``, its
+     reports in ``chiprun_out/dryrun.json``.  The dry run held against
+     the card (launch counters set to 0 just before and read just
+     after) on ``TOOL_CONFIGS``: gpt2-small at full width and depth, 8 x
+     1,024 tokens, q4q8 on the simulated cuts and on ``data=2,stage=2``
+     with the q8 gradient ring and 2 pipeline microbatches, and glm4-9b
+     at full width cut to 2 layers, 1 x 4,096, q4q8 simulated; each
+     built by ``dryrun.train_case`` and run shape only and on the card
+     (seed-0 weights): ``matmul_flops_global`` equal to FlopCounterMode's
+     count of the card step, the 1 x 1 grid's ``argument_bytes`` equal
+     to the card tree's ``nbytes``, and the wire record's bytes and ring
+     launches (``collective_bytes`` / ``collective_counts(by_pairs)``)
+     equal; every kernel call of these steps also run as its plain
+     version on the same inputs, bit-exact (``checked_kernels``).  The
+     four torch examples (``examples/*_torch.py``) on the card as
+     concurrent subprocesses under the same check, their tables printed
+     ("# example <name> | ..."), their launches added to the phase's.
+ 18. one ``{"kernels": [...]}`` line (launches summed over phases 3-17;
      the select kernels timed at the 38.6 M-element DP leaf), then the
-     ``{"ok": true, ...}`` line.  Every number's line of phases 8-16
+     ``{"ok": true, ...}`` line.  Every number's line of phases 8-17
      carries the card's name and power limit.
 
 Every profiled step of phases 3-11 records the card's activity only and
@@ -376,6 +395,7 @@ trace of a train step takes seconds to minutes to read.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import math
@@ -6442,6 +6462,287 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the tooling -- the dry run held against the card, the examples
+# ---------------------------------------------------------------------------
+
+# (arch, layers or None for full depth, (batch, seq), (--mesh, --wire) or
+# None for the simulated cuts, pipeline microbatches); q4q8 cuts throughout
+TOOL_CONFIGS = {
+    "gpt2-small simulated": ("gpt2-small", None, (8, 1024), None, None),
+    "gpt2-small data=2,stage=2": ("gpt2-small", None, (8, 1024),
+                                  ("data=2,stage=2", "data=q8"), 2),
+    "glm4-9b 2 layers simulated": ("glm4-9b", 2, (1, 4096), None, None),
+}
+EXAMPLES = ("quickstart", "pipeline_stages", "serve_compressed",
+            "finetune_index_reuse")
+DRYRUN_ARGV = ["repro_torch.launch.dryrun", "--all", "--policy", "q4q8",
+               "--json", "chiprun_out/dryrun.json"]
+# each kernel's use site: (module that calls it, its home module)
+CHECKED_SITES = {
+    "quant_dequant": ("repro_torch.kernels.ops",
+                      "repro_torch.kernels.quantize"),
+    "topk_block": ("repro_torch.kernels.ops", "repro_torch.kernels.topk_mask"),
+    "quantize_wire": ("repro_torch.transport.codecs",
+                      "repro_torch.kernels.quantize"),
+    "pack4_wire": ("repro_torch.transport.codecs", "repro_torch.kernels.pack4"),
+    "unpack4_wire": ("repro_torch.transport.codecs",
+                     "repro_torch.kernels.pack4"),
+    "topk_select_wire": ("repro_torch.transport.codecs",
+                         "repro_torch.kernels.topk_select"),
+    "frame_parts": ("repro_torch.transport.codecs",
+                    "repro_torch.kernels.framing"),
+    "unframe_parts": ("repro_torch.transport.codecs",
+                      "repro_torch.kernels.framing"),
+    "decode_sum_fused": ("repro_torch.transport.collectives",
+                         "repro_torch.kernels.dp_reduce"),
+}
+# the kernels each checked wrapper launches
+CHECKED_LAUNCHES = {"topk_select_wire": ("topk_threshold", "topk_compact")}
+
+
+def _out_tensors(torch, out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _out_tensors(torch, o)]
+
+
+def bit_gap(torch, got, want):
+    """(outputs equal as integer bits, largest absolute difference)."""
+    gs, ws = _out_tensors(torch, got), _out_tensors(torch, want)
+    same, err = len(gs) == len(ws), 0.0
+    for g, w in zip(gs, ws):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return False, math.inf
+        gb = g.contiguous().reshape(-1).view(torch.uint8)
+        wb = w.contiguous().reshape(-1).view(torch.uint8)
+        if not torch.equal(gb, wb):
+            same = False
+            if g.numel():
+                err = max(err, (g.double() - w.double()).abs().nan_to_num(
+                    math.inf).max().item())
+    return same, err
+
+
+@contextlib.contextmanager
+def checked_kernels(torch, record: dict):
+    """While open, every kernel wrapper called on card tensors through its
+    use site is also run as its plain version on the same inputs and the
+    two are held bit-exact: ``record`` gets each wrapper's calls, largest
+    difference and differing calls (the plain runs launch nothing)."""
+    import importlib
+    saved = []
+    for name, (site, home) in CHECKED_SITES.items():
+        mod = importlib.import_module(site)
+        real = getattr(mod, name)
+        plain = getattr(importlib.import_module(home), name + "_plain")
+
+        def wrap(*args, _real=real, _plain=plain, _name=name, **kw):
+            out = _real(*args, **kw)
+            tensors = [a for x in args for a in (
+                x if isinstance(x, (list, tuple)) else [x])
+                if isinstance(a, torch.Tensor)]
+            if any(t.is_cuda for t in tensors):
+                same, err = bit_gap(torch, out, _plain(*args, **kw))
+                r = record.setdefault(_name, {"calls": 0, "max_abs_err": 0.0,
+                                              "differ": 0})
+                r["calls"] += 1
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                r["differ"] += not same
+            return out
+        setattr(mod, name, wrap)
+        saved.append((mod, name, real))
+    try:
+        yield record
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def check_record(record: dict, launches: dict, what: str) -> None:
+    """Fail if a wrapper's kernel disagreed with its plain version, or a
+    kernel launched on ``what`` without a checked call."""
+    bad = {k: r for k, r in record.items()
+           if isinstance(r, dict) and r["differ"]}
+    if bad:
+        raise AssertionError(f"{what}: kernel != plain version: {bad}")
+    for name, n in launches.items():
+        site = next((w for w, ks in CHECKED_LAUNCHES.items() if name in ks),
+                    name)
+        if n and not record.get(site, {}).get("calls"):
+            raise AssertionError(f"{what}: {name} launched {n} times with "
+                                 "no call checked against its plain version")
+
+
+def run_checked_example(path: str) -> None:
+    """Run one torch example on the card with every kernel call held
+    bit-exact against its plain version; print the example's output, then
+    ``# example launches {...}`` and ``# example checks {...}`` (with the
+    example's seconds in process)."""
+    import runpy
+    import torch
+    from repro_torch.kernels import _build
+    record = {}
+    sys.argv = [path]
+    t0 = time.perf_counter()
+    with checked_kernels(torch, record):
+        runpy.run_path(path, run_name="__main__")
+    torch.cuda.synchronize()
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in KERNELS}
+    record["seconds"] = round(time.perf_counter() - t0, 1)
+    print("# example launches " + json.dumps(launches), flush=True)
+    print("# example checks " + json.dumps(record), flush=True)
+    check_record(record, launches, path)
+
+
+def start_dryrun():
+    """``launch/dryrun --all --policy q4q8`` as a subprocess with no card
+    in sight (it runs on the meta device), its output into
+    ``chiprun_out/dryrun.log``; returns (process, start time, log path)."""
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    log_path = out / "dryrun.log"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", *DRYRUN_ARGV],
+                                cwd=ROOT, env=env, stdout=f,
+                                stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and (proc.kill(),
+                                                     proc.wait()))
+    return proc, time.perf_counter(), log_path
+
+
+def tool_config(torch, name, smi, record):
+    """One configuration's step shape only (``dryrun.train_case`` on
+    meta under ``run_shape_only``) and on the card (seed-0 weights, the
+    same step under FlopCounterMode and ``wire_record``): the matmul flops,
+    the arguments' bytes on a 1 x 1 grid against the card tree's
+    ``nbytes``, and each ring's wire bytes and launches, all equal."""
+    import dataclasses
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.registry import get
+    from repro_torch.core.parallel import spec_from_cli
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.input_specs import InputShape
+    from repro_torch.launch.mesh import LaneGrid, make_local_mesh
+    arch, layers, (batch, seq), mesh, mb = TOOL_CONFIGS[name]
+    cfg = get(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    shape = InputShape(name, "train", seq, batch)
+    spec = spec_from_cli(*mesh) if mesh else None
+    kw = dict(parallel=spec, pipeline_microbatches=mb)
+    policy = DR.POLICIES["q4q8"]
+    t0 = time.perf_counter()
+    step, args = DR.train_case(cfg, shape, policy, "meta", **kw)
+    meta = DR.run_shape_only(step, *args)
+    meta_bytes = DR.train_argument_bytes(make_local_mesh(), args)
+    del step, args
+    t1 = time.perf_counter()
+    step, args = DR.train_case(cfg, shape, policy, "cuda", **kw)
+    fc = FlopCounterMode(display=False)
+    with checked_kernels(torch, record), DR.wire_record() as events, fc:
+        out = step(*args)
+    torch.cuda.synchronize()
+    card_bytes = DR.nbytes(args)
+    loss = float(out[-1]["loss"])
+    grid = LaneGrid(
+        tuple(spec.axis(a).size for a in ("data", "stage", "tensor"))
+        if spec else (1,), ("data", "stage", "tensor") if spec else ("data",))
+    got = {"flops": meta.matmul_flops, "bytes": meta_bytes,
+           "wire_bytes": DR.collective_bytes(meta.events),
+           "wire_launches": DR.collective_counts(meta.events, grid, True)}
+    want = {"flops": fc.get_total_flops(), "bytes": card_bytes,
+            "wire_bytes": DR.collective_bytes(events),
+            "wire_launches": DR.collective_counts(events, grid, True)}
+    axis_bytes = {}
+    for e in events:
+        axis, _, nb = DR.wire_terms(e)
+        axis_bytes[axis] = axis_bytes.get(axis, 0) + nb
+    # the stage ring's bytes are the step's own count of them
+    wire = out[-1].get("wire", {})
+    if "stage" in axis_bytes and axis_bytes["stage"] != (
+            wire["fw_bytes"] + wire["bw_bytes"]):
+        raise AssertionError(f"{name}: stage ring {axis_bytes['stage']} B "
+                             f"!= the step's {wire}")
+    if got != want or not math.isfinite(loss):
+        raise AssertionError(f"{name}: shape only {got} != card {want} "
+                             f"(loss {loss})")
+    if mesh and not events:
+        raise AssertionError(f"{name}: the traced step emitted no wire event")
+    log(f"# tooling {name} " + json.dumps({
+        "card": smi, "batch": batch, "seq": seq, "layers": cfg.num_layers,
+        "matmul_flops": want["flops"], "argument_bytes": card_bytes,
+        "wire_bytes": want["wire_bytes"], "wire_launches": want[
+            "wire_launches"], "axis_bytes": axis_bytes, "loss": loss,
+        "shape_only_s": round(t1 - t0, 3),
+        "card_s": round(time.perf_counter() - t1, 3)}))
+    del step, args, out
+    _free(torch)
+
+
+def tooling(torch, build, smi, dryrun):
+    """Phase 17: the four torch examples on the card as concurrent
+    subprocesses (each kernel call held bit-exact against its plain
+    version there), the dry run's flops, argument bytes and wire record
+    against the card on ``TOOL_CONFIGS``, then the ``--all`` dry run
+    started at the beginning of the run joined (``# 40/40 OK``, rc 0).
+    Returns the launches of the phase's paths, the examples' included."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {n: subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " import chip_smoke; chip_smoke.run_checked_example(sys.argv[2])",
+         str(ROOT), str(ROOT / "examples" / f"{n}_torch.py")], cwd=ROOT,
+        env=env, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for n in EXAMPLES}
+    with reaped([procs]):
+        build.reset_launches()              # the phase 17 paths start here
+        record = {}
+        for name in TOOL_CONFIGS:
+            tool_config(torch, name, smi, record)
+        torch.cuda.synchronize()
+        launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}  # read here
+        check_record(record, launches, "phase 17 configurations")
+        log(f"# tooling checks {json.dumps(record)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        ex_launches = {}
+        for n, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"example {n} exited {proc.returncode}"
+                                     f":\n{out[-3000:]}\n{err[-3000:]}")
+            lines = out.splitlines()
+            for ln in lines[:-2]:
+                log(f"# example {n} | {ln}")
+            got = json.loads(lines[-2][len("# example launches "):])
+            log(f"# example {n} launches {json.dumps(got)}; checked "
+                f"{lines[-1][len('# example checks '):]}")
+            ex_launches[n] = got
+        log(f"# examples done at {time.perf_counter() - t0:.1f} s")
+    for counts in ex_launches.values():
+        for k, v in counts.items():
+            launches[k] += v
+    proc, start, log_path = dryrun
+    rc = proc.wait(timeout=900)
+    lines = log_path.read_text().splitlines()
+    reps = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    if rc != 0 or lines[-1] != "# 40/40 OK":
+        raise AssertionError(f"dryrun --all exited {rc}: {lines[-3:]}")
+    slow = sorted((r for r in reps if not r["skipped"]),
+                  key=lambda r: -r["run_s"])[:3]
+    log("# tooling dryrun --all --policy q4q8 " + json.dumps({
+        "card": smi, "last": lines[-1], "reports": len(reps),
+        "skipped": sum(r["skipped"] for r in reps),
+        "sum_run_s": round(sum(r.get("run_s", 0) for r in reps), 1),
+        "joined_after_s": round(time.perf_counter() - start, 1),
+        "slowest": [(r["arch"], r["shape"], r["run_s"]) for r in slow]}))
+    log(f"# phase 17 launches {launches}; done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     # cuBLAS reads this when it starts, so it goes before any CUDA call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -6458,6 +6759,7 @@ def main() -> int:
     from repro_torch.kernels import _build, framing, ops, pack4, quantize
     from repro_torch.kernels import tiling, topk_select as topk
     from repro_torch.transport import codecs, collectives
+    dryrun = start_dryrun()             # phase 17 joins it; it needs no card
 
     # -- phase 1 ------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6543,7 +6845,7 @@ def main() -> int:
                     f"the launches; its times are not to be used")
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
-    # -- phases 3-16: each main path, its counts set to 0 just before it and
+    # -- phases 3-17: each main path, its counts set to 0 just before it and
     # read just after; the kernels line sums them
     paths = []
     for phase, run in ((3, lambda: serve(torch, np, D, _build)),
@@ -6560,7 +6862,8 @@ def main() -> int:
                        (14, lambda: moe_models(torch, np, _build, smi)),
                        (15, lambda: rec_models(torch, np, _build, smi)),
                        (16, lambda: whisper_models(torch, np, _build,
-                                                   smi))):
+                                                   smi)),
+                       (17, lambda: tooling(torch, _build, smi, dryrun))):
         paths.append(run())
         log(f"# phase {phase} done at {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
@@ -6568,7 +6871,7 @@ def main() -> int:
         if not v:
             raise AssertionError(f"{k} was launched on no main path")
 
-    # -- phase 17: the kernels line -----------------------------------------
+    # -- phase 18: the kernels line -----------------------------------------
     line = []
     for name, (src, replaces) in KERNELS.items():
         row = (timed[DPQ8] if name in DP_KERNELS else

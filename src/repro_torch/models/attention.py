@@ -50,7 +50,10 @@ def _sdpa_block(q, k, v, mask, cap=None):
     kv = k.shape[2]
     qg = q.reshape(b, s, kv, h // kv, hd)
     logits = torch.einsum("bskgd,btkd->bkgst", qg, k).to(torch.float32)
-    logits = logits / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    # a host scalar, as the kernels read it; on meta in a shape-only run
+    scale = torch.tensor(hd, dtype=torch.float32,
+                         device="meta" if logits.is_meta else "cpu")
+    logits = logits / torch.sqrt(scale)
     logits = softcap(logits, cap)
     if mask.ndim == 3:
         mask = mask[:, None, None, :, :]

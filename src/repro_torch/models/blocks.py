@@ -43,8 +43,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
-from repro_torch.models.common import (DTYPE, dense_init, mlp_apply, mlp_init,
-                                       norm_apply, norm_init)
+from repro_torch.models.common import (DTYPE, dense_init, draws, mlp_apply,
+                                       mlp_init, norm_apply, norm_init)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.linattn import (chunked_linear_attention,
                                         linear_attention_decode)
@@ -240,7 +240,7 @@ def _rwkv_block_init(gen, cfg: ModelConfig, lead):
         return torch.full((*lead, *shape), value, dtype=f32, device=dev)
 
     def normal(shape, scale):
-        return torch.randn((*lead, *shape), generator=gen, dtype=f32,
+        return torch.randn((*lead, *shape), generator=draws(gen), dtype=f32,
                            device=dev).mul_(scale)
 
     # decay base: spread in [-6, -0.3] across channels (rwkv init)

@@ -4,7 +4,10 @@ softcap, initializers.
 Port of ``repro/models/common.py``.  Params are nested dicts of tensors;
 bf16 weights and activations, fp32 norm statistics and RoPE angles.
 Initializers draw from an explicit ``torch.Generator`` on the generator's
-device; ``lead`` prepends stacked dims (the layer-group dim).
+device; ``lead`` prepends stacked dims (the layer-group dim).  Given
+:data:`SHAPE_ONLY` in the generator's place they run the same code on the
+``meta`` device: every leaf has its shape and dtype and no storage, and
+nothing is drawn (the dry run's parameter tree).
 """
 from __future__ import annotations
 
@@ -17,19 +20,36 @@ import torch.nn.functional as F
 DTYPE = torch.bfloat16
 
 
+class ShapeOnly:
+    """Stands in for an init's ``torch.Generator``: the init builds its
+    tree on the ``meta`` device and draws nothing, so one code path lays
+    out both the real tree and the shape-only one."""
+    device = torch.device("meta")
+
+
+SHAPE_ONLY = ShapeOnly()
+
+
+def draws(gen):
+    """The generator a draw takes: none for :data:`SHAPE_ONLY` (a meta
+    tensor has no values to draw)."""
+    return None if isinstance(gen, ShapeOnly) else gen
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
                dtype=DTYPE, lead=()) -> torch.Tensor:
     """Truncated-normal fan-in init, ``(*lead, in, out)``.  The f32 draw is
     scaled in place: one f32 temporary of the leaf, not two."""
     t = torch.empty((*lead, in_dim, out_dim), dtype=torch.float32,
                     device=gen.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                generator=draws(gen))
     return t.div_(math.sqrt(in_dim)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                dtype=DTYPE) -> torch.Tensor:
-    t = torch.randn((vocab, dim), generator=gen, dtype=torch.float32,
+    t = torch.randn((vocab, dim), generator=draws(gen), dtype=torch.float32,
                     device=gen.device)
     return t.mul_(0.02).to(dtype)
 

@@ -50,9 +50,9 @@ from repro_torch.core.boundary import (boundary_apply, boundary_eval,
 from repro_torch.core.policy import CompressionPolicy, NO_POLICY
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
-from repro_torch.models.common import (DTYPE, embed_init, mlp_apply,
-                                       mlp_init, norm_apply, norm_init,
-                                       sinusoidal_pos)
+from repro_torch.models.common import (DTYPE, draws, embed_init,
+                                       mlp_apply, mlp_init, norm_apply,
+                                       norm_init, sinusoidal_pos)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import _group, _lm_logits, segment_bounds
 
@@ -79,9 +79,11 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, dtype=DTYPE):
     """Random params in the reference's tree layout, drawn from
     ``generator`` on its device (same layout, not the same numbers as
     ``jax.random``: use checkpoint.convert to carry reference params).
-    ``dec_pos`` is N(0, 0.01) drawn in float32, then cast."""
+    ``dec_pos`` is N(0, 0.01) drawn in float32, then cast.
+    ``common.SHAPE_ONLY`` as ``generator``: the same tree on ``meta``."""
     dev = generator.device
-    dec_pos = torch.randn((cfg.max_seq, cfg.d_model), generator=generator,
+    dec_pos = torch.randn((cfg.max_seq, cfg.d_model),
+                          generator=draws(generator),
                           dtype=torch.float32, device=dev)
     return {
         "embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype),

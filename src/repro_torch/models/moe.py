@@ -50,6 +50,8 @@ def dense_init_slices(gen: torch.Generator, in_dim: int, out_dim: int,
     (2, 128, 5120, 8192): 42.9 GB in f32)."""
     out = torch.empty((*lead, in_dim, out_dim), dtype=dtype,
                       device=gen.device)
+    if out.is_meta:
+        return out
     flat = out.view(-1, in_dim, out_dim)
     for i in range(flat.shape[0]):
         flat[i] = dense_init(gen, in_dim, out_dim, dtype)

@@ -72,7 +72,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, dtype=DTYPE):
     ``jax.random``: use checkpoint.convert to carry reference params).
     MoE expert stacks are drawn an (in, out) slice at a time
     (``moe.dense_init_slices``); every other leaf whole, so the dense
-    archs' draws are those they always were."""
+    archs' draws are those they always were.  ``common.SHAPE_ONLY`` as
+    ``generator``: the same tree on ``meta``, nothing drawn."""
     check_supported(cfg)
     layers = {f"b{i}": B.block_init(generator, cfg, kind, cfg.num_groups)
               for i, kind in enumerate(cfg.layer_kinds())}

@@ -136,6 +136,18 @@ def disable() -> None:
     _TRACER = None
 
 
+@contextlib.contextmanager
+def recording(capacity: int = 65536):
+    """A tracer of its own for the ``with`` block, which it yields; the
+    tracer installed before (or none) comes back after."""
+    global _TRACER
+    prev, _TRACER = _TRACER, Tracer(capacity)
+    try:
+        yield _TRACER
+    finally:
+        _TRACER = prev
+
+
 def get_tracer() -> Optional[Tracer]:
     """The active tracer, or None when tracing is off (the default)."""
     return _TRACER

@@ -568,7 +568,7 @@ def _make_pipeline_lm_train_step(cfg, policy: CompressionPolicy,
         wire = dict(slot.wire)
         if tpc is not None:
             wire.update(tpc.wire)
-        metrics = {"loss": loss.detach(), "aux": torch.zeros(()),
+        metrics = {"loss": loss.detach(), "aux": loss.new_zeros(()),
                    "total": loss.detach(), "wire": wire}
         new_states = ({"fw": new_fw, "bw": slot.state} if needs_state
                       else bstates)
@@ -659,7 +659,7 @@ def _make_dp_pipeline_lm_train_step(cfg, bp: BoundaryPolicy,
         wire.update(ring)
         if tpc is not None:
             wire.update(tpc.wire)
-        metrics = {"loss": loss.detach(), "aux": torch.zeros(()),
+        metrics = {"loss": loss.detach(), "aux": loss.new_zeros(()),
                    "total": loss.detach(), "wire": wire}
         return params, opt_state, bstates, dp_state, metrics
 
@@ -761,7 +761,7 @@ def _make_tp_lm_train_step(cfg, policy: CompressionPolicy,
             g_stack = tree_map(lambda a: a[0], g_stack)
         grads["layers"] = g_stack
         params, opt_state = apply_updates(opt, params, grads, opt_state)
-        metrics = {"loss": loss.detach(), "aux": torch.zeros(()),
+        metrics = {"loss": loss.detach(), "aux": loss.new_zeros(()),
                    "total": loss.detach(), "wire": wire}
         if dp > 1:
             return params, opt_state, bstates, dp_state, new_tp, metrics

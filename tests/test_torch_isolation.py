@@ -1,8 +1,10 @@
-"""The port stands alone: no file of ``src/repro_torch/`` or
-``chip_smoke.py`` imports JAX or the reference package, and entry points
-that are given no device ask for CUDA (and raise where there is none)."""
+"""The port stands alone: no file of ``src/repro_torch/``, of the torch
+examples (``examples/*_torch.py``) or ``chip_smoke.py`` imports JAX or
+the reference package, and entry points that are given no device ask for
+CUDA (and raise where there is none)."""
 import ast
 import os
+import runpy
 import subprocess
 import sys
 from pathlib import Path
@@ -26,8 +28,13 @@ PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
+def _examples():
+    return sorted((ROOT / "examples").glob("*_torch.py"))
+
+
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + _examples()
+            + [ROOT / "chip_smoke.py"])
 
 
 def _imported_roots(path: Path):
@@ -158,6 +165,21 @@ def test_obs_entry_points_without_device_ask_for_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="cuda"):
         ttrain.main(["--smoke", "--steps", "1", "--batch", "1",
                      "--metrics", "1"])
+
+
+def test_torch_examples_are_checked_for_imports():
+    names = {p.name for p in _port_files()}
+    assert {f"{n}_torch.py" for n in ("quickstart", "pipeline_stages",
+                                      "serve_compressed",
+                                      "finetune_index_reuse")} <= names
+
+
+@pytest.mark.parametrize("path", _examples(), ids=lambda p: p.name)
+def test_torch_examples_without_device_ask_for_cuda(no_cuda, monkeypatch,
+                                                    path):
+    monkeypatch.setattr(sys, "argv", [str(path)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        runpy.run_path(str(path), run_name="__main__")
 
 
 def test_cpu_tensors_take_the_plain_path():
