@@ -384,9 +384,27 @@ failure fatal:
      four torch examples (``examples/*_torch.py``) on the card as
      concurrent subprocesses under the same check, their tables printed
      ("# example <name> | ..."), their launches added to the phase's.
- 18. one ``{"kernels": [...]}`` line (launches summed over phases 3-17;
+ 18. the pipeline's stages as processes (``pipeline_apply_rank``, the
+     rank step of ``make_lm_train_step(group=)``): phase 5's runs
+     gpipe/q4q8, gpipe/top10reuse and 1f1b/aqsgd on 4 ranks and
+     interleaved/q4q8 on 2 (v = 2), full-width gpt2-small, 32 x 128 as 4
+     microbatches, 3 steps, each rank a process started with
+     ``torch.multiprocessing.spawn`` (the kernels built here, loaded
+     there), the gloo backend, every rank on the one card and every
+     payload staged through pinned host memory.  Each run held against
+     phase 5's of the same name: step 1's loss bitwise, steps 2-3 within
+     ``RANK_LOSS_RTOL`` (the clip's gathered norm), bytes and hops
+     exactly, launches summed over the ranks exactly phase 5's, every
+     rank's params, AdamW state and buffer rows on the card; "# ranks"
+     lines with the step seconds and tokens/s beside phase 5's, "# ranks
+     hop" with the staged hop's send and receive ms a direction;
+     ``torch.distributed.run --nproc-per-node 2 -m repro_torch.launch.train
+     --transport pipeline --stages 2 --dist-backend gloo --steps 2``
+     printing the one-process launcher's loss lines; gpipe/q4q8 on nccl
+     when the machine has 4 cards, else "# ranks nccl: not run".
+ 19. one ``{"kernels": [...]}`` line (launches summed over phases 3-18;
      the select kernels timed at the 38.6 M-element DP leaf), then the
-     ``{"ok": true, ...}`` line.  Every number's line of phases 8-17
+     ``{"ok": true, ...}`` line.  Every number's line of phases 8-18
      carries the card's name and power limit.
 
 Every profiled step of phases 3-11 records the card's activity only and
@@ -2210,7 +2228,7 @@ def pipe_expected_wire(name):
             "bw_bytes": hops * tel["bw_payload_bytes_per_hop"]}
 
 
-def pipeline(torch, D, build):
+def pipeline(torch, D, build, held=None):
     from repro_torch.configs.registry import get
     from repro_torch.models import transformer
 
@@ -2223,6 +2241,10 @@ def pipeline(torch, D, build):
     torch.cuda.synchronize()
     launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}  # read here
     log(f"# pipeline-path launches {launches}")
+    if held is not None:                    # phase 18 is held to these
+        held.update({n: {k: runs[n][k] for k in ("losses", "launches",
+                                                  "wire", "seconds")}
+                     for n in RANK_RUNS})
     for name, spec in PIPE_RUNS.items():
         run, want = runs[name], spec[4]
         for i, got in enumerate(run["launches"]):
@@ -6743,6 +6765,380 @@ def tooling(torch, build, smi, dryrun):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the pipeline's stages as processes
+# ---------------------------------------------------------------------------
+
+# run -> ranks (stages); each held against phase 5's run of the same name
+RANK_RUNS = {"gpipe/q4q8": 4, "gpipe/top10reuse": 4, "1f1b/aqsgd": 4,
+             "interleaved/q4q8": 2}
+# steps 2-3 part from phase 5 by the clip's gathered norm (one float32 ulp
+# at step 1: tests/test_torch_pipeline_ranks.py) and by what that moves
+# in the compressed steps after it
+RANK_LOSS_RTOL = 1e-3
+# the launcher's step 2 ppl (exp of the unrounded loss, after the clip's
+# gathered norm): read 44592.56 against 44592.30, 5.8e-6 relative
+RANK_LAUNCH_PPL_RTOL = 2e-5
+HOP_ITERS = 20
+RANK_WAIT_S = 900             # a rank that is never set going gives up
+RANK_LAUNCH = ["repro_torch.launch.train", "--transport", "pipeline",
+               "--stages", "2", "--steps", "2"]
+
+
+def _on_card(torch, tree, what):
+    """Every tensor of ``tree`` (dicts, lists, FeedbackStates) on the card."""
+    from repro_torch.core.feedback import FeedbackState
+    if isinstance(tree, FeedbackState):
+        tree = [tree.resid, tree.mirror, tree.agg]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
+            _on_card(torch, v, what)
+    elif torch.is_tensor(tree) and not tree.is_cuda:
+        raise AssertionError(f"{what}: a tensor on {tree.device}")
+
+
+def rank_run(torch, cfg, full, name, group, build):
+    """Phase 5's run ``name`` as this rank of ``group`` builds it: its own
+    params, AdamW state and buffer rows, the same seed-0 stream.  Returns
+    its losses (the last rank's), each step's launches, wire counters
+    (summed over the ranks) and CUDA-synchronised wall seconds."""
+    from repro_torch.launch.train import synthetic_stream
+    from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
+    from repro_torch.train.loop import _pipeline_bstates
+    from repro_torch.train.steps import make_lm_train_step, stage_params
+
+    _, _, sched, v = PIPE_RUNS[name][:4]
+    stages = PIPE_STAGES // v
+    policy = pipe_policy(name, stages)
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.01,
+                          schedule="cosine", t_max=PIPE_STEPS, grad_clip=1.0)
+    dev = group.device
+    params = stage_params(full, group.rank, stages, v)
+    bstates = _pipeline_bstates(policy, (PIPE_SEQ, cfg.d_model),
+                                batch=PIPE_BATCH, microbatches=PIPE_MB,
+                                num_samples=PIPE_SAMPLES,
+                                dtype=torch.bfloat16, virtual_stages=v,
+                                device=dev, stage=group.rank)
+    step = make_lm_train_step(cfg, policy, opt, transport="pipeline",
+                              pipeline_microbatches=PIPE_MB, schedule=sched,
+                              virtual_stages=v, group=group)
+    stream = synthetic_stream(cfg, PIPE_BATCH, PIPE_SEQ, 0,
+                              num_samples=PIPE_SAMPLES)
+    opt_state = init_opt_state(opt, params)
+    out = {"losses": [], "launches": [], "wire": [], "seconds": [],
+           "started": time.time()}
+    for _ in range(PIPE_STEPS):
+        toks, ids = next(stream)
+        batch = {"tokens": torch.from_numpy(toks).to(dev, torch.int64)}
+        ids = torch.from_numpy(ids).to(dev)
+        before = dict(build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, bstates, m = step(params, opt_state, bstates,
+                                             batch, ids)
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["losses"].append(None if m["loss"] is None
+                             else float(m["loss"]))
+        out["wire"].append(m["wire"])
+        out["launches"].append({k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+                                for k in KERNELS})
+    _on_card(torch, [params, opt_state, bstates], f"{name} rank "
+             f"{group.rank}")
+    return out
+
+
+def hop_ms(torch, group):
+    """Ranks 0 and 1 time the host-staged hop of a full-width microbatch
+    (CUDA-synchronised, ``HOP_ITERS`` each way): the q4 forward payload
+    from 0 to 1, the tiled q8 backward payload from 1 to 0.  Returns
+    this rank's times (ms) by codec, none on the other ranks."""
+    from repro_torch.transport.codecs import get_codec, payload_struct
+    if group.rank > 1:
+        return {}
+    x = torch.randn(MB_ROWS, device=group.device,
+                    generator=torch.Generator(group.device).manual_seed(3)
+                    ).to(torch.bfloat16)
+    times = {}
+    for codec, src, dst in (("q4", 0, 1), ("q8", 1, 0)):
+        payload = get_codec(codec).pack(x)
+        struct = payload_struct(payload)
+        ms = times[codec] = []
+        for _ in range(HOP_ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if group.rank == src:
+                group.send_payload(payload, dst)
+            else:
+                moved = group.recv_payload(struct, src)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if group.rank == dst and not all(torch.equal(moved[k], a)
+                                         for k, a in payload.items()):
+            raise AssertionError(f"hop {codec}: a leaf changed on the wire")
+    return times
+
+
+def rank_groups(cards):
+    """Phase 18's groups, run in turn by one spawn of 4 processes: (world,
+    backend, runs).  A rank past a group's world leaves."""
+    groups = [(w, "gloo", [n for n, ws in RANK_RUNS.items() if ws == w])
+              for w in (4, 2)]
+    if cards >= 4:
+        groups.insert(1, (4, "nccl", ["gpipe/q4q8"]))
+    return groups
+
+
+def rank_worker(rank, groups, go, tmp):
+    """One spawned process of phase 18: for each of ``groups`` that it is
+    a rank of, joins the group (gloo: every rank on cuda:0 of a one-card
+    machine; nccl: rank r on cuda:r), runs the group's runs on the card
+    once the file ``go`` exists, and writes what it measured to ``tmp``.
+    The kernels were built by the parent: it only loads them."""
+    stamps = {"process": time.time()}
+    import torch
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer
+    from repro_torch.transport.p2p import StageGroup
+    stamps["imported"] = time.time()
+    cfg = get("gpt2-small")
+    res = {"runs": {}, "devices": [], "stamps": stamps}
+    for i, (world, backend, names) in enumerate(groups):
+        if rank >= world:
+            break
+        with StageGroup(rank, world, backend, device="cuda",
+                        init_method=f"file://{tmp}/store{i}") as group:
+            full = transformer.init_params(
+                torch.Generator(device=group.device).manual_seed(0), cfg)
+            res["devices"].append([backend, str(group.device),
+                                   group.staged])
+            stamps[f"group {i} ready"] = time.time()
+            while not os.path.exists(go):
+                if time.time() - stamps["process"] > RANK_WAIT_S:
+                    raise RuntimeError("phase 18's ranks were never set "
+                                       "going")
+                time.sleep(0.05)
+            for n in names:
+                res["runs"][f"{n}@{backend}"] = rank_run(
+                    torch, cfg, full, n, group, _build)
+            if world > 2 and backend == "gloo":
+                res["hop_ms"] = hop_ms(torch, group)
+            stamps[f"group {i} done"] = time.time()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def spawn_ranks(groups, go, tmp):
+    """Spawn phase 18's 4 processes (spawn, not fork: this process has
+    CUDA up) without waiting for them."""
+    import torch.multiprocessing as mp
+    return mp.spawn(rank_worker, args=(groups, go, tmp),
+                    nprocs=max(w for w, _, _ in groups), join=False)
+
+
+def join_ranks(ctx, tmp, wall0, deadline, smi):
+    """Join the spawned ranks by ``deadline`` (perf_counter) or kill them;
+    returns each process's record, and logs when the slowest rank reached
+    each point."""
+    try:
+        while not ctx.join(timeout=max(deadline - time.perf_counter(),
+                                       0.1)):
+            if time.perf_counter() >= deadline:
+                raise AssertionError("phase 18: the ranks did not end in "
+                                     "time")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    recs = []
+    for r in range(len(ctx.processes)):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    marks = {}
+    for r in recs:
+        for k, t in [*r["stamps"].items(),
+                     *((f"run {n}", v["started"])
+                       for n, v in r["runs"].items())]:
+            marks[k] = max(marks.get(k, 0.0), t - wall0)
+    log(f"# ranks timeline (s from the spawn, slowest rank; {smi}): "
+        + json.dumps(dict(sorted(marks.items(), key=lambda kv: kv[1]))))
+    return recs
+
+
+def check_rank_run(name, recs, want, smi, backend):
+    """Run ``name`` over its ranks against ``want``, phase 5's: step 1's
+    loss bitwise, steps 2-3 within ``RANK_LOSS_RTOL``, bytes and hops
+    exactly, launches summed over the ranks exactly; returns the summed
+    launches."""
+    runs = [r["runs"][f"{name}@{backend}"] for r in recs]
+    losses = runs[-1]["losses"]
+    if any(x is not None for r in runs[:-1] for x in r["losses"]):
+        raise AssertionError(f"ranks {name}: a loss off the last rank")
+    if losses[0] != want["losses"][0]:
+        raise AssertionError(f"ranks {name}: step-1 loss {losses[0]} != "
+                             f"phase 5's {want['losses'][0]}")
+    for got, ref in zip(losses[1:], want["losses"][1:]):
+        if not abs(got - ref) <= RANK_LOSS_RTOL * abs(ref):
+            raise AssertionError(f"ranks {name}: losses {losses} vs phase "
+                                 f"5's {want['losses']}")
+    launches = []
+    for i in range(PIPE_STEPS):
+        if any(r["wire"][i] != want["wire"][i] for r in runs):
+            raise AssertionError(f"ranks {name} step {i + 1}: wire "
+                                 f"{runs[0]['wire'][i]} != phase 5's "
+                                 f"{want['wire'][i]}")
+        got = {k: sum(r["launches"][i][k] for r in runs) for k in KERNELS}
+        if got != want["launches"][i]:
+            raise AssertionError(f"ranks {name} step {i + 1}: launches "
+                                 f"{got} != phase 5's "
+                                 f"{want['launches'][i]}")
+        launches.append(got)
+    step_s = [max(r["seconds"][i] for r in runs) for i in range(PIPE_STEPS)]
+    tok = PIPE_BATCH * PIPE_SEQ * (PIPE_STEPS - 1)
+    log("# ranks " + json.dumps({
+        "run": name, "card": smi, "ranks": len(recs), "backend": backend,
+        "losses": losses, "phase5_losses": want["losses"],
+        "launches_per_step": {k: v for k, v in launches[0].items() if v},
+        "wire_per_step": runs[0]["wire"][0], "step_s": step_s,
+        "phase5_step_s": want["seconds"],
+        "tokens_per_s_steps_2_to_3": tok / sum(step_s[1:]),
+        "phase5_tokens_per_s_steps_2_to_3": tok / sum(want["seconds"][1:])}))
+    return {k: sum(s[k] for s in launches) for k in KERNELS}
+
+
+def check_rank_launcher(ranks, one, smi):
+    """The launcher's loss lines under ``torch.distributed.run`` against
+    the one-process launcher's: step 1's line bitwise (its ppl is the exp
+    of the unrounded loss), every step's rounded loss and bytes bitwise,
+    step 2's ppl within ``RANK_LAUNCH_PPL_RTOL`` (the clip's gathered
+    norm moved the params it runs from by a rounding)."""
+    keys = ("step", "loss", "ppl", "fw_bytes", "bw_bytes")
+    got = [{k: r[k] for k in keys} for r in ranks]
+    want = [{k: r[k] for k in keys} for r in one]
+    ok = (len(got) == len(want) == 2 and got[0] == want[0]
+          and all(g[k] == w[k] for g, w in zip(got, want)
+                  for k in ("step", "loss", "fw_bytes", "bw_bytes"))
+          and abs(got[1]["ppl"] - want[1]["ppl"])
+          <= RANK_LAUNCH_PPL_RTOL * want[1]["ppl"])
+    if not ok:
+        raise AssertionError(f"phase 18 launcher: ranks {got} vs one "
+                             f"process {want}")
+    log("# ranks launcher: torch.distributed.run --nproc-per-node 2 "
+        "--dist-backend gloo against the one-process launcher: "
+        + json.dumps({"card": smi, "ranks": got, "one_process": want}))
+
+
+PendingRanks = namedtuple("PendingRanks", "ctx procs tmp go groups wall0 t0")
+
+
+def start_stage_ranks(torch):
+    """Start phase 18's background work while phase 17 runs: the launcher
+    under ``torch.distributed.run`` (2 ranks, 2 full-width steps on the
+    card) and the 4 rank processes, which import, join their first group,
+    draw their params and then wait for the file ``go`` that phase 18
+    writes once phase 17 and the launcher are done, so that they run on
+    the card alone.  Whatever still runs at exit is killed."""
+    import shutil
+    import socket
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="ranks_")
+    go = os.path.join(tmp, "go")
+    groups = rank_groups(torch.cuda.device_count())
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    wall0, t0 = time.time(), time.perf_counter()
+    procs = launchers({"ranks": [
+        "torch.distributed.run", "--nproc-per-node", "2", "--master-addr",
+        "127.0.0.1", "--master-port", port, "-m", *RANK_LAUNCH,
+        "--log-every", "1", "--dist-backend", "gloo"]})
+    ctx = spawn_ranks(groups, go, tmp)
+
+    def stop():
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop)
+    return PendingRanks(ctx, procs, tmp, go, groups, wall0, t0)
+
+
+def stage_ranks(torch, smi, pending: PendingRanks, held):
+    """Phase 18: ``RANK_RUNS`` with one process a stage on the card
+    (gloo, payloads staged through the host), held against phase 5; the
+    launcher under ``torch.distributed.run`` (started with phase 17)
+    against the one-process launcher, run here in process; the NCCL case
+    where the machine has a card a rank.  ``held``: phase 5's runs.
+    Returns the launches summed over the ranks."""
+    import io
+    import shutil
+    from repro_torch.launch import train as launch_train
+    t0 = time.perf_counter()
+    ctx, procs, tmp, go, groups = pending[:5]
+    cards = torch.cuda.device_count()
+    try:
+        with reaped([procs]):
+            (rc_r, ranks, text), = launcher_results(procs, timeout=120
+                                                    ).values()
+        launcher_s = time.perf_counter() - pending.t0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = launch_train.main([*RANK_LAUNCH[1:], "--log-every", "1"])
+        one = [json.loads(ln) for ln in buf.getvalue().splitlines()
+               if ln.startswith("{")]
+        if rc != 0 or rc_r != 0:
+            raise AssertionError(f"phase 18 launcher exited {rc_r} (one "
+                                 f"process {rc}): {text[-3000:]}")
+        open(go, "w").close()           # the ranks run from here, alone
+        go_s = time.perf_counter() - t0
+        recs = join_ranks(ctx, tmp, pending.wall0, t0 + 150, smi)
+        check_rank_launcher(ranks, one, smi)
+        launches = {k: 0 for k in KERNELS}
+        for world, backend, names in groups:
+            for r in recs[:world]:
+                dev = [d for d in r["devices"] if d[0] == backend]
+                if not dev or not dev[0][1].startswith("cuda") or \
+                        dev[0][2] != (backend == "gloo"):
+                    raise AssertionError(f"phase 18 {backend} rank: "
+                                         f"{r['devices']}")
+            for name in names:
+                got = check_rank_run(name, recs[:world], held[name], smi,
+                                     backend)
+                for k in KERNELS:
+                    launches[k] += got[k]
+        hop = {c: {"send_ms": sum(recs[s]["hop_ms"][c]) / HOP_ITERS,
+                   "recv_ms": sum(recs[d]["hop_ms"][c]) / HOP_ITERS}
+               for c, s, d in (("q4", 0, 1), ("q8", 1, 0))}
+        log("# ranks hop " + json.dumps({
+            "card": smi, "backend": "gloo, staged through pinned host "
+            "memory", "iters": HOP_ITERS,
+            "fw_q4": {"bytes": PAYLOAD_BYTES["q4"], **hop["q4"]},
+            "bw_q8_tiled": {"bytes": PAYLOAD_BYTES["q8_tiled"],
+                            **hop["q8"]}}))
+        if cards < 4:
+            log(f"# ranks nccl: not run ({cards} card(s); NCCL takes one "
+                f"card a rank; {smi})")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"# phase 18 launches {launches} (the launcher done "
+        f"{launcher_s:.1f} s after its start with phase 17; the ranks "
+        f"set going at {go_s:.1f} s; the phase {time.perf_counter() - t0:.1f}"
+        f" s; {smi})")
+    return launches
+
+
 def main() -> int:
     # cuBLAS reads this when it starts, so it goes before any CUDA call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -6845,12 +7241,12 @@ def main() -> int:
                     f"the launches; its times are not to be used")
     log(f"# phase 2 done at {time.perf_counter() - t0:.1f} s")
 
-    # -- phases 3-17: each main path, its counts set to 0 just before it and
-    # read just after; the kernels line sums them
-    paths = []
+    # -- phases 3-18: each main path, its counts set to 0 just before it and
+    # read just after (phase 18's in its ranks); the kernels line sums them
+    paths, held = [], {}
     for phase, run in ((3, lambda: serve(torch, np, D, _build)),
                        (4, lambda: train(torch, D, _build)),
-                       (5, lambda: pipeline(torch, D, _build)),
+                       (5, lambda: pipeline(torch, D, _build, held)),
                        (6, lambda: data_parallel(torch, D, _build)),
                        (7, lambda: cnn(torch, D, _build)),
                        (8, lambda: pipeline_dp(torch, D, _build, smi)),
@@ -6863,7 +7259,13 @@ def main() -> int:
                        (15, lambda: rec_models(torch, np, _build, smi)),
                        (16, lambda: whisper_models(torch, np, _build,
                                                    smi)),
-                       (17, lambda: tooling(torch, _build, smi, dryrun))):
+                       (17, lambda: tooling(torch, _build, smi, dryrun)),
+                       (18, lambda: stage_ranks(torch, smi, pending,
+                                                held))):
+        if phase == 17:
+            # phase 18's launcher and ranks start beside phase 17: the
+            # ranks import and wait, and run on the card after it
+            pending = start_stage_ranks(torch)
         paths.append(run())
         log(f"# phase {phase} done at {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
@@ -6871,7 +7273,7 @@ def main() -> int:
         if not v:
             raise AssertionError(f"{k} was launched on no main path")
 
-    # -- phase 18: the kernels line -----------------------------------------
+    # -- phase 19: the kernels line -----------------------------------------
     line = []
     for name, (src, replaces) in KERNELS.items():
         row = (timed[DPQ8] if name in DP_KERNELS else

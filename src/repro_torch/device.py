@@ -28,6 +28,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def stage_device(local_rank: int, device=None) -> torch.device:
+    """The device of a stage rank in a rank-per-stage pipeline, from its
+    rank on its own node (``LOCAL_RANK`` under ``torch.distributed.run``;
+    the rank itself on one node):
+    ``cuda:{local_rank % torch.cuda.device_count()}`` for ``None`` or
+    ``"cuda"``, a device with an index as given, ``"cpu"`` the CPU.  Asking
+    for CUDA where there is none raises, as :func:`resolve_device` does."""
+    dev = resolve_device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
+    return torch.device("cuda", local_rank % torch.cuda.device_count())
+
+
 def use_kernel(t: torch.Tensor) -> bool:
     """Whether a wrapper given ``t`` launches its CUDA kernel."""
     if KERNEL_BACKEND == "plain":

@@ -12,6 +12,9 @@ Runs on ``cuda`` unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
       --smoke --device cpu --transport pipeline --stages 2 \\
       --schedule 1f1b --pipeline-microbatches 2 --policy q4q8
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
+      -m repro_torch.launch.train --arch gpt2-small --smoke --device cpu \\
+      --transport pipeline --stages 2 --dist-backend gloo --policy q4q8
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
       --smoke --device cpu --mesh data=2 --wire data=q4+ef --policy q4q8
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
@@ -40,7 +43,15 @@ Runs on ``cuda`` unless ``--device cpu``.
 compressed pipeline (``--stages``, ``--schedule``, ``--virtual-stages``,
 ``--pipeline-microbatches``; one process, every stage on the one
 device), and its JSON lines add the step's forward and backward wire
-bytes.  ``--mesh data=N --wire data=codec[+feedback][:k]`` (or the
+bytes.  ``--dist-backend gloo|nccl`` runs those stages as processes,
+one a rank, under ``python -m torch.distributed.run --nproc-per-node S``
+(the world size must be ``--stages``), every hop a point-to-point
+message (``transport/p2p.py``): ``nccl`` takes one card a rank, ``gloo``
+runs anywhere and stages each payload through the host on a card.  The
+last rank prints the JSON lines, their bytes summed over the ranks.  The
+ranks carry the stage axis alone, so data and tensor axes, ``--wire``
+rule specs, ``--ckpt`` / ``--resume`` and tracing are refused with them.
+``--mesh data=N --wire data=codec[+feedback][:k]`` (or the
 deprecated ``--dp`` / ``--dp-codec`` / ``--dp-feedback`` /
 ``--dp-k-frac``) adds N data-parallel replicas with the compressed
 gradient all-reduce: lanes around the simulated cuts, or, with
@@ -74,9 +85,11 @@ span that holds its synced loss.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import sys
 import time
 import warnings
@@ -99,7 +112,9 @@ from repro_torch.obs.export import to_chrome_trace, to_jsonl
 from repro_torch.obs.quality import QualityTap
 from repro_torch.optim.optimizers import OptimizerConfig, init_opt_state
 from repro_torch.train.loop import _pipeline_bstates, init_lm_dp_state
-from repro_torch.train.steps import _resolve_parallel, make_lm_train_step
+from repro_torch.train.steps import (_resolve_parallel, make_lm_train_step,
+                                     stage_params)
+from repro_torch.transport.p2p import StageGroup
 from repro_torch.transport.schedules import get_schedule
 from repro_torch.transport.tp_collectives import init_tp_state
 
@@ -288,19 +303,62 @@ def main(argv=None) -> int:
                          "feedback-buffer norms every N steps (obs/"
                          "quality.py; 0 = off; implies tracing)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dist-backend", default=None, choices=("gloo", "nccl"),
+                    help="run the pipeline's stages as processes, one a "
+                         "rank, under torch.distributed.run: nccl one card "
+                         "a rank, gloo anywhere (payloads staged through "
+                         "the host on a card)")
     args = ap.parse_args(argv)
     tracing = bool(args.trace or args.perfetto or args.metrics)
-    if not tracing:
-        return _train(ap, args, False)
-    obs_trace.enable()
-    try:
-        return _train(ap, args, True)
-    finally:
-        obs_trace.disable()
+    with contextlib.ExitStack() as closing:
+        if args.dist_backend and (int(os.environ.get("RANK", "0")) + 1
+                                  != int(os.environ.get("WORLD_SIZE", "1"))):
+            # the last rank prints the run; the others keep quiet
+            closing.enter_context(contextlib.redirect_stdout(
+                closing.enter_context(open(os.devnull, "w"))))
+        if tracing and not args.dist_backend:
+            obs_trace.enable()
+            closing.callback(obs_trace.disable)
+        return _train(ap, args, tracing, closing)
 
 
-def _train(ap, args, tracing: bool) -> int:
-    """:func:`main` after the parse; ``tracing``: the tracer is on."""
+def _refuse_on_ranks(ap, args, pipeline: bool, dp_n: int, tp_n: int,
+                     wire_rules, stages: int) -> None:
+    """``--dist-backend`` runs the pipeline's stages as ranks and nothing
+    else yet: what it does not place on ranks is refused, naming where it
+    stands, and so is a world size other than the stage count."""
+    later = "comes in a later slice of the port"
+    if not pipeline:
+        ap.error("--dist-backend runs the pipeline's stages as ranks: pass "
+                 "--transport pipeline (or --mesh stage=S)")
+    if dp_n > 1:
+        ap.error(f"--dist-backend: the DP ring across ranks {later}; "
+                 "drop --dp / the mesh's data axis")
+    if tp_n > 1:
+        ap.error(f"--dist-backend: the tensor ring across ranks {later}; "
+                 "drop the mesh's tensor axis")
+    if wire_rules:
+        ap.error(f"--dist-backend: --wire rule specs ({', '.join(wire_rules)}"
+                 f") on ranks {later}; name one codec an axis")
+    if args.ckpt or args.resume:
+        ap.error(f"--dist-backend: saving and resuming a rank's train state "
+                 f"{later}; drop --ckpt / --resume")
+    if args.trace or args.perfetto or args.metrics:
+        ap.error(f"--dist-backend: telemetry across ranks {later}; drop "
+                 "--trace / --perfetto / --metrics")
+    world = os.environ.get("WORLD_SIZE")
+    if world is None or "RANK" not in os.environ:
+        ap.error("--dist-backend runs one process a stage: launch it with "
+                 f"python -m torch.distributed.run --nproc-per-node {stages}"
+                 " -m repro_torch.launch.train ...")
+    if int(world) != stages:
+        ap.error(f"--dist-backend: the world size {world} must equal the "
+                 f"stage count {stages} (one rank a stage)")
+
+
+def _train(ap, args, tracing: bool, closing) -> int:
+    """:func:`main` after the parse; ``tracing``: the tracer is on;
+    ``closing``: an ExitStack that closes what the run opens."""
     grad_accum = args.grad_accum
     pipeline_mb = args.pipeline_microbatches
     if args.microbatches is not None:
@@ -366,6 +424,8 @@ def _train(ap, args, tracing: bool) -> int:
             # gradient tree, stage the per-example cut, tensor its 1/tp
             # sequence shard
             parallel = spec_from_cli(args.mesh, args.wire)
+            wire_rules = [n for n in ("data", "stage", "tensor")
+                          if parallel.axis(n).is_rules]
             parallel = parallel.resolved(
                 {"data": param_count(cfg), "stage": seq * cfg.d_model,
                  "tensor": seq * cfg.d_model // max(parallel.tp, 1)})
@@ -379,8 +439,11 @@ def _train(ap, args, tracing: bool) -> int:
     else:
         policy_eff, transport = policy, args.transport
         dp_n, dp_codec, dp_feedback = args.dp, args.dp_codec, args.dp_feedback
-        tp_n = 1
+        tp_n, wire_rules = 1, []
     pipeline = transport == "pipeline"
+    if args.dist_backend:
+        _refuse_on_ranks(ap, args, pipeline, dp_n, tp_n, wire_rules,
+                         policy_eff.num_stages)
     if args.batch % (dp_n * grad_accum):
         ap.error(f"--batch {args.batch} is not divisible by the {dp_n} "
                  f"data-parallel replicas x {grad_accum} accumulation "
@@ -392,6 +455,14 @@ def _train(ap, args, tracing: bool) -> int:
 
     opt = OptimizerConfig(kind="adamw", lr=args.lr, weight_decay=0.01,
                           schedule="cosine", t_max=args.steps, grad_clip=1.0)
+    group = None
+    if args.dist_backend:
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        group = closing.enter_context(StageGroup(
+            rank, world, args.dist_backend, device=args.device,
+            local_rank=int(os.environ.get("LOCAL_RANK", rank)),
+            local_world=int(os.environ.get("LOCAL_WORLD_SIZE", world))))
+        dev = group.device
     params = (encdec if cfg.enc_dec else transformer).init_params(
         torch.Generator(device=dev).manual_seed(args.seed), cfg)
     opt_state = init_opt_state(opt, params)
@@ -411,9 +482,19 @@ def _train(ap, args, tracing: bool) -> int:
                 policy_eff, (seq, cfg.d_model), batch=args.batch,
                 microbatches=pipeline_mb, num_samples=args.num_samples,
                 dtype=torch.bfloat16, virtual_stages=virtual_stages,
-                dp=dp_n, device=dev)
+                dp=dp_n, device=dev,
+                stage=None if group is None else group.rank)
         except ValueError as e:
             ap.error(str(e))
+        if group is not None:
+            # every rank drew the whole model from the seed; it keeps its own
+            params = stage_params(params, group.rank, group.world,
+                                  virtual_stages)
+            opt_state = init_opt_state(opt, params)
+            print(f"# stages as ranks: {group.world} ranks, backend "
+                  f"{group.backend}"
+                  f"{', staged through the host' if group.staged else ''}",
+                  flush=True)
         print(f"# pipeline transport: schedule={args.schedule} "
               f"microbatches={mb_eff} "
               f"{sched.describe(mb_eff, policy_eff.num_stages)}", flush=True)
@@ -444,7 +525,8 @@ def _train(ap, args, tracing: bool) -> int:
             cfg, policy, opt, remat=not args.no_remat,
             grad_accum=grad_accum, transport=args.transport,
             pipeline_microbatches=pipeline_mb,
-            schedule=args.schedule, virtual_stages=virtual_stages, **pkw)
+            schedule=args.schedule, virtual_stages=virtual_stages,
+            group=group, **pkw)
     except (ValueError, NotImplementedError) as e:
         ap.error(str(e))
     dp_state = None
@@ -484,6 +566,8 @@ def _train(ap, args, tracing: bool) -> int:
     tap = (QualityTap((args.batch, seq, cfg.d_model), every=args.metrics,
                       dtype=torch.bfloat16, seed=args.seed, device=dev)
            if args.metrics else None)
+    # the rank-per-stage pipeline's loss lives on its last rank
+    logs = group is None or group.rank == group.world - 1
     metrics, t0 = [], time.time()
     for step in range(start_step + 1, args.steps + 1):
         toks, ids = next(stream)
@@ -502,7 +586,7 @@ def _train(ap, args, tracing: bool) -> int:
                 sa["loss"] = round(float(m["loss"]), 6)  # sync in span
         if tap is not None:
             tap.maybe_sample(step, policy, bstates or None)
-        if step % args.log_every == 0 or step == args.steps:
+        if logs and (step % args.log_every == 0 or step == args.steps):
             loss = float(m["loss"])       # waits for the device
             dt = time.time() - t0
             rec = {"step": step, "loss": round(loss, 4),
@@ -527,7 +611,7 @@ def _train(ap, args, tracing: bool) -> int:
                        "feedback": args.feedback, "dp": dp_n,
                        "dp_codec": dp_codec, "tp": tp_n},
                 dp_state=dp_state)
-    if args.json:
+    if args.json and logs:
         with open(args.json, "w") as f:
             json.dump(metrics, f, indent=1)
     if tracing:

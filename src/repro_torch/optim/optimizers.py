@@ -87,13 +87,35 @@ def init_opt_state(cfg: OptimizerConfig, params):
     return state
 
 
-def _global_norm(grads) -> torch.Tensor:
-    sq = [torch.sum(torch.square(g.to(torch.float32)))
-          for g in tree_leaves(grads)]
+def _square_sums(grads) -> list:
+    """Each leaf's sum of squares, float32, in ``tree_leaves`` order."""
+    return [torch.sum(torch.square(g.to(torch.float32)))
+            for g in tree_leaves(grads)]
+
+
+def _sqrt_of_sum(sq) -> torch.Tensor:
     total = sq[0]
     for v in sq[1:]:
         total = total + v
     return torch.sqrt(total)
+
+
+def _global_norm(grads) -> torch.Tensor:
+    return _sqrt_of_sum(_square_sums(grads))
+
+
+def ranks_global_norm(grads, all_gather) -> torch.Tensor:
+    """The global norm of a gradient tree whose leaves are split over
+    ranks: each rank's per-leaf squared sums of ``grads`` (the leaves it
+    owns) go to every rank through ``all_gather`` (a 1-D float32 tensor
+    -> one such tensor a rank, in rank order: the rank step's wrapper of
+    ``transport/p2p.py::StageGroup.all_gather_floats``) and are summed in
+    one fixed order, rank by rank, leaf by leaf, so every rank gets the
+    same bits.  One process sums each whole leaf in one reduction, so
+    where a rank holds part of a leaf the two norms can part in the last
+    bits (``tests/test_torch_pipeline_ranks.py`` states the bound)."""
+    rows = all_gather(torch.stack(_square_sums(grads)))
+    return _sqrt_of_sum([v for row in rows for v in row])
 
 
 def _work(t: torch.Tensor, donate: bool) -> torch.Tensor:
@@ -116,16 +138,19 @@ def _give(dst: torch.Tensor, new: torch.Tensor, dtype, donate: bool):
 
 @torch.no_grad()
 def apply_updates(cfg: OptimizerConfig, params, grads, state,
-                  donate: bool = False):
+                  donate: bool = False, grad_norm=None):
     """Returns ``(new_params, new_state)``.  ``donate``: ``params`` and
     ``state`` are updated in place and returned (the caller must not
-    expect the old values), the same bits as without it."""
+    expect the old values), the same bits as without it.  ``grad_norm``:
+    the global gradient norm the clip reads, when ``grads`` is one rank's
+    part of the tree (:func:`ranks_global_norm`); by default the norm of
+    ``grads``."""
     step = state["step"] + 1
     lr = schedule_lr(cfg, step)
     scale = None
     if cfg.grad_clip:
-        scale = torch.clamp(cfg.grad_clip / (_global_norm(grads) + 1e-9),
-                            max=1.0)
+        norm = _global_norm(grads) if grad_norm is None else grad_norm
+        scale = torch.clamp(cfg.grad_clip / (norm + 1e-9), max=1.0)
 
     def grad32(g):
         # the reference's bf16 grad times its f32 scale is promoted to f32

@@ -190,10 +190,11 @@ def _lm_eval(params, cfg, data, policy, compress, batch=16,
 def _pipeline_bstates(policy: CompressionPolicy, feat_shape, *, batch: int,
                       microbatches=None, num_samples: int = 0,
                       dtype=torch.float32, virtual_stages: int = 1,
-                      dp: int = 1, device=None):
+                      dp: int = 1, device=None, stage=None):
     """Feedback state for the pipeline transport: the stage-stacked
     ``init_feedback_state`` dict (with a replica dim first when ``dp >
-    1``), or ``[]`` for feedback-free policies."""
+    1``; rank ``stage``'s rows only, for the rank-per-stage pipeline), or
+    ``[]`` for feedback-free policies."""
     bp = policy.at(0) if policy.num_boundaries else BoundaryPolicy()
     if not (bp.needs_fw_buffer or bp.needs_bw_buffer):
         return []
@@ -201,7 +202,7 @@ def _pipeline_bstates(policy: CompressionPolicy, feat_shape, *, batch: int,
                                batch=batch, microbatches=microbatches,
                                num_samples=num_samples, dtype=dtype,
                                virtual_stages=virtual_stages, dp=dp,
-                               device=device)
+                               device=device, stage=stage)
 
 
 def init_lm_dp_state(cfg, params, policy: CompressionPolicy, dp: int,

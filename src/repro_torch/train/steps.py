@@ -59,9 +59,11 @@ from repro_torch.core.policy import (NO_COMPRESSION, BoundaryPolicy,
 from repro_torch.models import cnn, encdec, transformer
 from repro_torch.obs.keyed import keyed_step
 from repro_torch.optim.optimizers import (OptimizerConfig, apply_updates,
-                                          tree_leaves, tree_map)
+                                          ranks_global_norm, tree_leaves,
+                                          tree_map)
 from repro_torch.transport.collectives import make_grad_all_reduce
-from repro_torch.transport.pipeline import pipeline_apply
+from repro_torch.transport.codecs import payload_struct
+from repro_torch.transport.pipeline import pipeline_apply, pipeline_apply_rank
 from repro_torch.transport.schedules import as_schedule
 from repro_torch.transport.tp_collectives import TPCollectives, tp_apply
 
@@ -211,7 +213,7 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
                        dp=_UNSET, dp_codec=_UNSET, dp_feedback=_UNSET,
                        dp_k_frac=_UNSET, boundary_feat=None,
                        parallel: Optional[ParallelSpec] = None,
-                       donate: bool = False):
+                       donate: bool = False, group=None):
     """Returns ``step(params, opt_state, bstates, batch, ids) -> (params,
     opt_state, bstates, metrics)``.
 
@@ -266,7 +268,13 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
     -> (params, opt_state, bstates[, dp_state], tp_state, metrics)``; on
     the pipeline the tensor wire is feedback-free and the signature stays.
     ``metrics["wire"]`` adds the ring's ``tp_hops`` / ``tp_bytes`` (both
-    collectives, forward and backward, every rank)."""
+    collectives, forward and backward, every rank).
+
+    ``group`` (a ``transport/p2p.py::StageGroup`` of ``policy.num_stages``
+    ranks, with ``transport="pipeline"``) returns this rank's step of the
+    rank-per-stage pipeline (:func:`_make_rank_pipeline_lm_train_step`):
+    ``params``, ``opt_state`` and ``bstates`` are then the rank's own
+    (:func:`stage_params`, ``_pipeline_bstates(..., stage=rank)``)."""
     transformer.check_supported(cfg)
     mod = encdec if cfg.enc_dec else transformer
     policy = _resolve_rules(policy, boundary_feat)
@@ -290,6 +298,16 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
                 "pipeline + tensor parallelism: feedback-free tensor wires "
                 "only (EF/EF21 state does not thread through pipeline_apply "
                 "yet)")
+        if group is not None:
+            if spec.dp > 1 or spec.tp > 1:
+                raise NotImplementedError(
+                    "the stages as ranks carry the stage axis alone: the DP "
+                    "ring and the tensor ring across ranks come in later "
+                    "slices of the port")
+            return _make_rank_pipeline_lm_train_step(
+                cfg, policy, opt, group=group,
+                microbatches=pipeline_microbatches, schedule=schedule,
+                virtual_stages=virtual_stages)
         tp_kw = dict(tp=spec.tp, tp_codec=t_ax.codec, tp_k_frac=t_ax.k_frac)
         if spec.dp > 1:
             d_ax = spec.data
@@ -304,6 +322,9 @@ def make_lm_train_step(cfg, policy: CompressionPolicy, opt: OptimizerConfig,
             schedule=schedule, virtual_stages=virtual_stages, **tp_kw)
     if transport != "simulated":
         raise ValueError(f"unknown transport {transport!r}")
+    if group is not None:
+        raise ValueError("group= runs the pipeline's stages as ranks: pass "
+                         "transport='pipeline'")
     if spec.tp > 1:
         if grad_accum > 1:
             raise NotImplementedError("grad_accum > 1 + tensor parallelism")
@@ -570,6 +591,115 @@ def _make_pipeline_lm_train_step(cfg, policy: CompressionPolicy,
             wire.update(tpc.wire)
         metrics = {"loss": loss.detach(), "aux": loss.new_zeros(()),
                    "total": loss.detach(), "wire": wire}
+        new_states = ({"fw": new_fw, "bw": slot.state} if needs_state
+                      else bstates)
+        return params, opt_state, new_states, metrics
+
+    return step
+
+
+def stage_params(params, stage: int, num_stages: int,
+                 virtual_stages: int = 1):
+    """Rank ``stage``'s own leaves of the LM params for the rank-per-stage
+    pipeline, as fresh tensors (the caller may drop the whole tree): its
+    slices of the stage-stacked layer stack, ``(v, groups/(S*v), ...)``
+    with chunk ``k`` logical stage ``k*S + stage``; the embedding on rank
+    0; the final norm and the LM head on the last rank, which with tied
+    embeddings keeps its own copy of the embedding for its head."""
+    stack = transformer.stack_layer_stages(params, num_stages * virtual_stages)
+
+    def own(a):
+        return a.detach().clone(memory_format=torch.contiguous_format)
+
+    last = stage == num_stages - 1
+    mine = {"layers": tree_map(lambda a: own(a[stage::num_stages]), stack)}
+    for k, v in params.items():
+        if k == "embed":
+            keep = stage == 0 or (last and "lm_head" not in params)
+        else:
+            keep = last and k != "layers"
+        if keep:
+            mine[k] = tree_map(own, v)
+    return mine
+
+
+def _make_rank_pipeline_lm_train_step(cfg, policy: CompressionPolicy,
+                                      opt: OptimizerConfig, *, group,
+                                      microbatches: Optional[int] = None,
+                                      schedule: str = "gpipe",
+                                      virtual_stages: int = 1):
+    """Rank ``group.rank``'s step of the LM pipeline with one process a
+    stage (``transport/pipeline.py::pipeline_apply_rank``): the same
+    compressed step as :func:`_make_pipeline_lm_train_step`, split over
+    ranks.  Rank 0 embeds the whole batch, every rank runs its slices of
+    the stage-stacked layer stack, the last rank the final norm, the head
+    and the chunked loss on the whole batch.  With tied embeddings the
+    head's gradient of the embedding and the embedding's own cross between
+    rank 0 and the last rank, and each adds the other's to its own: two
+    terms, so both hold the one-process gradient's bits, and both update
+    their copy alike.  Each rank runs AdamW on the leaves it holds; the
+    clip's global norm gathers every rank's per-leaf squared sums
+    (``optim.ranks_global_norm``, one gather a step: every rank's count of
+    leaves is gathered at the first step), the last rank's embedding copy
+    left out.  Nothing else crosses the group but the hops and one sum of
+    the wire counters.  ``metrics["loss"]`` (and ``total``) is the loss on the last
+    rank, None elsewhere; ``metrics["wire"]`` the hops and bytes summed
+    over ranks."""
+    bp = _uniform_boundary(policy)
+    s_stages = policy.num_stages
+    if group.world != s_stages:
+        raise ValueError(f"the stage group has {group.world} ranks for "
+                         f"{s_stages} stages: one rank a stage")
+    d = group.rank
+    first, last = d == 0, d == s_stages - 1
+    needs_state = bp.needs_fw_buffer or bp.needs_bw_buffer
+    stage_fn = transformer.stage_stack_fn(cfg)
+    lens = []                   # every rank's count of clipped leaves
+
+    def gather(vec):
+        if not lens:
+            lens.extend(group.all_gather_lengths(vec.numel()))
+        return group.all_gather_floats(vec, lens)
+
+    def step(params, opt_state, bstates, batch, ids):
+        params = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        tokens = batch["tokens"]
+        x = transformer._embed_input(params, batch, cfg) if first else None
+        out, new_fw, slot = pipeline_apply_rank(
+            stage_fn, params["layers"], x, group=group, num_stages=s_stages,
+            policy=bp, microbatches=microbatches, schedule=schedule,
+            virtual_stages=virtual_stages,
+            fw_state=bstates["fw"] if needs_state else None,
+            bw_state=bstates["bw"] if needs_state else None, ids=ids,
+            shape=(*tokens.shape, cfg.d_model), dtype=transformer.DTYPE)
+        loss = grad_out = None
+        if last:
+            y = out.requires_grad_(True)
+            labels, mask = _labels_and_mask(tokens)
+            loss = transformer.hidden_lm_loss(params, y, labels, cfg, mask)
+            loss.backward()
+            grad_out = y.grad
+        slot.backward(grad_out)
+        grads = tree_map(lambda p: p.grad, params)
+        if cfg.tie_embeddings and (first or last):
+            other = s_stages - 1 if first else 0
+            g = grads["embed"]
+            theirs = group.exchange([(other, g)],
+                                    [(other, payload_struct(g))])[0]
+            grads["embed"] = g + theirs
+        norm = None
+        if opt.grad_clip:
+            owned = {k: v for k, v in grads.items()
+                     if first or k != "embed"}
+            norm = ranks_global_norm(owned, gather)
+        params, opt_state = apply_updates(opt, params, grads, opt_state,
+                                          grad_norm=norm)
+        keys = ("fw_hops", "fw_bytes", "bw_hops", "bw_bytes")
+        wire = dict(zip(keys, group.all_reduce_ints(
+            [slot.wire[k] for k in keys])))
+        loss = None if loss is None else loss.detach()
+        metrics = {"loss": loss, "aux": None if loss is None else
+                   loss.new_zeros(()), "total": loss, "wire": wire}
         new_states = ({"fw": new_fw, "bw": slot.state} if needs_state
                       else bstates)
         return params, opt_state, new_states, metrics

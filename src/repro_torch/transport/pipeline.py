@@ -15,10 +15,19 @@ policy's codec and, when the schedule fuses its hops (1f1b,
 interleaved), frames it into one uint8 buffer (``codecs.fuse_payload``);
 the receiver unframes and unpacks it.  The bytes of every hop are
 counted, per direction, in the :class:`PipelineSlot` that
-:func:`pipeline_apply` returns.  Placing the stages on several cards and
-moving the payloads with ``torch.distributed`` point-to-point sends is a
-later slice (NCCL refuses two ranks on one card, and gloo sends CPU
-tensors only).
+:func:`pipeline_apply` returns.
+
+:func:`pipeline_apply_rank` runs the same pipeline with one PROCESS a
+stage: rank ``d`` of a ``transport/p2p.py::StageGroup`` computes only its
+logical stages ``d, d+S, ...``, and every hop is a real message, the
+sender's packed (and, when the schedule fuses, framed) payload sent with
+``torch.distributed`` point-to-point to the receiver, which unframes and
+unpacks it.  Its backends are named by the caller: ``nccl``, one card a
+rank, sends from the cards; ``gloo`` runs anywhere, and on a card it
+stages each payload leaf through pinned host memory (the card's bytes
+copied to the host, sent, received on the host, copied back), which is
+how several ranks share one card.  The wire's bytes, codecs, framing and
+kernel launches are those of :func:`pipeline_apply`, summed over ranks.
 
 The loop is driven by the schedule's plan in the reference's ``(tick,
 device)`` order, but it computes only the VALID (microbatch, logical
@@ -63,7 +72,7 @@ as ``backward()`` runs through the hops.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -80,6 +89,7 @@ from repro_torch.transport.codecs import (LeafStruct, codec_for,
                                           fuse_payload, payload_leaves,
                                           payload_struct, unfuse_payload,
                                           wire_bytes)
+from repro_torch.transport.p2p import StageGroup
 from repro_torch.transport.schedules import Schedule, as_schedule
 from repro_torch.transport.tp_collectives import tp_local
 
@@ -101,7 +111,8 @@ def init_feedback_state(policy: BoundaryPolicy, feat_shape, *,
                         num_stages: int, batch: int,
                         microbatches: Optional[int] = None,
                         num_samples: int = 0, dtype=torch.float32,
-                        virtual_stages: int = 1, dp: int = 1, device=None):
+                        virtual_stages: int = 1, dp: int = 1, device=None,
+                        stage: Optional[int] = None):
     """Per-stage feedback buffers for the pipeline: ``{"fw", "bw"}``
     feedback states whose ``resid`` / ``mirror`` carry leading
     dim ``num_stages`` (device ``d``'s slice), then a chunk dim when
@@ -114,18 +125,26 @@ def init_feedback_state(policy: BoundaryPolicy, feat_shape, *,
     row ``r`` compensates its own contiguous batch shard, and AQ-SGD's
     buffer splits BY EXAMPLE ID (row ``r`` owns ids ``[r*ns/dp,
     (r+1)*ns/dp)``, addressed with ids localized by
-    ``core/feedback.shard_ids``)."""
+    ``core/feedback.shard_ids``).
+
+    ``stage``: only that device's rows, without the stage dim (what rank
+    ``stage`` of :func:`pipeline_apply_rank` holds: fw ``resid[stage]``
+    and ``mirror[stage]``, bw ``resid[stage]`` and ``mirror[stage]``)."""
+    if stage is not None and not 0 <= stage < num_stages:
+        raise ValueError(f"stage {stage} is not one of {num_stages}")
     mb = microbatches or num_stages
     if batch % (mb * dp):
         raise ValueError(f"batch {batch} not divisible by microbatches "
                          f"{mb} x dp {dp}")
     mbsz = batch // (mb * dp)
     chunk = () if virtual_stages == 1 else (virtual_stages,)
-    rep = () if dp == 1 else (dp,)
+    lead = () if dp == 1 else (dp,)
+    if stage is None:
+        lead += (num_stages,)
 
     def buf(mode: str, mirror: bool):
         if mode == "none" or (mirror and not needs_recv_mirror(mode)):
-            shape = (*rep, num_stages, 0)
+            shape = (*lead, 0)
         elif get_mode(mode).per_example:
             if num_samples <= 0:
                 raise ValueError("aqsgd needs the dataset size "
@@ -135,10 +154,9 @@ def init_feedback_state(policy: BoundaryPolicy, feat_shape, *,
                     f"aqsgd + dp shards the per-example buffer by id: "
                     f"num_samples {num_samples} must be divisible by "
                     f"dp {dp}")
-            shape = (*rep, num_stages, *chunk, num_samples // dp,
-                     *feat_shape)
+            shape = (*lead, *chunk, num_samples // dp, *feat_shape)
         else:
-            shape = (*rep, num_stages, *chunk, mb, mbsz, *feat_shape)
+            shape = (*lead, *chunk, mb, mbsz, *feat_shape)
         return torch.zeros(shape, dtype=dtype, device=device)
 
     def fbs(mode: str, direction: str) -> FeedbackState:
@@ -152,9 +170,10 @@ def init_feedback_state(policy: BoundaryPolicy, feat_shape, *,
             "bw": fbs(policy.bw_feedback, "bw")}
 
 
-def _empty_state(num_stages: int, dtype, direction: str,
+def _empty_state(lead: tuple, dtype, direction: str,
                  device=None) -> FeedbackState:
-    z = torch.zeros((num_stages, 0), dtype=dtype, device=device)
+    """A feedback-free state: size-0 buffers of shape ``(*lead, 0)``."""
+    z = torch.zeros((*lead, 0), dtype=dtype, device=device)
     return FeedbackState(resid=z, mirror=z,
                          agg=torch.zeros((0,), dtype=dtype, device=device),
                          scope="boundary", direction=direction, mode="none")
@@ -218,11 +237,15 @@ class PipelineTransport(Transport):
         self.wire = {"fw_hops": 0, "fw_bytes": 0, "bw_hops": 0,
                      "bw_bytes": 0}
 
+    def count(self, payload, direction: str) -> None:
+        """Count one hop of ``payload`` in ``wire``: the sender's tally."""
+        self.wire[f"{direction}_hops"] += 1
+        self.wire[f"{direction}_bytes"] += wire_bytes(payload)
+
     def _hop(self, payload, direction: str):
         """One hop of a packed payload: counted, and framed into one byte
         buffer and back when the schedule fuses its hops."""
-        self.wire[f"{direction}_hops"] += 1
-        self.wire[f"{direction}_bytes"] += wire_bytes(payload)
+        self.count(payload, direction)
         if not self.fused:
             return payload
         return unfuse_payload(fuse_payload(payload), payload_struct(payload))
@@ -307,6 +330,89 @@ class PipelineTransport(Transport):
             return {"g": st(shape, kb / 2.0), "e": st(shape, kb / 2.0)}
         return st(shape, kb)
 
+    def bw_wire_struct(self, shape):
+        """What a backward hop carries for an activation of ``shape``: the
+        bw payload's struct, or with ``reuse_indices`` the VALUES only
+        (bf16, the forward's k a row): the indices already sit at both
+        ends of the wire."""
+        if not self.policy.reuse_indices:
+            return self.bw_payload_struct(shape)
+        n = 1
+        for s in shape[1:]:
+            n *= s
+        k = topk_count(self.policy.fw.k_frac, n)
+        return LeafStruct((shape[0], k), torch.bfloat16)
+
+    # -- the two ends of a hop ----------------------------------------------
+    #
+    # ``send_buf`` / ``recv_buf``: the sending / receiving device's rows of
+    # the direction's ``resid`` / ``mirror`` buffer; their microbatch slice
+    # is read and the new one written in place.
+
+    def fw_send(self, y, send_buf, cut: Cut):
+        """Sender end of the forward hop of ``cut``: the (compensated)
+        payload of ``y``."""
+        mode = self.policy.feedback
+        if mode == "none":
+            return self._fw_codec.pack(y, self.policy.fw.k_frac)
+        v = self.virtual_stages
+        send_sl = gather_rows(send_buf, cut.k, cut.j, cut.ids, mode, v)
+        payload, new_send = self.pack_fw_message(y, send_sl)
+        scatter_rows(send_buf, cut.k, cut.j, cut.ids, mode, v, new_send)
+        return payload
+
+    def fw_recv(self, moved, shape, dtype, recv_buf, cut: Cut):
+        """Receiver end of the forward hop of ``cut``: the message."""
+        mode = self.policy.feedback
+        if mode == "none":
+            return self._fw_codec.unpack(moved, shape, dtype)
+        v = self.virtual_stages
+        recv_sl = (gather_rows(recv_buf, cut.k2, cut.j, cut.ids, mode, v)
+                   if needs_recv_mirror(mode) else None)
+        out, new_recv = self.unpack_fw_message(moved, shape, dtype, recv_sl)
+        if new_recv is not None:
+            scatter_rows(recv_buf, cut.k2, cut.j, cut.ids, mode, v, new_recv)
+        return out
+
+    def bw_send(self, g, send_buf, cut: Cut, idx_recv=None):
+        """Sender end (the forward's receiver) of the backward hop of
+        ``cut``: the (compensated) payload of ``g``, or with
+        ``reuse_indices`` its values at the forward's received TopK
+        indices ``idx_recv``."""
+        if self.policy.reuse_indices:
+            b = g.shape[0]
+            return torch.gather(g.reshape(b, -1), 1,
+                                idx_recv.to(torch.int64)).to(torch.bfloat16)
+        mode = self.policy.bw_feedback
+        if mode == "none":
+            return self._bw_codec.pack(g, self.policy.bw.k_frac)
+        v = self.virtual_stages
+        send_sl = gather_rows(send_buf, cut.k2, cut.j, cut.ids, mode, v)
+        payload, new_send = self.pack_bw_message(g, send_sl)
+        scatter_rows(send_buf, cut.k2, cut.j, cut.ids, mode, v, new_send)
+        return payload
+
+    def bw_recv(self, moved, shape, dtype, recv_buf, cut: Cut,
+                idx_sent=None):
+        """Receiver end (the forward's sender) of the backward hop of
+        ``cut``: the gradient of the sender's activation (with
+        ``reuse_indices`` the values scattered at the forward's sent TopK
+        indices ``idx_sent``)."""
+        if self.policy.reuse_indices:
+            return topk_scatter(moved.to(torch.float32),
+                                idx_sent.to(torch.int32), shape,
+                                torch.float32).to(dtype)
+        mode = self.policy.bw_feedback
+        if mode == "none":
+            return self._bw_codec.unpack(moved, shape, dtype)
+        v = self.virtual_stages
+        recv_sl = (gather_rows(recv_buf, cut.k, cut.j, cut.ids, mode, v)
+                   if needs_recv_mirror(mode) else None)
+        g_y, new_recv = self.unpack_bw_message(moved, shape, dtype, recv_sl)
+        if new_recv is not None:
+            scatter_rows(recv_buf, cut.k, cut.j, cut.ids, mode, v, new_recv)
+        return g_y
+
     # -- hops ---------------------------------------------------------------
 
     def fw_hop(self, y, fw_st: FeedbackState, cut: Cut):
@@ -315,30 +421,14 @@ class PipelineTransport(Transport):
         slices are written in place.  Returns (message, ctx): ``ctx``
         carries the (sent, received) TopK indices under
         ``reuse_indices``."""
-        mode = self.policy.feedback
-        if mode == "none":
-            payload = self._fw_codec.pack(y, self.policy.fw.k_frac)
-            moved = self._hop(payload, "fw")
-            out = self._fw_codec.unpack(moved, y.shape, y.dtype)
-            ctx = None
-            if self.policy.reuse_indices:
-                ctx = (payload["idx"], moved["idx"])
-            return out, ctx
-        v = self.virtual_stages
-        send_buf = fw_st.resid[cut.d]
-        send_sl = gather_rows(send_buf, cut.k, cut.j, cut.ids, mode, v)
-        payload, new_send = self.pack_fw_message(y, send_sl)
+        payload = self.fw_send(y, fw_st.resid[cut.d], cut)
         moved = self._hop(payload, "fw")
-        recv_buf = fw_st.mirror[cut.d2]
-        recv_sl = (gather_rows(recv_buf, cut.k2, cut.j, cut.ids, mode, v)
-                   if needs_recv_mirror(mode) else None)
-        out, new_recv = self.unpack_fw_message(moved, y.shape, y.dtype,
-                                               recv_sl)
-        scatter_rows(send_buf, cut.k, cut.j, cut.ids, mode, v, new_send)
-        if new_recv is not None:
-            scatter_rows(recv_buf, cut.k2, cut.j, cut.ids, mode, v,
-                         new_recv)
-        return out, None
+        out = self.fw_recv(moved, y.shape, y.dtype, fw_st.mirror[cut.d2],
+                           cut)
+        ctx = None
+        if self.policy.reuse_indices:
+            ctx = (payload["idx"], moved["idx"])
+        return out, ctx
 
     def bw_hop(self, g, bw_st: FeedbackState, cut: Cut, ctx):
         """Backward hop of ``cut``: the fw receiver (``d2``, chunk ``k2``)
@@ -346,34 +436,11 @@ class PipelineTransport(Transport):
         the payload is values only; under feedback it is compensated and
         the new bw ``resid`` / ``mirror`` slices are written in place.
         Returns the gradient of the fw sender's activation."""
-        if self.policy.reuse_indices:
-            idx_sent, idx_recv = ctx
-            b = g.shape[0]
-            vals = torch.gather(g.reshape(b, -1), 1,
-                                idx_recv.to(torch.int64)).to(torch.bfloat16)
-            vals_back = self._hop(vals, "bw")
-            return topk_scatter(vals_back.to(torch.float32),
-                                idx_sent.to(torch.int32), g.shape,
-                                torch.float32).to(g.dtype)
-        mode = self.policy.bw_feedback
-        if mode == "none":
-            payload = self._bw_codec.pack(g, self.policy.bw.k_frac)
-            moved = self._hop(payload, "bw")
-            return self._bw_codec.unpack(moved, g.shape, g.dtype)
-        v = self.virtual_stages
-        send_buf = bw_st.resid[cut.d2]
-        send_sl = gather_rows(send_buf, cut.k2, cut.j, cut.ids, mode, v)
-        payload, new_send = self.pack_bw_message(g, send_sl)
+        idx_sent, idx_recv = ctx if ctx is not None else (None, None)
+        payload = self.bw_send(g, bw_st.resid[cut.d2], cut, idx_recv)
         moved = self._hop(payload, "bw")
-        recv_buf = bw_st.mirror[cut.d]
-        recv_sl = (gather_rows(recv_buf, cut.k, cut.j, cut.ids, mode, v)
-                   if needs_recv_mirror(mode) else None)
-        g_y, new_recv = self.unpack_bw_message(moved, g.shape, g.dtype,
-                                               recv_sl)
-        scatter_rows(send_buf, cut.k2, cut.j, cut.ids, mode, v, new_send)
-        if new_recv is not None:
-            scatter_rows(recv_buf, cut.k, cut.j, cut.ids, mode, v, new_recv)
-        return g_y
+        return self.bw_recv(moved, g.shape, g.dtype, bw_st.mirror[cut.d],
+                            cut, idx_sent)
 
 
 class _Hop(torch.autograd.Function):
@@ -408,16 +475,7 @@ def wire_telemetry(transport: PipelineTransport, sched: Schedule,
     makes ``microbatches * wire_cuts`` hops per direction and replica row
     (``dp`` rows on the pipeline x DP grid)."""
     fw_pl = transport.fw_payload_struct(feat_shape)
-    if transport.policy.reuse_indices:
-        # the backward hop moves VALUES ONLY (bf16, forward k): the
-        # indices already sit at both ends of the wire
-        n = 1
-        for s in feat_shape[1:]:
-            n *= s
-        k = topk_count(transport.policy.fw.k_frac, n)
-        bw_pl = LeafStruct((feat_shape[0], k), torch.bfloat16)
-    else:
-        bw_pl = transport.bw_payload_struct(feat_shape)
+    bw_pl = transport.bw_wire_struct(feat_shape)
     return {
         "axis": "stage", "stages": transport.num_stages,
         "virtual_stages": transport.virtual_stages,
@@ -457,6 +515,17 @@ def _leading_dims(tree) -> set:
     if isinstance(tree, dict):
         return set().union(*(_leading_dims(v) for v in tree.values()))
     return {tree.shape[0]}
+
+
+def _microbatch_count(microbatches, num_stages: int) -> int:
+    if microbatches is None:
+        return num_stages
+    if not isinstance(microbatches, int) or microbatches <= 0:
+        raise ValueError(
+            "microbatches must be a positive int, got "
+            f"{microbatches!r}: pass None (or omit it) to default to "
+            "the stage count")
+    return microbatches
 
 
 def pipeline_apply(stage_fn: Callable, params_stacked, x, *,
@@ -520,15 +589,7 @@ def pipeline_apply(stage_fn: Callable, params_stacked, x, *,
     v = sched.virtual_stages
     transport = PipelineTransport(policy, s_stages, virtual_stages=v,
                                   fused=sched.fused_wire)
-    if microbatches is None:
-        mb = s_stages
-    else:
-        if not isinstance(microbatches, int) or microbatches <= 0:
-            raise ValueError(
-                "microbatches must be a positive int, got "
-                f"{microbatches!r}: pass None (or omit it) to default to "
-                "the stage count")
-        mb = microbatches
+    mb = _microbatch_count(microbatches, s_stages)
     sched.validate(mb, s_stages)
     b = x.shape[0]
     if b % mb:
@@ -548,9 +609,9 @@ def pipeline_apply(stage_fn: Callable, params_stacked, x, *,
             f"policy {policy.name!r} carries feedback buffers: pass "
             "fw_state/bw_state from init_feedback_state()")
     if fw_state is None:
-        fw_state = _empty_state(s_stages, x.dtype, "fw", x.device)
+        fw_state = _empty_state((s_stages,), x.dtype, "fw", x.device)
     if bw_state is None:
-        bw_state = _empty_state(s_stages, x.dtype, "bw", x.device)
+        bw_state = _empty_state((s_stages,), x.dtype, "bw", x.device)
     for st, nm in ((fw_state, "fw_state"), (bw_state, "bw_state")):
         if st.resid.numel() and st.resid.shape[0] != s_stages:
             raise ValueError(
@@ -613,3 +674,275 @@ def pipeline_apply(stage_fn: Callable, params_stacked, x, *,
                                              bw_state) for yr in y]
     out = torch.stack(outs).reshape(b, *x.shape[1:])
     return out, fw_state, PipelineSlot(bw_state, transport.wire)
+
+
+def pipeline_forward(stage_fn: Callable, params_stacked, x, *,
+                     num_stages: int, scheme: str = "none",
+                     k_frac: float = 0.1,
+                     microbatches: Optional[int] = None,
+                     schedule: Union[str, Schedule] = "gpipe",
+                     virtual_stages: Optional[int] = None):
+    """The reference's forward-only entry point (differentiable too):
+    :func:`pipeline_apply` with the wire ``scheme`` (a name of
+    ``SCHEME_POLICIES``) compressing BOTH directions alike.  Returns the
+    last stage's output ``(B, ...)``."""
+    try:
+        policy = SCHEME_POLICIES[scheme](k_frac)
+    except KeyError:
+        raise ValueError(f"unknown scheme {scheme!r}; "
+                         f"known: {sorted(SCHEME_POLICIES)}") from None
+    return pipeline_apply(stage_fn, params_stacked, x, num_stages=num_stages,
+                          policy=policy, microbatches=microbatches,
+                          schedule=schedule,
+                          virtual_stages=virtual_stages)[0]
+
+
+# ---------------------------------------------------------------------------
+# One rank a stage
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Tick:
+    """What one forward tick of a rank keeps for its backward: the stage
+    input ``h`` (the received message as a leaf; None when injected), the
+    stage output ``y``, the hops that brought ``h`` and took ``y`` (None
+    on the first / last logical stage) and, under ``reuse_indices``, the
+    TopK indices each end of those hops holds."""
+    h: Optional[torch.Tensor]
+    y: torch.Tensor
+    cut_in: Optional[Cut]
+    cut_out: Optional[Cut]
+    idx_in: Optional[torch.Tensor]
+    idx_out: Optional[torch.Tensor]
+
+
+class RankSlot:
+    """What :func:`pipeline_apply_rank` leaves for its backward: the
+    rank's bw feedback rows ``state`` (written in place as
+    :meth:`backward` runs), ``wire``, the hops and bytes THIS rank sent
+    per direction (summed over the ranks, the one-process
+    :class:`PipelineSlot`'s ``wire``), and :meth:`backward`."""
+
+    def __init__(self, run_backward: Callable, state: FeedbackState,
+                 wire: dict):
+        self._run, self.state, self.wire = run_backward, state, wire
+
+    def backward(self, grad_out: Optional[torch.Tensor] = None) -> None:
+        """Run this rank's backward, in reverse tick order, exchanging
+        the gradient payloads with its neighbours: the last rank passes
+        the gradient of the output it was given, every other rank None.
+        Rank 0 ends by back-propagating its input's gradient into ``x``.
+        Call it once, on every rank."""
+        run, self._run = self._run, None
+        if run is None:
+            raise RuntimeError("RankSlot.backward runs once")
+        run(grad_out)
+
+
+def _check_rank_rows(st: FeedbackState, name: str, v: int,
+                     feat_dims: int) -> None:
+    """A rank takes ITS rows of the stage-stacked buffers: ``([v,] mb,
+    mb_rows, *feat)``, or ``([v,] num_samples, *feat)`` for AQ-SGD."""
+    if not st.resid.numel():
+        return
+    rows = 1 if get_mode(st.mode).per_example else 2
+    want = (v > 1) + rows + feat_dims
+    if st.resid.dim() != want:
+        raise ValueError(
+            f"{name} has shape {tuple(st.resid.shape)}: a rank takes its "
+            "own rows of the stage-stacked buffers (init_feedback_state("
+            "..., stage=rank))")
+
+
+def pipeline_apply_rank(stage_fn: Callable, params_local, x=None, *,
+                        group: StageGroup, num_stages: int,
+                        policy: BoundaryPolicy,
+                        microbatches: Optional[int] = None,
+                        schedule: Union[str, Schedule] = "gpipe",
+                        virtual_stages: Optional[int] = None,
+                        fw_state: Optional[FeedbackState] = None,
+                        bw_state: Optional[FeedbackState] = None, ids=None,
+                        shape: Optional[Tuple[int, ...]] = None,
+                        dtype: Optional[torch.dtype] = None):
+    """:func:`pipeline_apply` with one process a stage: this process is
+    rank ``d = group.rank`` of ``num_stages`` (``transport/p2p.py``) and
+    runs only its logical stages ``d, d+S, ...`` (``lg % S == d``).
+    Returns ``(out, fw_state, slot)``: on the last rank the last logical
+    stage's output ``(B, ...)``, DETACHED (elsewhere None); the rank's fw
+    feedback rows, updated in place; and the :class:`RankSlot` whose
+    ``backward(grad_out)`` every rank then calls.
+
+    ``params_local``: the rank's stage slices, a tree with leading dim
+    ``v`` (chunk ``k`` is logical stage ``k*S + d``).  ``x``: the input
+    ``(B, ...)`` on rank 0, which injects its microbatches (None
+    elsewhere: pass the input's ``shape`` and ``dtype``).  ``fw_state`` /
+    ``bw_state``: the rank's rows of :func:`init_feedback_state`
+    (``stage=d``): fw ``resid[d]`` / ``mirror[d]``, bw ``resid[d]`` /
+    ``mirror[d]``.  ``ids``: the (B,) example ids, the same on every rank.
+
+    Forward, in tick order (``Schedule.column``): rank 0 injects chunk 0,
+    the others receive, unpack (their fw mirror under EF21 / AQ-SGD) and
+    take the message as a leaf; the stage runs (wrapped in
+    ``torch.utils.checkpoint`` under a rematerializing schedule); the
+    sender packs the (compensated) payload and sends it.  Backward, in
+    reverse tick order: receive the gradient payload from the next rank,
+    unpack it, ``torch.autograd.backward`` the stage, then pack the
+    input's gradient and send it to the previous rank (the wrap-around
+    hop of interleaved included).  Each stage slice thus accumulates its
+    microbatches' gradients in the order autograd does in one process.
+    Each tick's sends and receives go out together
+    (:meth:`StageGroup.exchange`), framed into one buffer when the
+    schedule fuses its hops, leaf by leaf otherwise.  Under
+    ``reuse_indices`` each end keeps its own copy of the TopK indices.
+    The sender counts its hops in ``slot.wire``."""
+    d, s_stages = group.rank, num_stages
+    if group.world != s_stages:
+        raise ValueError(f"a pipeline of {s_stages} stages runs one rank a "
+                         f"stage; the group has {group.world} ranks")
+    if s_stages < 2:
+        raise ValueError("a rank-per-stage pipeline needs 2 stages or more")
+    sched = as_schedule(schedule, virtual_stages)
+    v = sched.virtual_stages
+    transport = PipelineTransport(policy, s_stages, virtual_stages=v,
+                                  fused=sched.fused_wire)
+    mb = _microbatch_count(microbatches, s_stages)
+    sched.validate(mb, s_stages)
+    if d == 0:
+        if x is None:
+            raise ValueError("rank 0 injects the batch: pass x")
+        shape, dtype = tuple(x.shape), x.dtype
+    elif shape is None or dtype is None:
+        raise ValueError("the ranks past 0 receive their inputs: pass the "
+                         "shape and dtype of the pipeline's input")
+    b = shape[0]
+    if b % mb:
+        raise ValueError(f"batch {b} is not divisible by microbatch count "
+                         f"{mb} (microbatches defaults to the stage count)")
+    mbsz = b // mb
+    mb_shape = (mbsz, *shape[1:])
+    lead = _leading_dims(params_local)
+    if lead != {v}:
+        raise ValueError(
+            f"params_local must hold this rank's {v} stage slice(s) "
+            f"(leading dim virtual_stages); got leading dims {sorted(lead)}")
+    with_state = fw_state is not None or bw_state is not None
+    if (policy.needs_fw_buffer or policy.needs_bw_buffer) and not with_state:
+        raise ValueError(
+            f"policy {policy.name!r} carries feedback buffers: pass this "
+            "rank's fw_state/bw_state (init_feedback_state(..., stage=))")
+    dev = group.device
+    if fw_state is None:
+        fw_state = _empty_state((), dtype, "fw", dev)
+    if bw_state is None:
+        bw_state = _empty_state((), dtype, "bw", dev)
+    for st, nm in ((fw_state, "fw_state"), (bw_state, "bw_state")):
+        _check_rank_rows(st, nm, v, len(mb_shape) - 1)
+    if ids is None:
+        ids = torch.zeros((b,), dtype=torch.int32, device=dev)
+    ids_mb = ids.reshape(mb, mbsz)
+    reuse, fused = policy.reuse_indices, sched.fused_wire
+    fw_wire = transport.fw_payload_struct(mb_shape)
+    bw_wire = transport.bw_wire_struct(mb_shape)
+
+    def framed(struct):
+        """What the wire carries: the payload, or its one framed buffer."""
+        if not fused:
+            return struct
+        return LeafStruct((wire_bytes(struct),), torch.uint8)
+
+    def on_wire(payload):
+        return fuse_payload(payload) if fused else payload
+
+    def off_wire(moved, struct):
+        return unfuse_payload(moved, struct) if fused else moved
+
+    dense = stage_fn
+    if sched.remat_ticks:
+        def dense(p, h):
+            return checkpoint(stage_fn, p, h, use_reentrant=False)
+
+    prev, nxt = (d - 1) % s_stages, (d + 1) % s_stages
+    x_leaf = x_mb = None
+    if d == 0:
+        x_leaf = x.detach().requires_grad_(x.requires_grad)
+        x_mb = x_leaf.reshape(mb, *mb_shape)
+    column = dict(sched.column(d, mb, s_stages))
+    ticks = sched.num_ticks(mb, s_stages)
+    kept, outs, outgoing = {}, {}, None
+    # boundary t: send what tick t-1 made, receive what tick t takes
+    for t in range(ticks + 1):
+        pl = column.get(t)
+        recvs = ([(prev, framed(fw_wire))] if pl is not None
+                 and not pl.inject else [])
+        sends = [] if outgoing is None else [(nxt, outgoing)]
+        got = group.exchange(sends, recvs)
+        outgoing = None
+        if pl is None:
+            continue
+        lg = pl.k * s_stages + d
+        h = cut_in = cut_out = idx_in = idx_out = None
+        if pl.inject:
+            x_in = x_mb[pl.j]
+        else:
+            cut_in = Cut(d=prev, k=(lg - 1) // s_stages, d2=d, k2=pl.k,
+                         j=pl.j, ids=ids_mb[pl.j])
+            with torch.no_grad():
+                moved = off_wire(got[0], fw_wire)
+                h = transport.fw_recv(moved, mb_shape, dtype,
+                                      fw_state.mirror, cut_in)
+            x_in = h = h.detach().requires_grad_(True)
+            idx_in = moved["idx"] if reuse else None
+        y = dense(_index_tree(params_local, pl.k), x_in)
+        if pl.last:
+            outs[pl.j] = y
+        else:
+            cut_out = Cut(d=d, k=pl.k, d2=nxt, k2=(lg + 1) // s_stages,
+                          j=pl.j, ids=ids_mb[pl.j])
+            with torch.no_grad():
+                payload = transport.fw_send(y, fw_state.resid, cut_out)
+                transport.count(payload, "fw")
+                outgoing = on_wire(payload)
+            idx_out = payload["idx"] if reuse else None
+        kept[t] = _Tick(h, y, cut_in, cut_out, idx_in, idx_out)
+
+    def run_backward(grad_out):
+        if outs and grad_out is None:
+            raise ValueError("the last rank's backward needs grad_out, the "
+                             "gradient of its output")
+        g_mb = (grad_out.reshape(mb, *mb_shape) if outs else None)
+        outgoing = None
+        # boundary t: send what tick t+1 made, receive what tick t takes
+        for t in range(ticks - 1, -2, -1):
+            pl = column.get(t)
+            recvs = ([(nxt, framed(bw_wire))] if pl is not None
+                     and not pl.last else [])
+            sends = [] if outgoing is None else [(prev, outgoing)]
+            got = group.exchange(sends, recvs)
+            outgoing = None
+            if pl is None:
+                continue
+            tk = kept.pop(t)
+            if pl.last:
+                g = g_mb[pl.j]
+            else:
+                with torch.no_grad():
+                    g = transport.bw_recv(off_wire(got[0], bw_wire),
+                                          mb_shape, tk.y.dtype,
+                                          bw_state.mirror, tk.cut_out,
+                                          tk.idx_out)
+            torch.autograd.backward(tk.y, g)
+            if tk.h is not None:
+                with torch.no_grad():
+                    payload = transport.bw_send(tk.h.grad.contiguous(),
+                                                bw_state.resid, tk.cut_in,
+                                                tk.idx_in)
+                    transport.count(payload, "bw")
+                    outgoing = on_wire(payload)
+        if x_leaf is not None and x.requires_grad:
+            torch.autograd.backward(x, x_leaf.grad)
+
+    out = None
+    if outs:
+        out = torch.stack([outs[j].detach() for j in range(mb)]).reshape(
+            shape)
+    return out, fw_state, RankSlot(run_backward, bw_state, transport.wire)

@@ -110,6 +110,14 @@ class Schedule:
         return TickPlan(k=k, j=j, valid=valid, inject=d == 0 and k == 0,
                         last=d == s - 1 and k == v - 1)
 
+    def column(self, d: int, microbatches: int, num_stages: int) -> list:
+        """Device ``d``'s own column of the plan, in tick order: ``(t,
+        plan(t, d, ...))`` for its valid ticks only: what one rank of the
+        rank-per-stage pipeline runs (``pipeline_apply_rank``)."""
+        plans = ((t, self.plan(t, d, microbatches, num_stages))
+                 for t in range(self.num_ticks(microbatches, num_stages)))
+        return [(t, p) for t, p in plans if p.valid]
+
     # -- analytic cost model ------------------------------------------------
 
     def bubble_fraction(self, microbatches: int, num_stages: int) -> float:

@@ -167,6 +167,31 @@ def test_obs_entry_points_without_device_ask_for_cuda(no_cuda):
                      "--metrics", "1"])
 
 
+def test_stage_ranks_are_checked_and_ask_for_cuda(no_cuda, monkeypatch):
+    """``transport/p2p.py`` is among the files the import check reads; a
+    stage rank given no device (``StageGroup``, the device its rank step
+    runs on, and the launcher's ``--dist-backend``) asks for CUDA and
+    raises before any process group is made, rather than running on the
+    CPU."""
+    import torch.distributed as dist
+    from repro_torch.transport.p2p import StageGroup
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert "transport/p2p.py" in names
+    with pytest.raises(RuntimeError, match="cuda"):
+        D.stage_device(1)
+    for backend in ("gloo", "nccl"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            StageGroup(0, 2, backend)
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ttrain.main(["--smoke", "--steps", "1", "--batch", "2",
+                     "--transport", "pipeline", "--stages", "2",
+                     "--dist-backend", "gloo"])
+    assert not dist.is_initialized()
+
+
 def test_torch_examples_are_checked_for_imports():
     names = {p.name for p in _port_files()}
     assert {f"{n}_torch.py" for n in ("quickstart", "pipeline_stages",
